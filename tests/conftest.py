@@ -37,6 +37,9 @@ def pytest_configure(config):
                    "cheaper representative in the default tier. Run with "
                    "-m heavy (or -m '') before shipping optimizer/mesh/"
                    "catalog-path changes.")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+                   "each such test skips without a CUDA device")
 
 
 # parity tier: every test in these files builds torch reference models
