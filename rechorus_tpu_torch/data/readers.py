@@ -5,8 +5,8 @@ Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
 (= max id + 1) and `train_clicked_set` / `residual_clicked_set` per user,
 plus the fixed-shape `clicked_matrix()` the catalog paths take. The
-corpus arrays are built with numpy only (no native fast path, no corpus
-pickle cache).
+corpus arrays are built with numpy only (no native fast path); the
+corpus pickle cache lives in main.build_corpus.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 import pandas as pd
 
 from rechorus_tpu_torch.data.csr import CSRRows, csr_fill_matrix, pairs_to_csr
+from rechorus_tpu_torch.registry import register_reader
 
 
 def _fast_parse_list_column(values) -> list:
@@ -62,14 +63,29 @@ def eval_list_columns(df: pd.DataFrame) -> pd.DataFrame:
     return df
 
 
+@register_reader("BaseReader")
 class BaseReader:
     """Top-k general reader. Parity: src/helpers/BaseReader.py.
     `args` needs `path`, `dataset` and `sep`."""
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--path", type=str, default="data/", help="Input data dir.")
+        parser.add_argument("--dataset", type=str, default="Grocery_and_Gourmet_Food", help="Choose a dataset.")
+        parser.add_argument("--sep", type=str, default="\t", help="sep of csv file.")
+        parser.add_argument("--csv_chunksize", type=int, default=0,
+                            help="Read split CSVs in chunks of this many rows "
+                                 "(0 = whole-file). Bounds the parse-time peak "
+                                 "RSS on corpora with hundreds of millions of "
+                                 "rows; the assembled corpus arrays are compact "
+                                 "numpy either way.")
+        return parser
 
     def __init__(self, args):
         self.sep = args.sep
         self.prefix = args.path
         self.dataset = args.dataset
+        self.csv_chunksize = int(getattr(args, "csv_chunksize", 0) or 0)
         self._read_data()
         self._build_clicked_sets()
 
@@ -86,13 +102,20 @@ class BaseReader:
         flat, off = pairs_to_csr(res_u, res_i, self.n_users, unique=True)
         self.residual_clicked_set = CSRRows(flat.astype(np.int32), off)
 
+    def _read_csv(self, path: str) -> pd.DataFrame:
+        if not self.csv_chunksize:
+            return pd.read_csv(path, sep=self.sep)
+        chunks = [eval_list_columns(c) for c in
+                  pd.read_csv(path, sep=self.sep, chunksize=self.csv_chunksize)]
+        return pd.concat(chunks, ignore_index=True)
+
     def _read_data(self):
         logging.info('Reading data from "{}", dataset = "{}" '.format(self.prefix, self.dataset))
         self.data_df = dict()
         for key in ["train", "dev", "test"]:
             path = os.path.join(self.prefix, self.dataset, key + ".csv")
             self.data_df[key] = (
-                pd.read_csv(path, sep=self.sep).reset_index(drop=True)
+                self._read_csv(path).reset_index(drop=True)
                 .sort_values(by=["user_id", "time"])
             )
             self.data_df[key] = eval_list_columns(self.data_df[key])

@@ -26,7 +26,7 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C symbol -> argtypes; every launcher returns a cudaError_t as int
 SIGNATURES = {
     # pred, target, counts, B, N, stream
@@ -35,6 +35,8 @@ SIGNATURES = {
     "rtt_fused_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # u, table, tscore, target_col, bias, counts, B, N, D, n_valid, col_offset, stream
     "rtt_fused_ge_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # table, rows, block, N, R, row_bytes, stream
+    "rtt_scatter_rows": [_P, _P, _P, _L, _L, _L, _P],
 }
 
 _lib = None

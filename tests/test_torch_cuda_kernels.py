@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from rechorus_tpu_torch.ops import cuda_kernels as CK
+from rechorus_tpu_torch.ops import cuda_scatter as CS
 from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import topk as TT
 from rechorus_tpu_torch.serve import ServeIndex
@@ -122,3 +123,41 @@ def test_serve_index_defaults_to_the_card(dev):
     assert CT.fused_bucket_max.launches == before + 1
     ref = ServeIndex.from_tables(u_table, i_table, k=10, device="cpu").query(np.arange(1, 9))
     np.testing.assert_allclose(scores, ref[1], rtol=2e-5, atol=1e-5)
+
+
+# N, W, dtype, R: row bytes that take the 16-, 4-, 2- and 1-byte unit paths
+SCATTER_SHAPES = [(1, 1, torch.float32, 1), (97, 192, torch.float32, 50),
+                  (300, 64, torch.bfloat16, 300), (1001, 50, torch.float32, 333),
+                  (1001, 25, torch.bfloat16, 77), (513, 7, torch.uint8, 200),
+                  (5000, 3, torch.float64, 4999)]
+
+
+@pytest.mark.parametrize("N,W,dtype,R", SCATTER_SHAPES)
+def test_scatter_rows_kernel_equals_plain(dev, N, W, dtype, R):
+    gen = torch.Generator().manual_seed(N * W + R)
+    table = torch.randint(0, 200, (N, W), generator=gen).to(dtype)
+    block = torch.randint(0, 200, (R, W), generator=gen).to(dtype)
+    rows = torch.randperm(N, generator=gen)[:R].to(torch.int32)
+    rows[::7] = N + 3                     # dropped
+    if R > 1:
+        rows[1] = -2                      # dropped
+    before = CS.scatter_rows.launches
+    t = table.to(dev)
+    got = CS.scatter_rows(t, rows.to(dev), block.to(dev))
+    assert got is t and CS.scatter_rows.launches == before + 1
+    want = CS.scatter_rows_plain(table.clone(), rows, block)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_scatter_rows_unaligned_views_and_empty(dev):
+    """A block that starts 4 bytes into its storage leaves the 16-byte
+    path; R = 0 launches nothing."""
+    table = torch.zeros(64, 8, device=dev)
+    store = torch.arange(1 + 16 * 8, dtype=torch.float32, device=dev)
+    block = store[1:].view(16, 8)
+    rows = torch.arange(16, dtype=torch.int32, device=dev) * 3
+    CS.scatter_rows(table, rows, block)
+    assert torch.equal(table[rows.long()], block)
+    before = CS.scatter_rows.launches
+    CS.scatter_rows(table, rows[:0], block[:0])
+    assert CS.scatter_rows.launches == before
