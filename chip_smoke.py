@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import math
 import os
 import re
 import subprocess
@@ -69,6 +70,7 @@ EVAL_BATCH = 256
 N_USERS, N_ITEMS, EMB, BATCH, TOPK, N_CLICKED = 200_000, 1_000_000, 64, 4096, 100, 32
 N_CHECK = 64          # users checked against dense exact references
 N_PLAIN = 256         # users the plain B2/B3 versions are checked on
+SMALL_BATCHES = (EVAL_BATCH, 1)   # B2/B3 are also checked (and, at EVAL_BATCH, timed) below BATCH
 NEAR_TIE_RTOL = 1e-6  # a count may differ only through scores this close to the target
 B2_ATOL = 1e-4        # Gaussian bucket maxima: |s| <~ 40, 64-term f32 sums in two orders
 CATALOG_SRC = "rechorus_tpu_torch/csrc/catalog_kernels.cu"
@@ -160,18 +162,21 @@ def device_ms(fn, reps: int) -> dict:
     return out
 
 
-def sum_by_kernel(dev: dict, width: int = 96) -> dict:
+def sum_by_kernel(dev: dict, width: int = 96, whole_launches: bool = False) -> dict:
     """`device_ms`'s result as {kernel name cut to `width`: device ms per
-    call}, largest first."""
+    call}, largest first. `whole_launches` is for calls that launch every
+    kernel the same whole number of times: a fractional count then means
+    the trace dropped a record, and the count is rounded up."""
     per = {}
     for name, v in dev.items():
-        per[name[:width]] = per.get(name[:width], 0.0) + v["ms"] * v["launches"]
+        n = math.ceil(v["launches"] - 1e-9) if whole_launches else v["launches"]
+        per[name[:width]] = per.get(name[:width], 0.0) + v["ms"] * n
     return dict(sorted(per.items(), key=lambda kv: -kv[1]))
 
 
-def ms_by_kernel(fn, reps: int) -> dict:
+def ms_by_kernel(fn, reps: int, whole_launches: bool = False) -> dict:
     """{kernel name: device ms per call of `fn`}, largest first."""
-    return sum_by_kernel(device_ms(fn, reps))
+    return sum_by_kernel(device_ms(fn, reps), whole_launches=whole_launches)
 
 
 def host_ms_by_op(fn, reps: int, top: int = 10) -> dict:
@@ -189,6 +194,11 @@ def host_ms_by_op(fn, reps: int, top: int = 10) -> dict:
     events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"ops": sum(e.count for e in events) / reps,
             "self_ms": {e.key[:64]: e.self_cpu_time_total / 1e3 / reps for e in events[:top]}}
+
+
+def busy_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`, all its kernels together (torch.profiler)."""
+    return sum(ms_by_kernel(fn, reps).values())
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -253,7 +263,10 @@ def phase_build():
 def phase_kernels(gen):
     """Each kernel against its plain version on the same inputs, at the
     slice's widths: integer-valued inputs (exact sums) must agree exactly,
-    Gaussian ones within the stated tolerance / near-tie rule."""
+    Gaussian ones within the stated tolerance / near-tie rule. B2 and B3
+    run at BATCH users and again at the SMALL_BATCHES (the runner's
+    evaluation batch, and one user): each user's sums do not depend on the
+    batch around it, so those must equal the BATCH launch bit for bit."""
     dev = torch.device("cuda")
     err = {name: 0.0 for name in KERNELS}
 
@@ -288,7 +301,10 @@ def phase_kernels(gen):
         e = float((bm[fin] - ref[fin]).abs().max())
         err["fused_bucket_max"] = max(err["fused_bucket_max"], e)
         check(e == 0 if kind == "int" else e <= B2_ATOL, f"bucket_max {kind} max |err| {e}")
-        del bm, ref
+        for b in SMALL_BATCHES:
+            small = CT.fused_bucket_max(u[sub[:b]].contiguous(), table, bucket=TT.DEFAULT_BUCKET, **kw)
+            check(torch.equal(small, bm[:b]), f"bucket_max {kind} at B={b} equals the B={BATCH} launch")
+        del bm, ref, small
 
         tgt = torch.randint(1, N_ITEMS - 1000, (BATCH,), generator=gen, device=dev)
         s_t = (u.double() * table[tgt].double()).sum(1)
@@ -301,6 +317,10 @@ def phase_kernels(gen):
         torch.cuda.synchronize()
         diff = (got.long() - ref.long()).abs()
         err["fused_ge_count"] = max(err["fused_ge_count"], float(diff.max()))
+        for b in SMALL_BATCHES:
+            small = CT.fused_ge_count(u[sub[:b]].contiguous(), table, tscore[sub[:b]].contiguous(),
+                                      target_col=tcol[sub[:b]].contiguous(), **kw)
+            check(torch.equal(small, got[:b]), f"fused_ge_count {kind} at B={b} equals the B={BATCH} launch")
         if kind == "int":
             check(torch.equal(got, ref), "fused_ge_count int equals its plain version")
         else:
@@ -343,7 +363,7 @@ def phase_kernels(gen):
         check(torch.equal(got[keep], table[keep]), f"{what} leaves unnamed rows untouched")
         del table, block, got, ref
         torch.cuda.empty_cache()
-    emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN,
+    emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
          b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases])
     return err
@@ -743,8 +763,11 @@ def phase_catalog(gen):
 
 
 def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
-    """Kernel ms (CUDA events) beside bound, plain and one-call yardstick;
-    1M-item serve users/s (host clock, each query ends in a device sync)."""
+    """Kernel ms (CUDA events) beside bound, plain and one-call yardstick
+    (the yardstick's device time too, so kernel and call compare device to
+    device, wrapper and call host to host); B2 and B3 also at the runner's
+    evaluation batch; 1M-item serve users/s (host clock, each query ends
+    in a device sync)."""
     dev = torch.device("cuda")
     rows = {}
     with torch.no_grad():
@@ -759,6 +782,7 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
             device_ms=device_ms(lambda: CK.ge_count(pred, t), 20),
             plain_ms=cuda_ms(lambda: CK.ge_count_plain(pred, t), 200),
             library_ms=cuda_ms(lambda: (pred >= t[:, None]).sum(1), 200),
+            library_device_ms=busy_ms(lambda: (pred >= t[:, None]).sum(1), 20),
             shape=[B, N], bound=bound_ms(4 * (B * N + 2 * B), B * N))
         del pred
 
@@ -766,22 +790,32 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
         B, N, D = u.shape[0], it.shape[0], u.shape[1]
         G = -(-N // (TT.DEFAULT_BUCKET * CT.NB)) * CT.NB
         bm_kw = dict(bucket=TT.DEFAULT_BUCKET, n_valid=N)
+        u_eval = u[:EVAL_BATCH].contiguous()
         rows["fused_bucket_max"] = dict(
             ms=cuda_ms(lambda: CT.fused_bucket_max(u, it, **bm_kw), 10),
             device_ms=device_ms(lambda: CT.fused_bucket_max(u, it, **bm_kw), 3),
             plain_ms=cuda_ms(lambda: CT.fused_bucket_max_plain(u, it, **bm_kw), 3, warmup=1),
             library_ms=None, shape=[B, N, D],
-            bound=bound_ms(4 * (B * D + N * D + B * G), 2 * B * N * D + B * N))
+            bound=bound_ms(4 * (B * D + N * D + B * G), 2 * B * N * D + B * N),
+            at_eval_batch=dict(
+                batch=EVAL_BATCH, ms=cuda_ms(lambda: CT.fused_bucket_max(u_eval, it, **bm_kw), 20),
+                bound=bound_ms(4 * (EVAL_BATCH * (D + G) + N * D), (2 * D + 1) * EVAL_BATCH * N)))
         torch.cuda.empty_cache()
         tidx = target.long()
         tscore = (u * it[tidx]).sum(-1).contiguous()
         ge_kw = dict(target_col=target, n_valid=N)
+        ge_eval = dict(target_col=target[:EVAL_BATCH].contiguous(), n_valid=N)
+        ts_eval = tscore[:EVAL_BATCH].contiguous()
         rows["fused_ge_count"] = dict(
             ms=cuda_ms(lambda: CT.fused_ge_count(u, it, tscore, **ge_kw), 10),
             device_ms=device_ms(lambda: CT.fused_ge_count(u, it, tscore, **ge_kw), 3),
             plain_ms=cuda_ms(lambda: CT.fused_ge_count_plain(u, it, tscore, **ge_kw), 3, warmup=1),
             library_ms=None, shape=[B, N, D],
-            bound=bound_ms(4 * (B * D + N * D + 3 * B), 2 * B * N * D + B * N))
+            bound=bound_ms(4 * (B * D + N * D + 3 * B), 2 * B * N * D + B * N),
+            at_eval_batch=dict(
+                batch=EVAL_BATCH,
+                ms=cuda_ms(lambda: CT.fused_ge_count(u_eval, it, ts_eval, **ge_eval), 20),
+                bound=bound_ms(4 * (EVAL_BATCH * (D + 3) + N * D), (2 * D + 1) * EVAL_BATCH * N)))
         torch.cuda.empty_cache()
 
         # B4 at the packed item table's step shape; every id valid
@@ -796,6 +830,7 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
             device_ms=device_ms(lambda: CS.scatter_rows(table, ids, block), 20),
             plain_ms=cuda_ms(lambda: CS.scatter_rows_plain(table, ids, block), 200),
             library_ms=cuda_ms(lambda: table.index_copy_(0, ids64, block), 200),
+            library_device_ms=busy_ms(lambda: table.index_copy_(0, ids64, block), 20),
             shape=[N, W, R], bound=bound_ms(2 * R * W * 4 + 4 * R, 0))
         del table, block
         torch.cuda.empty_cache()
@@ -809,7 +844,7 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
     elapsed = time.perf_counter() - t0
     ms_per_batch = elapsed * 1e3 / len(batches[1:])
     # where one batch's device time goes, and the device's busy share
-    per_batch = ms_by_kernel(lambda: idx.query(batches[1]), 3)
+    per_batch = ms_by_kernel(lambda: idx.query(batches[1]), 3, whole_launches=True)
     busy = sum(per_batch.values())
     serve = dict(users_per_s=len(batches[1:]) * BATCH / elapsed, ms_per_batch=ms_per_batch,
                  batch=BATCH, n_items=N_ITEMS, k=TOPK, clicked_per_user=N_CLICKED,

@@ -50,18 +50,18 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the library for the sources in `csrc_dir` and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.iterdir()):
+    for src in sorted(csrc_dir.iterdir()):
         h.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"librtt_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
+def build(csrc_dir: Path = CSRC_DIR) -> tuple[Path, str]:
     """(library path, nvcc/ptxas log). Compiles only when the library for
-    the current sources is missing; the log is kept beside it."""
-    lib = library_path()
+    the sources in `csrc_dir` is missing; the log is kept beside it."""
+    lib = library_path(csrc_dir)
     log_path = lib.with_suffix(".log")
     if lib.exists() and log_path.exists():
         return lib, log_path.read_text()
@@ -69,7 +69,7 @@ def build() -> tuple[Path, str]:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in sorted(CSRC_DIR.glob("*.cu")):
+        for src in sorted(csrc_dir.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -93,26 +93,30 @@ def build() -> tuple[Path, str]:
     return lib, log
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """The library at `path` with every launcher's argtypes bound."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rtt_error_string.argtypes = [ctypes.c_int]
+    lib.rtt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built at first use, with argtypes bound."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.rtt_error_string.argtypes = [ctypes.c_int]
-        lib.rtt_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call launcher `name` on `device`'s current PyTorch stream; raise on
-    the error it returns."""
-    lib = load()
+def launch(name: str, device: torch.device, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call launcher `name` (of `lib`, by default this tree's library) on
+    `device`'s current PyTorch stream; raise on the error it returns."""
+    lib = lib or load()
     with torch.cuda.device(device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions ON THE CARD, at
 ragged shapes chip_smoke.py does not reach (B, N and D off the tile
-sizes, D below and above one 32-dim stage, bias, col_offset, n_valid).
+sizes, D below and above one 64-dim stage, bias, col_offset, n_valid).
 Integer-valued inputs make every f32 sum exact, so results must be equal.
 
 Marked `cuda`; each test skips without a CUDA device. On the GPU machine
@@ -50,6 +50,22 @@ SHAPES = [  # B, N, D, bucket, bias, col_offset, n_valid offset from N + col_off
     (70, 4197, 64, 16, False, 7, -40),
     (130, 2049, 100, 2, True, 0, 5),
     (64, 16421, 33, 16, True, 1300, -1),
+    # the 128 x 128 tile's edges: B around one and two user tiles, N one row
+    # before, on and after a chunk (128) and a block (bucket * 128) boundary,
+    # D below, on and above one 64-dim stage, bucket 1
+    (127, 127, 4, 1, False, 0, None),
+    (128, 128, 60, 1, True, 0, -1),
+    (129, 129, 64, 1, False, 3, None),
+    (5, 511, 64, 4, True, 0, -2),
+    (9, 512, 64, 4, False, 0, None),
+    (3, 513, 64, 4, True, 2, 1),
+    (257, 2047, 68, 16, True, 0, -5),
+    (128, 2048, 128, 16, False, 0, None),
+    (129, 2049, 130, 16, True, 11, 2),
+    (64, 20481, 64, 16, True, 0, -1),
+    # D above what lets the user tile stay resident: its slabs ride the ring
+    (130, 700, 320, 3, False, 5, None),
+    (3, 1000, 400, 2, True, 0, -7),
 ]
 
 

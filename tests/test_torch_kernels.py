@@ -20,6 +20,8 @@ from rechorus_tpu.ops import pallas_topk as PT
 from rechorus_tpu_torch.ops import cuda_kernels as CK
 from rechorus_tpu_torch.ops import cuda_topk as CT
 
+from test_torch_cuda_kernels import SHAPES
+
 NEAR_TIE_RTOL = 1e-6
 
 
@@ -117,6 +119,35 @@ def test_fused_ge_count_matches_pallas(kind, with_bias, with_target, col_offset)
         gid = np.arange(N) + col_offset
         ok = ((gid > 0) & (gid < n_valid))[None] & (gid[None] != tgt[:, None])
         assert (np.abs(got.astype(np.int64) - ref) <= _near_ties(s64, tscore, ok)).all()
+
+
+@pytest.mark.parametrize("B,N,D,bucket,with_bias,off,nv", SHAPES)
+def test_fused_plain_versions_match_pallas_at_tile_edges(B, N, D, bucket, with_bias, off, nv):
+    """The shapes the card-only tests give the CUDA kernels (B, N and D on
+    and around the tile, chunk, block and stage sizes), on integer inputs:
+    the plain versions equal the Pallas kernels exactly."""
+    rng = np.random.default_rng(B + N + D)
+    u, t = _inputs(rng, "int", B, D), _inputs(rng, "int", N, D)
+    bias = _inputs(rng, "int", N) if with_bias else None
+    n_valid = None if nv is None else N + off + nv
+    j_bias = None if bias is None else jnp.asarray(bias)
+    t_bias = None if bias is None else torch.from_numpy(bias)
+    ref = np.asarray(PT.fused_bucket_max(jnp.asarray(u), jnp.asarray(t), bucket=bucket, bias=j_bias,
+                                         n_valid=n_valid, col_offset=jnp.int32(off)))
+    got = CT.fused_bucket_max(torch.from_numpy(u), torch.from_numpy(t), bucket=bucket,
+                              bias=t_bias, n_valid=n_valid, col_offset=off).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+    tgt = rng.integers(0, N, size=B)
+    tscore = _scores64(u, t, bias)[np.arange(B), tgt].astype(np.float32)
+    tcol = (tgt + off).astype(np.int32)
+    ref = np.asarray(PT.fused_ge_count(jnp.asarray(u), jnp.asarray(t), jnp.asarray(tscore),
+                                       target_col=jnp.asarray(tcol), bias=j_bias,
+                                       n_valid=n_valid, col_offset=jnp.int32(off)))
+    got = CT.fused_ge_count(torch.from_numpy(u), torch.from_numpy(t), torch.from_numpy(tscore),
+                            target_col=torch.from_numpy(tcol), bias=t_bias, n_valid=n_valid,
+                            col_offset=off).numpy()
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_expand_bucket_items_inverts_partition():
