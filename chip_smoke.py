@@ -19,8 +19,9 @@ shapes the main path gives it, and drives the port's main paths:
 
 It checks what comes out (loss falls, dev HR@5 above a band taken from the
 JAX package, reload reproduces, lanes bit-equal, served ids and ranks equal
-dense exact references) and times each kernel beside its bound. Every
-phase prints one JSON line; the last line is
+dense exact references), times each kernel beside its bound and splits a
+kernel wrapper's call into the host time of its pieces. Every phase prints
+one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import itertools
 import json
 import math
 import os
@@ -58,6 +60,7 @@ from rechorus_tpu_torch.ops import topk as TT
 from rechorus_tpu_torch.ops.metrics import evaluate_topk_from_ranks
 from rechorus_tpu_torch.runners.base import BaseRunner
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
+from rechorus_tpu_torch.tools import launch_path
 from rechorus_tpu_torch.utils.rng import init_seed
 
 SEED = 2026
@@ -74,13 +77,18 @@ SMALL_BATCHES = (EVAL_BATCH, 1)   # B2/B3 are also checked (and, at EVAL_BATCH, 
 NEAR_TIE_RTOL = 1e-6  # a count may differ only through scores this close to the target
 B2_ATOL = 1e-4        # Gaussian bucket maxima: |s| <~ 40, 64-term f32 sums in two orders
 CATALOG_SRC = "rechorus_tpu_torch/csrc/catalog_kernels.cu"
+SCATTER_SRC = "rechorus_tpu_torch/csrc/scatter_kernels.cu"
 KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     "ge_count": (CK.ge_count, "rechorus_tpu/ops/pallas_kernels.py:66", CATALOG_SRC),
     "fused_bucket_max": (CT.fused_bucket_max, "rechorus_tpu/ops/pallas_topk.py:114", CATALOG_SRC),
     "fused_ge_count": (CT.fused_ge_count, "rechorus_tpu/ops/pallas_topk.py:185", CATALOG_SRC),
-    "scatter_rows": (CS.scatter_rows, "rechorus_tpu/ops/pallas_scatter.py:121",
-                     "rechorus_tpu_torch/csrc/scatter_kernels.cu"),
+    "scatter_rows": (CS.scatter_rows, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
+    "adam_commit": (LA.adam_commit, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
 }
+# B4's byte-copy instance: the sparse lanes commit through its Adam
+# instance (`adam_commit`), so no main path launches it; it is still
+# checked against its plain version and timed
+OFF_PATH = {"scatter_rows"}
 # training: the flagship command (README) and scripts/prod_bench.py's train shape
 GROCERY = "Grocery_and_Gourmet_Food"
 GROCERY_EPOCHS, GROCERY_SHORT_EPOCHS = 10, 2
@@ -91,10 +99,12 @@ WINDOW_STEPS, WINDOW_ROUNDS = 50, 5   # interleaved timing windows of the traini
 # BPRMF --emb_size 64 --lr 1e-3 --l2 1e-6 --batch_size 256 --epoch 10 and
 # --random_seed 0, 1, 2):
 # dev HR@5 over the sampled candidates was 0.3156, 0.3129, 0.3118, and with
-# --test_all 1 the full-catalog test HR@5 was 0.0190, 0.0176, 0.0202. Each
+# --test_all 1 the full-catalog test HR@5 was 0.0190, 0.0176, 0.0202; with
+# --lazy_emb_adam 1 --epoch 2 the dev HR@5 was 0.2165, 0.2224, 0.2172. Each
 # floor sits below its band's minimum by about four times the band's width.
 DEV_HR5_FLOOR = 0.30          # sampled candidates (target + 99 negatives), dev split
 CATALOG_HR5_FLOOR = 0.014     # full catalog (the --test_all protocol), test split
+LAZY_DEV_HR5_FLOOR = 0.19     # the lazy lane's 2-epoch run, sampled candidates, dev split
 
 
 def emit(phase: str, **fields) -> None:
@@ -138,6 +148,19 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def paired_ms(fn, yardstick, reps: int = 2000, rounds: int = 5) -> dict:
+    """Per-call ms of a microsecond-scale wrapper and of its yardstick, a
+    second reading beside `cuda_ms`'s: `rounds` windows of `reps`
+    back-to-back calls each (CUDA events), taken in turns so that both meet
+    the same host; the medians and every window."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(cuda_ms(fn, reps, warmup=20))
+        b.append(cuda_ms(yardstick, reps, warmup=20))
+    return dict(ms=float(np.median(a)), library_ms=float(np.median(b)), ms_windows=a,
+                library_ms_windows=b)
 
 
 def device_ms(fn, reps: int) -> dict:
@@ -363,10 +386,69 @@ def phase_kernels(gen):
         check(torch.equal(got[keep], table[keep]), f"{what} leaves unnamed rows untouched")
         del table, block, got, ref
         torch.cuda.empty_cache()
+    reciprocal = commit_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
          b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
-         scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases])
+         scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
+         adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
+         **reciprocal)
     return err
+
+
+# the Adam commit at the training shapes: (layout, N, D, param dtype, R, l2)
+COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # packed item table
+                ("packed", N_USERS, EMB, torch.float32, BATCH, 1e-6),     # packed user table
+                ("rows", N_ITEMS, EMB, torch.float32, 2 * BATCH, 1e-6),   # three-table, f32
+                ("rows", N_ITEMS, EMB, torch.bfloat16, 2 * BATCH, 0.0)]   # three-table, bf16 p
+
+
+def commit_vs_plain(gen, err) -> dict:
+    """The Adam commit against its plain version (the eager PyTorch ops on
+    the same CUDA tensors) bit for bit, with loser slots and dropped write
+    ids; and how PyTorch divides a CUDA tensor by a Python float, which the
+    kernel follows (the product with the reciprocal taken in double and
+    rounded to float32), for a float that float32 holds and one it does not."""
+    dev = torch.device("cuda")
+    tx = LA.LazyAdamTx(1e-3, 0.0)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 7)
+    err["adam_commit"] = 0.0
+    for layout, N, D, dtype, R, l2 in COMMIT_CASES:
+        p = (torch.randn(N, D, generator=gen, device=dev) * 0.05).to(dtype)
+        mu = torch.randn(N, D, generator=gen, device=dev) * 0.01
+        nu = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+        rows, scatter, _ = LA.unique_rows_hashed(
+            torch.randint(0, N, (R,), generator=gen, device=dev), N)   # losers' write id is N
+        scatter[:200:2] = -1                                          # winners dropped too
+        g = torch.randn(R, D, generator=gen, device=dev) * 0.1
+        before = LA.adam_commit.launches
+        if layout == "packed":
+            table = torch.cat([p.float(), mu, nu], dim=1)
+            del p, mu, nu
+            gathered = table[rows]
+            want = [LA.adam_commit_plain(tx, bc1, bc2, l2, table.clone(), g, scatter,
+                                         gathered=gathered)]
+            got = [LA.adam_commit(tx, bc1, bc2, l2, table, g, scatter, gathered=gathered)]
+        else:
+            vals = p[rows].float()
+            want = [t.clone() for t in (p, mu, nu)]
+            LA.adam_commit_plain(tx, bc1, bc2, l2, want[0], g, scatter, vals=vals, rows=rows,
+                                 mu=want[1], nu=want[2])
+            LA.adam_commit(tx, bc1, bc2, l2, p, g, scatter, vals=vals, rows=rows, mu=mu, nu=nu)
+            got = [p, mu, nu]
+        torch.cuda.synchronize()
+        what = f"adam_commit {layout} [{N}, {D}] {dtype} R={R} l2={l2}"
+        check(LA.adam_commit.launches == before + 1, f"{what}: one launch")
+        check(int(((scatter >= 0) & (scatter < N)).sum()) > R // 2, f"{what}: most slots write")
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"{what} equals its plain version bitwise")
+            err["adam_commit"] = max(err["adam_commit"], float((a.float() - b.float()).abs().max()))
+        del got, want
+        torch.cuda.empty_cache()
+    x = torch.randn(1 << 20, generator=gen, device=dev)
+    return {"div_by_python_float_is_product_with_reciprocal":
+            all(torch.equal(x / s, x * float(np.float32(1.0 / s))) for s in (bc2, 0.001)),
+            "div_by_python_float_is_true_division":
+            all(torch.equal(x / s, x / torch.full_like(x, s)) for s in (bc2, 0.001))}
 
 
 def _log_metrics(text: str, line_prefix: str) -> dict:
@@ -385,7 +467,8 @@ def _epoch_lines(text: str):
 def phase_train_grocery(totals):
     """The flagship command through the CLI on the card: dense Adam with
     sampled evaluation, a `--test_all 1` run (B1), a `--lazy_emb_adam 1`
-    run (B4, packed lane) and `--load 1 --train 0` on the first model."""
+    run (the packed lane's Adam commit) and `--load 1 --train 0` on the
+    first model."""
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -437,19 +520,22 @@ def phase_train_grocery(totals):
         out["test_all"] = dict(seconds=secs, launches=launches,
                                test=_log_metrics(text3, "Test After Training"))
 
-        # 4. --lazy_emb_adam 1: the packed lane commits through B4
+        # 4. --lazy_emb_adam 1: the packed lane commits through B4's Adam instance
         _, text4, launches, secs = run("lazy", "--lazy_emb_adam", "1", "--save_final_results", "0")
         n_train = sum(1 for _ in open(os.path.join(data, "train.csv"))) - 1
         steps = -(-n_train // EVAL_BATCH) * GROCERY_SHORT_EPOCHS
-        check(launches["scatter_rows"] == 2 * steps,
-              f"scatter_rows launches of the lazy run: {launches['scatter_rows']} != 2 x {steps}")
+        check(launches["adam_commit"] == 2 * steps,
+              f"adam_commit launches of the lazy run: {launches['adam_commit']} != 2 x {steps}")
         lazy_epochs = _epoch_lines(text4)
         check(lazy_epochs[-1][0] < lazy_epochs[0][0], "lazy lane: loss falls")
+        lazy_dev = _log_metrics(text4, "Dev  After Training")
+        check(lazy_dev["HR@5"] > LAZY_DEV_HR5_FLOOR,
+              f"lazy lane: dev HR@5 {lazy_dev['HR@5']} above {LAZY_DEV_HR5_FLOOR}")
         out["lazy"] = dict(seconds=secs, launches=launches, steps=steps,
-                           first_loss=lazy_epochs[0][0], last_loss=lazy_epochs[-1][0],
-                           dev=_log_metrics(text4, "Dev  After Training"))
+                           first_loss=lazy_epochs[0][0], last_loss=lazy_epochs[-1][0], dev=lazy_dev)
     emit("train_grocery", epochs=GROCERY_EPOCHS, short_epochs=GROCERY_SHORT_EPOCHS,
-         dev_hr5_floor=DEV_HR5_FLOOR, seconds=round(time.perf_counter() - t0, 3), **out)
+         dev_hr5_floor=DEV_HR5_FLOOR, lazy_dev_hr5_floor=LAZY_DEV_HR5_FLOOR,
+         seconds=round(time.perf_counter() - t0, 3), **out)
     return trained.eval()
 
 
@@ -575,7 +661,7 @@ def _step_profile(lane, batch: int, reps: int = 5) -> dict:
     return dict(step_ms=t_step, device_busy_ms=sum(per.values()), kernels=len(per),
                 kernel_launches_per_step=sum(v["launches"] for v in dev.values()),
                 host_ops_per_step=host["ops"],
-                scatter_rows_ms=sum(v for k, v in per.items() if "rtt_scatter_rows" in k),
+                commit_ms=sum(v for k, v in per.items() if "rtt_adam_commit" in k),
                 device_ms_by_kernel=dict(list(per.items())[:12]), host_self_ms=host["self_ms"])
 
 
@@ -585,7 +671,7 @@ def phase_train_1m(totals):
     timed steps each after WARM_STEPS, then one profiled steady step."""
     t0 = time.perf_counter()
     corpus = SeededCorpus(N_USERS, N_ITEMS, N_INTERACTIONS, SEED)
-    b4_per_step = {"dense_adam": 0, "packed_bf16": 2, "three_scatter_f32": 6, "packed_f32": 2}
+    commits_per_step = {"dense_adam": 0, "packed_bf16": 2, "three_scatter_f32": 2, "packed_f32": 2}
 
     def run_lane(flags, profile=True):
         torch.cuda.empty_cache()
@@ -602,7 +688,7 @@ def phase_train_1m(totals):
         # peak memory and the final state are those of the timed run: both
         # are read before the profiled steps train the lane on
         info = dict(examples_per_s=TRAIN_STEPS * BATCH / secs, ms_per_step=secs * 1e3 / TRAIN_STEPS,
-                    loss=loss, warm_loss=warm_loss, scatter_rows_launches=c.launches["scatter_rows"],
+                    loss=loss, warm_loss=warm_loss, adam_commit_launches=c.launches["adam_commit"],
                     peak_memory_bytes=torch.cuda.max_memory_allocated())
         final = _final_state(state)
         if profile:
@@ -612,9 +698,9 @@ def phase_train_1m(totals):
     out, finals = {}, {}
     for name, flags in TRAIN_LANES.items():
         final, out[name] = run_lane(flags)
-        check(out[name]["scatter_rows_launches"] == b4_per_step[name] * TRAIN_STEPS,
-              f"{name}: scatter_rows launches {out[name]['scatter_rows_launches']} "
-              f"!= {b4_per_step[name]} x {TRAIN_STEPS}")
+        check(out[name]["adam_commit_launches"] == commits_per_step[name] * TRAIN_STEPS,
+              f"{name}: adam_commit launches {out[name]['adam_commit_launches']} "
+              f"!= {commits_per_step[name]} x {TRAIN_STEPS}")
         if name in ("three_scatter_f32", "packed_f32"):
             finals[name] = final
         del final
@@ -623,12 +709,12 @@ def phase_train_1m(totals):
           "packed f32 and three-scatter f32 lanes end bit-equal")
     del three, finals
     # the same lane with the plain commit in place of the kernel
-    kernel_commit, LA.scatter_rows = LA.scatter_rows, CS.scatter_rows_plain
+    kernel_commit, LA.adam_commit = LA.adam_commit, LA.adam_commit_plain
     try:
         plain, plain_info = run_lane(TRAIN_LANES["packed_f32"], profile=False)
     finally:
-        LA.scatter_rows = kernel_commit
-    check(plain_info["scatter_rows_launches"] == 0, "the plain-commit run launched no kernel")
+        LA.adam_commit = kernel_commit
+    check(plain_info["adam_commit_launches"] == 0, "the plain-commit run launched no kernel")
     check(all(torch.equal(packed[k], plain[k]) for k in packed),
           "kernel commit and plain commit end bit-equal")
     emit("train_1m", n_users=N_USERS, n_items=N_ITEMS, emb_size=EMB, batch=BATCH,
@@ -765,9 +851,10 @@ def phase_catalog(gen):
 def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
     """Kernel ms (CUDA events) beside bound, plain and one-call yardstick
     (the yardstick's device time too, so kernel and call compare device to
-    device, wrapper and call host to host); B2 and B3 also at the runner's
-    evaluation batch; 1M-item serve users/s (host clock, each query ends
-    in a device sync)."""
+    device, wrapper and call host to host; B1 and B4 and their yardsticks
+    also in turns, `paired`); B2 and B3 also at the runner's evaluation
+    batch; the Adam commit in both layouts; 1M-item serve users/s (host
+    clock, each query ends in a device sync)."""
     dev = torch.device("cuda")
     rows = {}
     with torch.no_grad():
@@ -783,6 +870,7 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
             plain_ms=cuda_ms(lambda: CK.ge_count_plain(pred, t), 200),
             library_ms=cuda_ms(lambda: (pred >= t[:, None]).sum(1), 200),
             library_device_ms=busy_ms(lambda: (pred >= t[:, None]).sum(1), 20),
+            paired=paired_ms(lambda: CK.ge_count(pred, t), lambda: (pred >= t[:, None]).sum(1)),
             shape=[B, N], bound=bound_ms(4 * (B * N + 2 * B), B * N))
         del pred
 
@@ -831,8 +919,12 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
             plain_ms=cuda_ms(lambda: CS.scatter_rows_plain(table, ids, block), 200),
             library_ms=cuda_ms(lambda: table.index_copy_(0, ids64, block), 200),
             library_device_ms=busy_ms(lambda: table.index_copy_(0, ids64, block), 20),
+            paired=paired_ms(lambda: CS.scatter_rows(table, ids, block),
+                             lambda: table.index_copy_(0, ids64, block)),
             shape=[N, W, R], bound=bound_ms(2 * R * W * 4 + 4 * R, 0))
-        del table, block
+        del block
+        rows["adam_commit"] = time_commit(table, gen)
+        del table
         torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 1)
@@ -853,6 +945,59 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
     emit("times", kernels={k: {**v, "bound": list(v["bound"])} for k, v in rows.items()},
          serve_1m=serve, peak_f32_flops=PEAK_F32_FLOPS, peak_bytes_per_s=PEAK_BYTES_PER_S)
     return rows
+
+
+def time_commit(table, gen, sets: int = 8) -> dict:
+    """The Adam commit at the packed item table's step shape ([1M, 3D] f32,
+    R = 2 x BATCH), on `table`; a winner reads 4D floats and writes 3D,
+    plus its 8-byte write id. Also the three-table layout at [1M, D] f32,
+    which also reads 8-byte read ids. Each call takes the next of `sets`
+    disjoint id sets with their own gathered rows and gradient (more than
+    twice the 50 MB L2 in all), so that its rows come from device memory,
+    as in a training step, and the byte bound applies."""
+    dev = table.device
+    N, W = table.shape
+    R, D = 2 * BATCH, W // 3
+    tx = LA.LazyAdamTx(1e-3, 0.0)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 7)
+    table[:, D:2 * D] *= 0.01
+    table[:, 2 * D:] = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+    p3, m3, v3 = (table[:, k * D:(k + 1) * D].contiguous() for k in range(3))
+    perm = torch.randperm(N, generator=gen, device=dev)
+    ids = [perm[k * R:(k + 1) * R].clone() for k in range(sets)]
+    gathered = [table[i] for i in ids]
+    vals = [x[:, :D].contiguous() for x in gathered]
+    grads = [torch.randn(R, D, generator=gen, device=dev) * 0.1 for _ in range(sets)]
+    turn = itertools.count()
+
+    def commit(fn=LA.adam_commit):
+        k = next(turn) % sets
+        fn(tx, bc1, bc2, 1e-6, table, grads[k], ids[k], gathered=gathered[k])
+
+    def plain():
+        commit(LA.adam_commit_plain)
+
+    def commit3():
+        k = next(turn) % sets
+        LA.adam_commit(tx, bc1, bc2, 1e-6, p3, grads[k], ids[k], vals=vals[k], rows=ids[k],
+                       mu=m3, nu=v3)
+    row = dict(ms=cuda_ms(commit, 200), device_ms=device_ms(commit, 20),
+               plain_ms=cuda_ms(plain, 200), library_ms=None, shape=[N, W, R], id_sets=sets,
+               bound=bound_ms(R * (4 * D + 3 * D) * 4 + 8 * R, 0),
+               three_tables=dict(shape=[N, D, R], ms=cuda_ms(commit3, 200),
+                                 device_ms=device_ms(commit3, 20),
+                                 bound=bound_ms(R * (4 * D + 3 * D) * 4 + 16 * R, 0)))
+    check(all(bool(torch.isfinite(table[i]).all() and torch.isfinite(p3[i]).all()) for i in ids),
+          "timed commits stay finite")
+    return row
+
+
+def phase_launch_path():
+    """Host µs per call of each piece of a kernel wrapper's launch path
+    (rechorus_tpu_torch/tools/launch_path.py), 10^4 calls a piece."""
+    t0 = time.perf_counter()
+    got = launch_path.measure(reps=10_000, rounds=2)
+    emit("launch_path", **got, seconds=round(time.perf_counter() - t0, 3))
 
 
 def main() -> int:
@@ -885,9 +1030,11 @@ def main() -> int:
     emit("main_path_launches", serving=serving.launches, all_paths=totals)
     check(all(serving.launches[k] > 0 for k in ("ge_count", "fused_bucket_max", "fused_ge_count")),
           f"the serving path ran B1-B3: {serving.launches}")
-    check(all(n > 0 for n in totals.values()), f"every kernel ran on a main path: {totals}")
+    check(all(n > 0 for k, n in totals.items() if k not in OFF_PATH),
+          f"every kernel of the main paths ran: {totals}")
 
     rows = phase_times(g_model, g_corpus, idx, ut, it, users, target)
+    phase_launch_path()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": totals[name], "max_abs_err": err[name],

@@ -36,8 +36,8 @@ def ge_count(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     _build.check_int32("ge_count", B=B, N=N)
     counts = torch.zeros(B, dtype=torch.int32, device=pred.device)
     if B and N:
-        _build.launch("rtt_ge_count", pred.device, _build.ptr(pred), _build.ptr(target),
-                      _build.ptr(counts), B, N)
+        _build.launchers.rtt_ge_count(pred.get_device(), pred.data_ptr(), target.data_ptr(),
+                                      counts.data_ptr(), B, N)
         ge_count.launches += 1
     return counts
 

@@ -86,9 +86,9 @@ def fused_bucket_max(u, table, *, bucket: int, bias=None, n_valid=None,
                        n_valid=n_valid_c, col_offset=int(col_offset))
     out = torch.empty(B, _cdiv(N, bucket * NB) * NB, dtype=torch.float32, device=dev)
     if B and N:
-        _build.launch("rtt_fused_bucket_max", dev, _build.ptr(u), _build.ptr(table),
-                      _build.ptr(bias), _build.ptr(out), B, N, D, int(bucket), n_valid_c,
-                      int(col_offset))
+        _build.launchers.rtt_fused_bucket_max(
+            u.get_device(), _build.ptr(u), _build.ptr(table), _build.ptr(bias), _build.ptr(out),
+            B, N, D, int(bucket), n_valid_c, int(col_offset))
         fused_bucket_max.launches += 1
     return out
 
@@ -143,9 +143,10 @@ def fused_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None
                        col_offset=int(col_offset))
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and N:
-        _build.launch("rtt_fused_ge_count", dev, _build.ptr(u), _build.ptr(table),
-                      _build.ptr(tscore), _build.ptr(target_col), _build.ptr(bias),
-                      _build.ptr(counts), B, N, D, n_valid_c, int(col_offset))
+        _build.launchers.rtt_fused_ge_count(
+            u.get_device(), _build.ptr(u), _build.ptr(table), _build.ptr(tscore),
+            _build.ptr(target_col), _build.ptr(bias), _build.ptr(counts), B, N, D, n_valid_c,
+            int(col_offset))
         fused_ge_count.launches += 1
     return counts
 

@@ -22,9 +22,10 @@ The Adam arithmetic keeps the JAX order of operations per lane
 (`mr / bc1`, `sqrt(vr / bc2) + eps`, eps outside the root) in one shared
 function, so the packed and the three-scatter lanes are bit-equal in f32.
 
-The sparse lanes commit through `cuda_scatter.scatter_rows` (kernel B4):
-three launches per table per step in the three-scatter lane, one in the
-packed lane.
+The sparse lanes commit through `adam_commit`: one launch per table per
+step of `rtt_adam_commit_kernel` (csrc/scatter_kernels.cu, the Adam row
+update in the body of kernel B4's row walk) in either lane. Its plain
+version is `_adam_math` followed by `cuda_scatter.scatter_rows_plain`.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from rechorus_tpu_torch.ops.cuda_scatter import scatter_rows
+from rechorus_tpu_torch.ops import _build
+from rechorus_tpu_torch.ops.cuda_scatter import scatter_rows_plain
 
 Params = Dict[str, torch.Tensor]
 
@@ -144,7 +146,7 @@ def unique_rows(ids: torch.Tensor, num_rows: int):
     unique ids padded at the tail with `num_rows - 1` (>= every valid id,
     so the array stays sorted for searchsorted); scatter_rows equals
     rows_sorted on real slots and `num_rows` (out of range, dropped by
-    `scatter_rows`) on pad slots, so each touched row is written exactly
+    `adam_commit`) on pad slots, so each touched row is written exactly
     once. One sort + first-occurrence compaction; no host sync."""
     ids = ids.long().ravel()
     out_size = ids.shape[0]
@@ -168,7 +170,7 @@ def unique_rows_hashed(ids: torch.Tensor, num_rows: int):
       * rows[j] = the id if position j won its id's slot, else
         num_rows - 1 (a valid row for the vals gather; never written);
       * scatter_rows[j] = the id on winner slots, num_rows (dropped by
-        `scatter_rows`) elsewhere -- each touched row written exactly once;
+        `adam_commit`) elsewhere -- each touched row written exactly once;
       * pos_map[id] = winning slot for touched ids, R (out of range for
         vals -> fallback) for untouched ids: the TableEmbed lookup map.
 
@@ -235,31 +237,120 @@ def lazy_adam_sparse_step(tx: LazyAdamTx, params: Params, state: LazyAdamState,
     """Adam step for the sparse-grad lane: lazy tables update from their
     [R, D] row gradients (`g_vals`, the gradient of the gathered rows --
     already aggregated across duplicate ids by the lookup's backward);
-    every other leaf runs the dense Adam math on `g_rest`. The table is
-    only touched by O(R) gathers and three `scatter_rows` commits (param,
-    mu, nu). In place; returns (params, state)."""
+    every other leaf runs the dense Adam math on `g_rest`. Each lazy table
+    is touched only by one `adam_commit`, which reads the mu/nu rows and
+    writes param, mu and nu. In place; returns (params, state)."""
     state.count += 1
     bc1, bc2 = _bias_corrections(tx, state.count)
     decay_of = _decay_of(tx, params)
     for path in rows_info:
         rows, scatter = rows_info[path][:2]
-        p, m, v = params[path], state.mu[path], state.nu[path]
-        new_p, mr, vr = _adam_math(tx, vals[path], g_vals[path].float(), m[rows], v[rows],
-                                   bc1, bc2, decay_of(path))
-        scatter = scatter.to(torch.int32)
-        scatter_rows(p, scatter, new_p.to(p.dtype))
-        scatter_rows(m, scatter, mr)
-        scatter_rows(v, scatter, vr)
+        adam_commit(tx, bc1, bc2, decay_of(path), params[path], g_vals[path], scatter,
+                    vals=vals[path], rows=rows, mu=state.mu[path], nu=state.nu[path])
     _rest_step(tx, params, state, g_rest, bc1, bc2, decay_of)
     return params, state
+
+
+def adam_commit_plain(tx: LazyAdamTx, bc1: float, bc2: float, decay: float,
+                      table: torch.Tensor, g: torch.Tensor, scatter: torch.Tensor, *,
+                      gathered=None, vals=None, rows=None, mu=None, nu=None) -> torch.Tensor:
+    """`adam_commit` as PyTorch ops: `_adam_math` on the slots' rows, then
+    `scatter_rows_plain` of the new rows (one [R, 3D] block packed, three
+    [R, D] blocks otherwise). In place; returns `table`."""
+    if gathered is not None:
+        d = table.shape[1] // 3
+        new_p, mr, vr = _adam_math(tx, gathered[:, :d], g, gathered[:, d:2 * d],
+                                   gathered[:, 2 * d:], bc1, bc2, decay)
+        return scatter_rows_plain(table, scatter, torch.cat([new_p, mr, vr], dim=1))
+    new_p, mr, vr = _adam_math(tx, vals, g, mu[rows], nu[rows], bc1, bc2, decay)
+    scatter_rows_plain(table, scatter, new_p.to(table.dtype))
+    scatter_rows_plain(mu, scatter, mr)
+    scatter_rows_plain(nu, scatter, vr)
+    return table
+
+
+def adam_commit(tx: LazyAdamTx, bc1: float, bc2: float, decay: float,
+                table: torch.Tensor, g: torch.Tensor, scatter: torch.Tensor, *,
+                gathered=None, vals=None, rows=None, mu=None, nu=None) -> torch.Tensor:
+    """The lazy-Adam row commit of one table, IN PLACE; returns `table`.
+    Slot i of the row gradient g [R, D] f32 updates row scatter[i] with
+    `_adam_math` (bias corrections bc1/bc2, l2 `decay`, 0 for none); slots
+    whose write id lies outside [0, N) are dropped and read nothing. Write
+    ids of kept slots are unique. Ids are int64, all tensors contiguous on
+    one device. Two layouts:
+
+      * packed (`gathered` given): table [N, 3D] f32 = [p | mu | nu],
+        gathered [R, 3D] f32 the slots' rows of it before the step;
+      * three tables (`vals`, `rows`, `mu`, `nu` given): table p [N, D] f32
+        or bf16, mu and nu [N, D] f32, vals [R, D] f32 the slots' p rows,
+        rows [R] the read ids of mu and nu (equal to scatter on kept slots).
+
+    One launch of `rtt_adam_commit_kernel` on CUDA tensors; the plain
+    version on CPU ones."""
+    name = "adam_commit"
+    if table.dim() != 2:
+        raise ValueError(f"{name}: table must be 2-D, got {tuple(table.shape)}")
+    N, W = table.shape
+    R = scatter.shape[0]
+    dev = table.device
+    packed = gathered is not None
+    if packed == (vals is not None or rows is not None or mu is not None or nu is not None):
+        raise ValueError(f"{name}: give either `gathered` (packed) or vals, rows, mu and nu")
+    if packed:
+        if W % 3:
+            raise ValueError(f"{name}: a packed table is [N, 3D], got {tuple(table.shape)}")
+        D = W // 3
+        _build.check_input(name, "table", table, torch.float32, (N, W), dev)
+        _build.check_input(name, "gathered", gathered, torch.float32, (R, W), dev)
+    else:
+        if rows is None or vals is None or mu is None or nu is None:
+            raise ValueError(f"{name}: the three-table form takes vals, rows, mu and nu")
+        D = W
+        if table.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: table has dtype {table.dtype}, the kernel takes "
+                            "torch.float32 or torch.bfloat16")
+        _build.check_input(name, "table", table, table.dtype, (N, D), dev)
+        _build.check_input(name, "mu", mu, torch.float32, (N, D), dev)
+        _build.check_input(name, "nu", nu, torch.float32, (N, D), dev)
+        _build.check_input(name, "vals", vals, torch.float32, (R, D), dev)
+        _build.check_input(name, "rows", rows, torch.int64, (R,), dev)
+    _build.check_input(name, "g", g, torch.float32, (R, D), dev)
+    _build.check_input(name, "scatter", scatter, torch.int64, (R,), dev)
+    if table.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{name} has no gradient: call it under torch.no_grad()")
+    if dev.type == "cpu":
+        return adam_commit_plain(tx, bc1, bc2, decay, table, g, scatter, gathered=gathered,
+                                 vals=vals, rows=rows, mu=mu, nu=nu)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if not (R and N and D):
+        return table
+    # the step's Python scalars as _adam_math hands them to PyTorch, whose
+    # division by a Python float multiplies by the reciprocal taken in double
+    adam = (tx.b1, 1.0 - tx.b1, tx.b2, 1.0 - tx.b2, tx.lr, tx.eps, decay, bool(decay),
+            1.0 / bc1, 1.0 / bc2)
+    if packed:
+        _build.launchers.rtt_adam_commit_packed(
+            dev.index, table.data_ptr(), gathered.data_ptr(), g.data_ptr(), scatter.data_ptr(),
+            N, R, D, *adam)
+    else:
+        _build.launchers.rtt_adam_commit_rows(
+            dev.index, table.data_ptr(), int(table.dtype == torch.bfloat16), mu.data_ptr(),
+            nu.data_ptr(), vals.data_ptr(), g.data_ptr(), rows.data_ptr(), scatter.data_ptr(),
+            N, R, D, *adam)
+    adam_commit.launches += 1
+    return table
+
+
+adam_commit.launches = 0
 
 
 def pack_lazy_leaves(params: Params, state: LazyAdamState, paths):
     """Epoch carry layout for the sparse-grad lane: concat [p | mu | nu] ->
     ONE [N, 3D] f32 leaf per lazy table (replacing the param leaf in the
-    returned dict; mu/nu get 0-size placeholders), so every step does one
-    row gather and one `scatter_rows` commit per table instead of three
-    each. Packing happens around the epoch (pack before the step loop,
+    returned dict; mu/nu get 0-size placeholders), so every step gathers
+    each touched row once, [p | mu | nu] together, for the forward pass and
+    the commit. Packing happens around the epoch (pack before the step loop,
     unpack after), so checkpoints, eval and the external state layout
     never see the packed form. bf16 tables ride the epoch in f32 and round
     once at unpack (strictly MORE precise than rounding every step).
@@ -307,20 +398,15 @@ def packed_rows_and_vals(params: Params, rows_map):
 def lazy_adam_sparse_step_packed(tx: LazyAdamTx, params: Params, state: LazyAdamState,
                                  rows_info, gathered, g_vals, g_rest):
     """lazy_adam_sparse_step on the packed [p | mu | nu] carry: the Adam
-    math is the same function (bit-equal to the unpacked lane in f32), but
-    each table commits with ONE [R, 3D] `scatter_rows` instead of three.
-    In place; returns (params, state)."""
+    math is the same function (bit-equal to the unpacked lane in f32), and
+    each table commits its [R, 3D] rows with one `adam_commit`. In place;
+    returns (params, state)."""
     state.count += 1
     bc1, bc2 = _bias_corrections(tx, state.count)
     decay_of = _decay_of(tx, params)
     for path in rows_info:
-        scatter = rows_info[path][1]
-        packed = params[path]
-        d = packed.shape[1] // 3
-        g = gathered[path]
-        new_p, mr, vr = _adam_math(tx, g[:, :d], g_vals[path].float(), g[:, d:2 * d],
-                                   g[:, 2 * d:], bc1, bc2, decay_of(path))
-        scatter_rows(packed, scatter.to(torch.int32), torch.cat([new_p, mr, vr], dim=1))
+        adam_commit(tx, bc1, bc2, decay_of(path), params[path], g_vals[path], rows_info[path][1],
+                    gathered=gathered[path])
     _rest_step(tx, params, state, g_rest, bc1, bc2, decay_of)
     return params, state
 

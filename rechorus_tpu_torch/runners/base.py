@@ -18,7 +18,8 @@ semantics). PyTorch internals:
     BaseModel.py:64-73).
   * Four optimizer lanes (rechorus_tpu/runners/base.py:546-639): packed
     sparse lazy Adam, three-scatter sparse lazy Adam (both commit through
-    the `scatter_rows` kernel), dense-grad lazy Adam, dense optimizer.
+    the `adam_commit` kernel, one launch per table per step), dense-grad
+    lazy Adam, dense optimizer.
 """
 from __future__ import annotations
 

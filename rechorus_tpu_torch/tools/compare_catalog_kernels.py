@@ -4,7 +4,8 @@ against those of other source directories on one GPU, in one process.
     python -m rechorus_tpu_torch.tools.compare_catalog_kernels \\
         --other path/to/other/csrc --batches 4096 256 1 --sass
 
-Both directories are built with the same nvcc flags. On Gaussian inputs
+Both directories are built with the same nvcc flags; each must hold the
+launchers' extension module (py_launchers.cpp). On Gaussian inputs
 from a seed, at [B, D] x [n_items, D] with a bias, dead rows and a column
 offset, it checks that the two builds give bit-equal bucket maxima and
 equal counts (`torch.equal`), and times them in turns -- others, this,
@@ -123,7 +124,7 @@ def main() -> int:
         print(json.dumps({"build": name, "library": path.name, "ptxas": usage}))
         if opts.sass:
             print(json.dumps({"sass": name, "mix": sass_mix(path)}))
-    bound = {name: _build.bind(path) for name, (path, _) in libs.items()}
+    bound = {name: _build.extension(path) for name, (path, _) in libs.items()}
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     ok = True
@@ -141,15 +142,15 @@ def main() -> int:
             counts = torch.zeros(B, dtype=torch.int32, device=dev)
 
             def b2(lib):
-                _build.launch("rtt_fused_bucket_max", dev, u.data_ptr(), table.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), B, N, D, DEFAULT_BUCKET, n_valid, off,
-                              lib=lib)
+                lib.rtt_fused_bucket_max(u.get_device(), u.data_ptr(), table.data_ptr(),
+                                         bias.data_ptr(), out.data_ptr(), B, N, D,
+                                         DEFAULT_BUCKET, n_valid, off)
 
             def b3(lib):
                 counts.zero_()
-                _build.launch("rtt_fused_ge_count", dev, u.data_ptr(), table.data_ptr(),
-                              tscore.data_ptr(), tcol.data_ptr(), bias.data_ptr(),
-                              counts.data_ptr(), B, N, D, n_valid, off, lib=lib)
+                lib.rtt_fused_ge_count(u.get_device(), u.data_ptr(), table.data_ptr(),
+                                       tscore.data_ptr(), tcol.data_ptr(), bias.data_ptr(),
+                                       counts.data_ptr(), B, N, D, n_valid, off)
 
             row = {"B": B, "N": N, "D": D, "bucket": DEFAULT_BUCKET}
             if opts.matmul_rows:

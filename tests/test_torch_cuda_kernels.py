@@ -2,6 +2,8 @@
 ragged shapes chip_smoke.py does not reach (B, N and D off the tile
 sizes, D below and above one 64-dim stage, bias, col_offset, n_valid).
 Integer-valued inputs make every f32 sum exact, so results must be equal.
+The Adam commit takes Gaussian inputs and must equal its plain version
+(the eager PyTorch ops on the same CUDA tensors) bit for bit.
 
 Marked `cuda`; each test skips without a CUDA device. On the GPU machine
 these tests need none of the JAX set-up of tests/conftest.py:
@@ -15,6 +17,7 @@ import torch
 from rechorus_tpu_torch.ops import cuda_kernels as CK
 from rechorus_tpu_torch.ops import cuda_scatter as CS
 from rechorus_tpu_torch.ops import cuda_topk as CT
+from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import topk as TT
 from rechorus_tpu_torch.serve import ServeIndex
 
@@ -177,3 +180,97 @@ def test_scatter_rows_unaligned_views_and_empty(dev):
     before = CS.scatter_rows.launches
     CS.scatter_rows(table, rows[:0], block[:0])
     assert CS.scatter_rows.launches == before
+
+
+# N, R, D of the Adam commit: R from 1 to 8193, D off the 4-float unit
+COMMIT_SHAPES = [(10, 1, 4), (300, 257, 64), (5000, 4096, 64), (20000, 8193, 64),
+                 (2000, 1000, 130), (500, 300, 7), (3000, 513, 100)]
+
+
+def _commit_case(gen, N, R, D, dtype):
+    p = (torch.randn(N, D, generator=gen) * 0.05).to(dtype)
+    mu = torch.randn(N, D, generator=gen) * 0.01
+    nu = torch.rand(N, D, generator=gen) * 1e-3
+    rows, scatter, _ = LA.unique_rows_hashed(torch.randint(0, N, (R,), generator=gen), N)
+    scatter[::11] = -1                    # winners dropped too
+    g = torch.randn(R, D, generator=gen) * 0.1
+    return p, mu, nu, rows, scatter, g
+
+
+@pytest.mark.parametrize("l2", [0.0, 1e-4])
+@pytest.mark.parametrize("layout", ["packed", "rows_f32", "rows_bf16"])
+@pytest.mark.parametrize("N,R,D", COMMIT_SHAPES)
+def test_adam_commit_kernel_equals_plain(dev, N, R, D, layout, l2):
+    gen = torch.Generator().manual_seed(N + R + D)
+    tx = LA.LazyAdamTx(1e-3, l2)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 3)
+    dtype = torch.bfloat16 if layout == "rows_bf16" else torch.float32
+    p, mu, nu, rows, scatter, g = (t.to(dev) for t in _commit_case(gen, N, R, D, dtype))
+    before = LA.adam_commit.launches
+    if layout == "packed":
+        table = torch.cat([p, mu, nu], dim=1)
+        want = LA.adam_commit_plain(tx, bc1, bc2, l2, table.clone(), g, scatter,
+                                    gathered=table[rows])
+        got = LA.adam_commit(tx, bc1, bc2, l2, table, g, scatter, gathered=table[rows].clone())
+        assert got is table and torch.equal(got, want)
+    else:
+        vals = p[rows].float()
+        want = [t.clone() for t in (p, mu, nu)]
+        LA.adam_commit_plain(tx, bc1, bc2, l2, want[0], g, scatter, vals=vals, rows=rows,
+                             mu=want[1], nu=want[2])
+        LA.adam_commit(tx, bc1, bc2, l2, p, g, scatter, vals=vals, rows=rows, mu=mu, nu=nu)
+        for name, a, b in zip(("p", "mu", "nu"), (p, mu, nu), want):
+            assert torch.equal(a, b), name
+    assert LA.adam_commit.launches == before + 1
+
+
+def test_adam_commit_unaligned_views_and_empty(dev):
+    """Bases 4 bytes (2 for a bf16 p) into their storage leave the 16-byte
+    path; R = 0 launches nothing."""
+    gen = torch.Generator().manual_seed(3)
+    N, R, D = 64, 40, 8
+    tx = LA.LazyAdamTx(1e-3, 1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        p, mu, nu, rows, scatter, g = (t.to(dev) for t in _commit_case(gen, N, R, D, dtype))
+
+        def shifted(t):
+            store = torch.empty(1 + t.numel(), dtype=t.dtype, device=dev)
+            store[1:] = t.ravel()
+            return store[1:].view(t.shape)
+
+        packed = torch.cat([p.float(), mu, nu], dim=1)
+        want = LA.adam_commit_plain(tx, 0.1, 0.001, 1e-4, packed.clone(), g, scatter,
+                                    gathered=packed[rows])
+        got = LA.adam_commit(tx, 0.1, 0.001, 1e-4, shifted(packed), shifted(g), scatter,
+                             gathered=shifted(packed[rows]))
+        assert torch.equal(got, want)
+        vals = p[rows].float()
+        want = [t.clone() for t in (p, mu, nu)]
+        LA.adam_commit_plain(tx, 0.1, 0.001, 1e-4, want[0], g, scatter, vals=vals, rows=rows,
+                             mu=want[1], nu=want[2])
+        got = [shifted(t) for t in (p, mu, nu)]
+        LA.adam_commit(tx, 0.1, 0.001, 1e-4, got[0], shifted(g), scatter, vals=shifted(vals),
+                       rows=rows, mu=got[1], nu=got[2])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    before = LA.adam_commit.launches
+    LA.adam_commit(tx, 0.1, 0.001, 0.0, packed, g[:0], scatter[:0], gathered=packed[:0])
+    assert LA.adam_commit.launches == before
+
+
+def test_adam_commit_checks_its_inputs(dev):
+    tx = LA.LazyAdamTx(1e-3, 0.0)
+    table, g = torch.zeros(10, 12, device=dev), torch.zeros(3, 4, device=dev)
+    ids = torch.tensor([1, 2, 3], device=dev)
+    gathered = torch.zeros(3, 12, device=dev)
+    commit = lambda *a, **k: LA.adam_commit(tx, 0.1, 0.001, 0.0, *a, **k)  # noqa: E731
+    with pytest.raises(TypeError, match="dtype"):
+        commit(table, g, ids.int(), gathered=gathered)
+    with pytest.raises(ValueError, match="is on"):
+        commit(table, g.cpu(), ids, gathered=gathered)
+    with pytest.raises(ValueError, match="contiguous"):
+        commit(table, torch.zeros(4, 3, device=dev).T, ids, gathered=gathered)
+    with pytest.raises(TypeError, match="dtype"):
+        commit(torch.zeros(10, 4, dtype=torch.float16, device=dev), g, ids,
+               vals=torch.zeros(3, 4, device=dev), rows=ids, mu=torch.zeros(10, 4, device=dev),
+               nu=torch.zeros(10, 4, device=dev))
