@@ -14,6 +14,15 @@ shapes the main path gives it, and drives the port's main paths:
     200k-user x batch-4096 training shape through GeneralBatcher and
     BaseRunner.fit in four optimizer lanes, each with a profiled steady
     step, then all lanes again in short timing windows taken in turn;
+  * the sequential models through the CLI on Grocery: SASRec with
+    bench.py's lane flags (dense Adam with its s/train-epoch timed as
+    bench.py times it, `--test_all 1`, `--lazy_emb_adam 1`), then GRU4Rec,
+    NARM, Caser and FPMC with docs/benchmark_commands.md's flags; and
+    SASRec at the 1M-item x 200k-user x batch-4096 shape through
+    SeqReader, SequentialBatcher and BaseRunner.fit in the dense and packed
+    lanes, with its 1M-item ranks (B3) and top-100 (B2) held against dense
+    exact references, then the same evaluation for FPMC's computed
+    [1M, 128] table;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64.
 
@@ -48,9 +57,11 @@ import torch
 import pandas as pd
 
 from rechorus_tpu_torch import main as port_main
-from rechorus_tpu_torch.data.batching import GeneralBatcher
-from rechorus_tpu_torch.data.readers import BaseReader
+from rechorus_tpu_torch.data.batching import GeneralBatcher, SequentialBatcher
+from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
+from rechorus_tpu_torch.models.sequential.fpmc import FPMC
+from rechorus_tpu_torch.models.sequential.sasrec import SASRec
 from rechorus_tpu_torch.ops import _build
 from rechorus_tpu_torch.ops import cuda_kernels as CK
 from rechorus_tpu_torch.ops import cuda_scatter as CS
@@ -76,6 +87,7 @@ N_PLAIN = 256         # users the plain B2/B3 versions are checked on
 SMALL_BATCHES = (EVAL_BATCH, 1)   # B2/B3 are also checked (and, at EVAL_BATCH, timed) below BATCH
 NEAR_TIE_RTOL = 1e-6  # a count may differ only through scores this close to the target
 B2_ATOL = 1e-4        # Gaussian bucket maxima: |s| <~ 40, 64-term f32 sums in two orders
+                      # (a D-term case gets D / 64 times this: longer sums, larger |s|)
 CATALOG_SRC = "rechorus_tpu_torch/csrc/catalog_kernels.cu"
 SCATTER_SRC = "rechorus_tpu_torch/csrc/scatter_kernels.cu"
 KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
@@ -105,6 +117,33 @@ WINDOW_STEPS, WINDOW_ROUNDS = 50, 5   # interleaved timing windows of the traini
 DEV_HR5_FLOOR = 0.30          # sampled candidates (target + 99 negatives), dev split
 CATALOG_HR5_FLOOR = 0.014     # full catalog (the --test_all protocol), test split
 LAZY_DEV_HR5_FLOOR = 0.19     # the lazy lane's 2-epoch run, sampled candidates, dev split
+# Sequential models on Grocery: bench.py's SASRec lane flags and
+# docs/benchmark_commands.md:28-31 for the others, each with the dev HR@5
+# floor of its run here (sampled candidates, dev split). The floors come
+# from the JAX package run on a CPU with the same command, epochs and
+# --random_seed 0, 1, 2 (its CLI, rechorus_tpu/main.py, --save_final_results
+# 0): SASRec 5 dense epochs 0.2732, 0.2725, 0.2748; SASRec --lazy_emb_adam 1
+# 2 epochs 0.2672, 0.2684, 0.2669; 2 dense epochs of GRU4Rec 0.2682, 0.2691,
+# 0.2730; NARM 0.2870, 0.3022, 0.3043; Caser 0.2613, 0.2674, 0.2904; FPMC
+# 0.2821, 0.2779, 0.2810. Each floor is the higher of the band's minimum
+# less four band widths and the minimum less 0.03, to the nearest 0.01:
+# a wide band (NARM, Caser) gets no floor a near-chance model could clear
+# (chance on 100 candidates is 0.05).
+SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
+    "SASRec": (["--emb_size", "64", "--num_layers", "1", "--num_heads", "1", "--lr", "1e-4",
+                "--l2", "1e-6", "--history_max", "20"], 5, 0.26),
+    "GRU4Rec": (["--emb_size", "64", "--hidden_size", "100", "--lr", "1e-3", "--l2", "1e-4",
+                 "--history_max", "20"], 2, 0.25),
+    "NARM": (["--emb_size", "64", "--hidden_size", "100", "--attention_size", "4", "--lr", "1e-3",
+              "--l2", "1e-4", "--history_max", "20"], 2, 0.26),
+    "Caser": (["--emb_size", "64", "--L", "5", "--num_horizon", "64", "--num_vertical", "32",
+               "--lr", "1e-3", "--l2", "1e-4", "--history_max", "20"], 2, 0.23),
+    "FPMC": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
+}
+SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
+SEQ_TIMED_EPOCHS = 5            # bench.py:97-127: one warm-up epoch, then five timed
+# 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
+SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -310,10 +349,9 @@ def phase_kernels(gen):
         check(torch.equal(got, ref), f"ge_count {kind} equals its plain version")
 
     sub = torch.randperm(BATCH, generator=gen, device=dev)[:N_PLAIN].sort().values
-    # B2 / B3 at the serving shape: (kind, bias, n_valid, col_offset)
-    cases = [("int", False, None, 0), ("gauss", True, N_ITEMS + 7 - 1000, 7)]
-    for kind, with_bias, n_valid, off in cases:
-        u, table = inputs(kind, BATCH, EMB), inputs(kind, N_ITEMS, EMB)
+    for kind, with_bias, n_valid, off, D in B23_CASES:
+        atol = B2_ATOL * D / EMB
+        u, table = inputs(kind, BATCH, D), inputs(kind, N_ITEMS, D)
         bias = inputs(kind, N_ITEMS) if with_bias else None
         kw = dict(bias=bias, n_valid=n_valid, col_offset=off)
         bm = CT.fused_bucket_max(u, table, bucket=TT.DEFAULT_BUCKET, **kw)[sub]
@@ -323,7 +361,7 @@ def phase_kernels(gen):
         fin = torch.isfinite(ref)
         e = float((bm[fin] - ref[fin]).abs().max())
         err["fused_bucket_max"] = max(err["fused_bucket_max"], e)
-        check(e == 0 if kind == "int" else e <= B2_ATOL, f"bucket_max {kind} max |err| {e}")
+        check(e == 0 if kind == "int" else e <= atol, f"bucket_max {kind} D={D} max |err| {e}")
         for b in SMALL_BATCHES:
             small = CT.fused_bucket_max(u[sub[:b]].contiguous(), table, bucket=TT.DEFAULT_BUCKET, **kw)
             check(torch.equal(small, bm[:b]), f"bucket_max {kind} at B={b} equals the B={BATCH} launch")
@@ -351,7 +389,7 @@ def phase_kernels(gen):
             if bias is not None:
                 s64 += bias.double()[None]
             gid = torch.arange(N_ITEMS, device=dev) + off
-            ok = ((gid > 0) & (gid < n_valid))[None] & (gid[None] != tcol[sub, None])
+            ok = ((gid > 0) & (gid < (n_valid or N_ITEMS)))[None] & (gid[None] != tcol[sub, None])
             ties = near_ties(s64, tscore[sub], ok)
             check(bool((diff <= ties).all()), "fused_ge_count gauss within the near-tie rule")
             del s64, ok
@@ -389,17 +427,27 @@ def phase_kernels(gen):
     reciprocal = commit_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
          b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
+         b2_b3_cases=[list(c) for c in B23_CASES],
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
          **reciprocal)
     return err
 
 
-# the Adam commit at the training shapes: (layout, N, D, param dtype, R, l2)
+# B2 / B3 at the catalog shapes: (kind, bias, n_valid, col_offset, D); the
+# last is FPMC's computed [iu | il] table, the run-time-D instance
+B23_CASES = [("int", False, None, 0, EMB), ("gauss", True, N_ITEMS + 7 - 1000, 7, EMB),
+             ("gauss", False, None, 0, 2 * EMB)]
+# the Adam commit at the training shapes: (layout, N, D, param dtype, R, l2);
+# a sequential step's item rows are the batch's targets, negatives and
+# histories: BATCH x (2 + SEQ_HISTORY) ids before dedup (Grocery: 256 x 22)
+SEQ_ROWS = 2 + SEQ_HISTORY
 COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # packed item table
                 ("packed", N_USERS, EMB, torch.float32, BATCH, 1e-6),     # packed user table
                 ("rows", N_ITEMS, EMB, torch.float32, 2 * BATCH, 1e-6),   # three-table, f32
-                ("rows", N_ITEMS, EMB, torch.bfloat16, 2 * BATCH, 0.0)]   # three-table, bf16 p
+                ("rows", N_ITEMS, EMB, torch.bfloat16, 2 * BATCH, 0.0),   # three-table, bf16 p
+                ("packed", N_ITEMS, EMB, torch.float32, BATCH * SEQ_ROWS, 1e-6),  # 1M SASRec
+                ("packed", 8714, EMB, torch.float32, 256 * SEQ_ROWS, 1e-6)]       # Grocery SASRec
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -464,6 +512,16 @@ def _epoch_lines(text: str):
         r"^Epoch \d+\s+loss=([0-9.naninf-]+) .*dev=\(HR@5:([0-9.]+)", text, re.M)]
 
 
+def _grocery_dir(tmp: str) -> str:
+    """A Grocery data directory under `tmp` whose split files link to the
+    committed ones: the corpus cache and the export land there."""
+    data = os.path.join(tmp, "data", GROCERY)
+    os.makedirs(data)
+    for name in ("train.csv", "dev.csv", "test.csv"):
+        os.symlink(os.path.join(ROOT, "data", GROCERY, name), os.path.join(data, name))
+    return data
+
+
 def phase_train_grocery(totals):
     """The flagship command through the CLI on the card: dense Adam with
     sampled evaluation, a `--test_all 1` run (B1), a `--lazy_emb_adam 1`
@@ -472,10 +530,7 @@ def phase_train_grocery(totals):
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data", GROCERY)
-        os.makedirs(data)
-        for name in ("train.csv", "dev.csv", "test.csv"):   # the export lands beside the data
-            os.symlink(os.path.join(ROOT, "data", GROCERY, name), os.path.join(data, name))
+        data = _grocery_dir(tmp)
 
         def run(tag, *extra, epochs=GROCERY_SHORT_EPOCHS, model=None):
             log = os.path.join(tmp, tag + ".log")
@@ -658,7 +713,9 @@ def _step_profile(lane, batch: int, reps: int = 5) -> dict:
     host = host_ms_by_op(step, reps)
     runner._unpack(state)
     per = sum_by_kernel(dev)
-    return dict(step_ms=t_step, device_busy_ms=sum(per.values()), kernels=len(per),
+    busy = sum(per.values())
+    return dict(step_ms=t_step, device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / t_step),
+                kernels=len(per),
                 kernel_launches_per_step=sum(v["launches"] for v in dev.values()),
                 host_ops_per_step=host["ops"],
                 commit_ms=sum(v for k, v in per.items() if "rtt_adam_commit" in k),
@@ -721,6 +778,240 @@ def phase_train_1m(totals):
          interactions=N_INTERACTIONS, steps=TRAIN_STEPS, warm_steps=WARM_STEPS, lanes=out,
          plain_commit_examples_per_s=plain_info["examples_per_s"],
          packed_equals_three_scatter=True, kernel_commit_equals_plain_commit=True,
+         seconds=round(time.perf_counter() - t0, 3))
+    return out
+
+
+def _grocery_lane(model_name: str, argv: list, timed_epochs: int) -> dict:
+    """A Grocery training lane as the CLI builds it: the step profile of
+    its steady step, after WARM_STEPS steps; with `timed_epochs`, first
+    its s/train-epoch as bench.py's Grocery lane measures it
+    (bench.py:97-127): one warm-up epoch, then `timed_epochs` epochs timed
+    one by one on the host clock, each ending in the read of its mean
+    loss (a device sync)."""
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    init_seed(args.random_seed)
+    _, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    state = runner.init_state(model, args.random_seed)
+    lane = (runner, state, batchers["train"], arrays["train"])
+    out = dict(examples=len(batchers["train"]), batch=args.batch_size)
+    if timed_epochs:
+        runner.fit(*lane[1:], 0)
+        times = []
+        for e in range(1, timed_epochs + 1):
+            t = time.perf_counter()
+            loss = runner.fit(*lane[1:], e)
+            times.append(time.perf_counter() - t)
+            check(np.isfinite(loss), f"{model_name} timed epoch {e}: loss {loss}")
+        out["epoch_s"] = dict(median=float(np.median(times)), min=min(times), max=max(times),
+                              epochs=times)
+    else:
+        runner.fit(*lane[1:], 0, max_steps=WARM_STEPS)
+    out["step_profile"] = _step_profile(lane, args.batch_size)
+    return out
+
+
+def phase_train_grocery_seq(totals):
+    """The sequential models through the CLI on the card, on the committed
+    Grocery corpus: SASRec with bench.py's lane flags (dense Adam for
+    SEQ_MODELS' epochs with its dev HR@5 floor, bench.py's s/train-epoch,
+    a `--test_all 1` run (B1) and a `--lazy_emb_adam 1` run (the packed
+    lane's Adam commit on the item table, history ids included)), then
+    GRU4Rec, NARM, Caser and FPMC with their benchmark flags, 2 dense
+    epochs each: the loss falls and dev HR@5 clears its floor. Every
+    model's dense lane also gets its steady step's profile."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _grocery_dir(tmp)
+
+        def argv(name, tag, *extra, epochs):
+            return ["--model_name", name, *SEQ_MODELS[name][0], "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
+                    "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
+
+        def run(name, tag, *extra, epochs):
+            t = time.perf_counter()
+            with counted(totals) as c:
+                port_main.build_parser_and_run(argv(name, tag, *extra, epochs=epochs))
+            text = open(os.path.join(tmp, tag + ".log")).read()
+            epochs_seen = _epoch_lines(text)
+            check(len(epochs_seen) == epochs, f"{tag}: one log line per epoch")
+            check(all(np.isfinite(l) for l, _ in epochs_seen) and epochs_seen[-1][0] < epochs_seen[0][0],
+                  f"{tag}: finite loss, lower at the last epoch: {epochs_seen}")
+            dev = _log_metrics(text, "Dev  After Training")
+            return dict(seconds=time.perf_counter() - t, first_loss=epochs_seen[0][0],
+                        last_loss=epochs_seen[-1][0], dev=dev, launches=c.launches,
+                        epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)]), text
+
+        # 1. SASRec, dense Adam
+        flags, epochs, floor = SEQ_MODELS["SASRec"]
+        out["sasrec_dense"], _ = run("SASRec", "sasrec_dense", epochs=epochs)
+        check(out["sasrec_dense"]["dev"]["HR@5"] > floor,
+              f"SASRec dev HR@5 {out['sasrec_dense']['dev']['HR@5']} above {floor}")
+        # 2. its s/train-epoch as bench.py measures it, and its step profile
+        out["sasrec_lane"] = _grocery_lane("SASRec", argv("SASRec", "timing", epochs=1),
+                                           SEQ_TIMED_EPOCHS)
+        # 3. --test_all 1: every evaluation ranks over the catalog through B1
+        corpus = port_main.build_corpus(argparse.Namespace(path=os.path.join(tmp, "data"),
+                                                           dataset=GROCERY, regenerate=0), SeqReader)
+        n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("dev", "test")}
+        n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
+        out["sasrec_test_all"], text = run("SASRec", "sasrec_test_all", "--test_all", "1",
+                                           epochs=GROCERY_SHORT_EPOCHS)
+        want = 2 * n_batch["test"] + (GROCERY_SHORT_EPOCHS + 1) * n_batch["dev"]
+        check(out["sasrec_test_all"]["launches"]["ge_count"] == want,
+              f"ge_count launches of the SASRec --test_all run: {out['sasrec_test_all']['launches']} "
+              f"!= {want}")
+        out["sasrec_test_all"]["test"] = _log_metrics(text, "Test After Training")
+        # 4. --lazy_emb_adam 1: one commit per step, on the item table
+        out["sasrec_lazy"], _ = run("SASRec", "sasrec_lazy", "--lazy_emb_adam", "1",
+                                    epochs=GROCERY_SHORT_EPOCHS)
+        n_train = int((corpus.data_df["train"]["position"] > 0).sum())
+        steps = -(-n_train // EVAL_BATCH) * GROCERY_SHORT_EPOCHS
+        check(out["sasrec_lazy"]["launches"]["adam_commit"] == steps,
+              f"adam_commit launches of the SASRec lazy run: {out['sasrec_lazy']['launches']} != {steps}")
+        check(out["sasrec_lazy"]["dev"]["HR@5"] > SEQ_LAZY_DEV_HR5_FLOOR,
+              f"SASRec lazy dev HR@5 {out['sasrec_lazy']['dev']['HR@5']} above {SEQ_LAZY_DEV_HR5_FLOOR}")
+        # 5. the other sequential models, dense Adam
+        for name in ("GRU4Rec", "NARM", "Caser", "FPMC"):
+            _, epochs, floor = SEQ_MODELS[name]
+            out[name], _ = run(name, name, epochs=epochs)
+            check(out[name]["dev"]["HR@5"] > floor,
+                  f"{name} dev HR@5 {out[name]['dev']['HR@5']} above {floor}")
+            out[name]["lane"] = _grocery_lane(name, argv(name, "profile", epochs=1), 0)
+    emit("train_grocery_seq", floors={k: v[2] for k, v in SEQ_MODELS.items()},
+         lazy_floor=SEQ_LAZY_DEV_HR5_FLOOR, rows=dict(train=n_train, **n_rows),
+         seconds=round(time.perf_counter() - t0, 3), **out)
+
+
+def seq_corpus_1m() -> SeqReader:
+    """A SeqReader over an in-memory corpus: users 1..N_USERS, each with
+    SEQ_PER_USER interactions at increasing times, items uniform in
+    [1, N_ITEMS) from the seed. The last interaction of users 1..BATCH is
+    the dev split (BATCH rows to rank), the rest is train. Clicked sets,
+    positions and histories come from the reader's own code."""
+    rng = np.random.default_rng(SEED)
+    users = np.repeat(np.arange(1, N_USERS + 1), SEQ_PER_USER)
+    times = np.repeat(rng.integers(0, 10 ** 8, size=N_USERS), SEQ_PER_USER) \
+        + np.tile(np.arange(SEQ_PER_USER) * 60, N_USERS)
+    df = pd.DataFrame({"user_id": users, "item_id": rng.integers(1, N_ITEMS, size=len(users)),
+                       "time": times})
+    is_dev = (np.tile(np.arange(SEQ_PER_USER), N_USERS) == SEQ_PER_USER - 1) & (users <= BATCH)
+    corpus = SeqReader.__new__(SeqReader)
+    corpus.data_df = {"train": df[~is_dev].reset_index(drop=True),
+                      "dev": df[is_dev].reset_index(drop=True), "test": df.iloc[:0].copy()}
+    corpus.all_df = pd.concat([corpus.data_df[k] for k in ("train", "dev", "test")])
+    corpus.n_users, corpus.n_items = N_USERS + 1, N_ITEMS
+    corpus._build_clicked_sets()
+    corpus._append_his_info()
+    return corpus
+
+
+def _seq_lane(corpus, model_cls, flags, **kw):
+    """(runner, state, train batcher, train arrays, dev batcher, dev
+    arrays) of a sequential model on the 1M corpus, evaluated over the
+    whole catalog (`test_all`) in one batch of BATCH rows."""
+    runner = BaseRunner(_runner_args("--eval_batch_size", str(BATCH), *flags))
+    model = model_cls(user_num=corpus.n_users, item_num=corpus.n_items, emb_size=EMB, num_neg=1,
+                      test_all=1, history_max=SEQ_HISTORY, **kw)
+    train, dev = (SequentialBatcher(corpus, model, p, runner.args) for p in ("train", "dev"))
+    state = runner.init_state(model, SEED)
+    return runner, state, train, train.device_arrays(runner.device), dev, dev.device_arrays(runner.device)
+
+
+def _catalog_eval_vs_dense(totals, lane) -> dict:
+    """The runner's full-catalog ranks (B3) and top-100 (B2 + exact
+    select) of the BATCH dev rows, against dense exact references on
+    N_CHECK of them: ranks within the near-tie rule, top-100 values, ids
+    where distinct."""
+    runner, state, _, _, dev_b, dev_a = lane
+    model = state.model
+    t = time.perf_counter()
+    with counted(totals) as c:
+        ranks = runner.predict_ranks(state, dev_b, dev_a, "dev")
+        rank_s = time.perf_counter() - t
+        items, scores = runner.predict_topk(state, dev_b, dev_a, "dev", k=TOPK)
+    topk_s = time.perf_counter() - t - rank_s
+    check(c.launches["fused_ge_count"] == 1 and c.launches["fused_bucket_max"] == 1,
+          f"one B3 and one B2 launch for {len(dev_b)} rows: {c.launches}")
+    feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device="cuda"))
+    with torch.no_grad():
+        u = model(feed, catalog=True)["u_v"][:N_CHECK]
+        table = model.catalog_item_table()
+        target = feed["_target"][:N_CHECK].long()
+        cl = feed["_clicked_rows"][:N_CHECK].long()
+        check(bool((cl == target[:, None]).any(1).all()), "the dev target is in its clicked row")
+        s = u @ table.T
+        ts = s.gather(1, target[:, None])
+        ok = torch.ones_like(s, dtype=torch.bool)
+        ok[:, 0] = False
+        ok.scatter_(1, cl, False)
+        s = s.masked_fill(~ok, float("-inf"))
+        dense_rank = (s >= ts).sum(1) + 1
+        ties = near_ties(u.double() @ table.double().T, ts[:, 0], ok)
+        diff = (torch.from_numpy(ranks[:N_CHECK]).cuda().long() - dense_rank).abs()
+        ref_v, ref_i = torch.topk(s, TOPK, dim=1)
+        del s, ok
+    check(bool((diff <= ties).all()), "1M sequential ranks = dense ranks within the near-tie rule")
+    check(((ranks >= 1) & (ranks <= N_ITEMS)).all(), "ranks in range")
+    ref_v, ref_i = ref_v.cpu().numpy(), ref_i.cpu().numpy()
+    check(items.shape == (len(dev_b), TOPK) and np.isfinite(scores).all(), "top-100 shape")
+    check(np.allclose(scores[:N_CHECK], ref_v, rtol=1e-5, atol=1e-9), "top-100 values = dense")
+    close = np.abs(ref_v[:, :, None] - ref_v[:, None, :]) <= 1e-5 * np.abs(ref_v[:, :, None])
+    distinct = close.sum(-1) == 1
+    check((items[:N_CHECK][distinct] == ref_i[distinct]).all(), "top-100 ids = dense where distinct")
+    return dict(rows=len(dev_b), table=list(table.shape), launches=c.launches, ranks_s=rank_s,
+                topk_s=topk_s, rank_max_abs_diff=int(diff.max()), rank_near_ties=int(ties.sum()),
+                mean_rank=float(ranks.mean()))
+
+
+def phase_train_1m_seq(totals):
+    """SASRec at full width (D=64, 1 layer, 1 head, history 20) on the
+    1M-item corpus of `seq_corpus_1m` at batch BATCH, in the dense Adam and
+    packed lazy lanes: WARM_STEPS, then SEQ_TRAIN_STEPS timed steps and a
+    profiled steady step each; then the packed-trained model's 1M-item
+    ranks and top-100 against dense references; then FPMC (packed lane,
+    four tables, WARM_STEPS steps) and the same evaluation over its
+    computed [1M, 128] table."""
+    t0 = time.perf_counter()
+    corpus = seq_corpus_1m()
+    build_s = time.perf_counter() - t0
+    out = {}
+    for name, flags in (("dense_adam", []), ("packed_f32", ["--lazy_emb_adam", "1"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lane = _seq_lane(corpus, SASRec, flags, num_layers=1, num_heads=1)
+        runner, state, batcher, arrays = lane[:4]
+        warm_loss = runner.fit(state, batcher, arrays, 1, max_steps=WARM_STEPS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counted(totals) as c:
+            loss = runner.fit(state, batcher, arrays, 2, max_steps=SEQ_TRAIN_STEPS)
+        secs = time.perf_counter() - t
+        check(np.isfinite(loss) and loss < warm_loss, f"1M SASRec {name}: loss {warm_loss} -> {loss}")
+        want = SEQ_TRAIN_STEPS if flags else 0
+        check(c.launches["adam_commit"] == want, f"{name}: adam_commit {c.launches} != {want}")
+        out[name] = dict(examples_per_s=SEQ_TRAIN_STEPS * BATCH / secs,
+                         ms_per_step=secs * 1e3 / SEQ_TRAIN_STEPS, loss=loss, warm_loss=warm_loss,
+                         adam_commit_launches=c.launches["adam_commit"],
+                         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                         step_profile=_step_profile(lane[:4], BATCH))
+    out["sasrec_eval"] = _catalog_eval_vs_dense(totals, lane)
+    del lane, runner, state, batcher, arrays
+    torch.cuda.empty_cache()
+    lane = _seq_lane(corpus, FPMC, ["--lazy_emb_adam", "1"])
+    runner, state, batcher, arrays = lane[:4]
+    with counted(totals) as c:
+        loss = runner.fit(state, batcher, arrays, 1, max_steps=WARM_STEPS)
+    check(np.isfinite(loss) and c.launches["adam_commit"] == 4 * WARM_STEPS,
+          f"1M FPMC packed: loss {loss}, launches {c.launches}")
+    out["fpmc_eval"] = _catalog_eval_vs_dense(totals, lane)
+    check(out["fpmc_eval"]["table"] == [N_ITEMS, 2 * EMB], "FPMC scores against [iu | il]")
+    emit("train_1m_seq", n_users=N_USERS, n_items=N_ITEMS, per_user=SEQ_PER_USER, emb_size=EMB,
+         history_max=SEQ_HISTORY, batch=BATCH, train_rows=len(batcher), steps=SEQ_TRAIN_STEPS,
+         warm_steps=WARM_STEPS, corpus_build_s=round(build_s, 3), lanes=out,
          seconds=round(time.perf_counter() - t0, 3))
     return out
 
@@ -1023,6 +1314,8 @@ def main() -> int:
     totals = {}
     g_model = phase_train_grocery(totals)
     phase_train_1m(totals)
+    phase_train_grocery_seq(totals)
+    phase_train_1m_seq(totals)
     phase_train_windows()
     with counted(totals) as serving:
         g_model, g_corpus = phase_grocery(g_model)

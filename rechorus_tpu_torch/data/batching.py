@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-196).
+rechorus_tpu/data/batching.py:26-38, 83-196 and 307-381).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -92,21 +92,29 @@ class GeneralBatcher(Batcher):
     (src/models/BaseModel.py:191-214)."""
 
     def build(self):
-        df = self.corpus.data_df[self.phase]
+        df = self._rows()
         self.n = len(df)
         self.arrays["user_id"] = df["user_id"].to_numpy().astype(np.int32)
         self.arrays["target_item"] = df["item_id"].to_numpy().astype(np.int32)
+        self._extra_arrays(df)
         self.test_all = bool(getattr(self.model, "test_all", 0)) and self.phase != "train"
         if self.phase == "train":
             self.arrays["_clicked"] = self.corpus.clicked_matrix(include_residual=False)
             self.num_neg = self.model.num_neg if getattr(self.model, "train_with_neg", True) else 0
         elif not self.test_all:
-            neg = np.stack(self.corpus.data_df[self.phase]["neg_items"].to_list()).astype(np.int32)
+            neg = np.stack(df["neg_items"].to_list()).astype(np.int32)
             self.arrays["neg_items"] = neg
         else:
             # full-catalog eval: mask train+residual clicked items
             # (reference BaseRunner.py:244-251)
             self.arrays["_clicked_all"] = self.corpus.clicked_matrix(include_residual=True)
+
+    def _rows(self):
+        """The phase's rows this batcher serves."""
+        return self.corpus.data_df[self.phase]
+
+    def _extra_arrays(self, df) -> None:
+        """Per-row arrays a subclass adds beside user_id / target_item."""
 
     def train_feed(self, arrays, idx, gen):
         users = arrays["user_id"][idx]
@@ -147,3 +155,36 @@ class GeneralBatcher(Batcher):
             feed = {"user_id": users, "item_id": item_ids}
         feed["batch_size"] = users.shape[0]
         return feed
+
+
+@register_batcher("sequential")
+class SequentialBatcher(GeneralBatcher):
+    """Adds history_items / history_times / lengths to every feed and keeps
+    only the rows with position > 0. Parity: reference
+    SequentialModel.Dataset (BaseModel.py:226-245). The deferred
+    `--host_shard_input` arrays come with the sharded path (ROADMAP A12)."""
+
+    HISTORY_KEYS = ("history_items", "history_times", "lengths")
+
+    def _rows(self):
+        df = self.corpus.data_df[self.phase]
+        self._df = df[df["position"].to_numpy() > 0].reset_index(drop=True)
+        return self._df
+
+    def _extra_arrays(self, df) -> None:
+        if getattr(self.args, "host_shard_input", 0):
+            raise NotImplementedError("--host_shard_input: not ported yet "
+                                      "(ROADMAP A12: host-sharded corpus loading)")
+        his = self.corpus.history_arrays(df, self.model.history_max)
+        self.arrays.update(zip(self.HISTORY_KEYS, his))
+
+    def _with_history(self, feed, arrays, idx):
+        for k in self.HISTORY_KEYS:
+            feed[k] = arrays[k][idx]
+        return feed
+
+    def train_feed(self, arrays, idx, gen):
+        return self._with_history(super().train_feed(arrays, idx, gen), arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._with_history(super().eval_feed(arrays, idx, cands), arrays, idx)

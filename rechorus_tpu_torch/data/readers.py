@@ -1,12 +1,14 @@
-"""Top-k corpus reader (port of rechorus_tpu/data/readers.py:1-259,
-`BaseReader` only).
+"""Top-k corpus readers (port of rechorus_tpu/data/readers.py:1-259 and
+:333-381: `BaseReader` with its fixed-shape history arrays, and
+`SeqReader`).
 
 Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
 (= max id + 1) and `train_clicked_set` / `residual_clicked_set` per user,
 plus the fixed-shape `clicked_matrix()` the catalog paths take. The
-corpus arrays are built with numpy only (no native fast path); the
-corpus pickle cache lives in main.build_corpus.
+corpus arrays are built with vectorised numpy only (no native fast path
+and no per-row loop); the corpus pickle cache lives in
+main.build_corpus.
 """
 from __future__ import annotations
 
@@ -136,6 +138,33 @@ class BaseReader:
             '"# user": {}, "# item": {}, "# entry": {}'.format(self.n_users - 1, self.n_items - 1, len(self.all_df))
         )
 
+    def history_arrays(self, df: pd.DataFrame, history_max: int, chunk: int = 1 << 20):
+        """Fixed-shape ([n, history_max] int32 items, [n, history_max]
+        int64 times, [n] int32 lengths) of the rows of `df`: row r's
+        history is user_his[u][:position][-history_max:], left-aligned and
+        zero-padded (reference BaseModel.py:236-245). Needs `user_his` (a
+        CSR of [item, time] rows in time order, from SeqReader). Gathered
+        from the CSR offsets in row chunks of `chunk`, with no per-row
+        loop."""
+        users = df["user_id"].to_numpy().astype(np.int64)
+        positions = df["position"].to_numpy().astype(np.int64)
+        flat, offsets = self.user_his.flat, self.user_his.offsets
+        n, H = len(users), history_max
+        his_items = np.zeros((n, H), dtype=np.int32)
+        his_times = np.zeros((n, H), dtype=np.int64)
+        lengths = np.clip(positions, 0, H).astype(np.int32)
+        cols = np.arange(H, dtype=np.int64)
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            length = lengths[lo:hi].astype(np.int64)
+            start = offsets[users[lo:hi]] + positions[lo:hi] - length
+            valid = cols[None, :] < length[:, None]
+            src = np.where(valid, start[:, None] + cols[None, :], 0)
+            if len(flat):
+                his_items[lo:hi] = np.where(valid, flat[src, 0], 0)
+                his_times[lo:hi] = np.where(valid, flat[src, 1], 0)
+        return his_items, his_times, lengths
+
     def clicked_matrix(self, include_residual: bool = False) -> np.ndarray:
         """Padded per-user clicked-item matrix [n_users, max_clicked]
         int32, pad 0 (item ids are >= 1): the exclusion rows of the
@@ -153,3 +182,46 @@ class BaseReader:
             flat, offsets = train.flat, train.offsets
         max_len = max(1, int(np.diff(offsets).max()))
         return csr_fill_matrix(flat, offsets, max_len)
+
+
+@register_reader("SeqReader")
+class SeqReader(BaseReader):
+    """Sequential reader: global time-sorted history + per-row position.
+
+    Parity: src/helpers/SeqReader.py (mergesort for stability)."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self._append_his_info()
+
+    def _append_his_info(self):
+        """One lexsort + one stable argsort, no Python loop. Rows are
+        ordered by (time, user) stably; each row's `position` is the
+        number of that user's earlier rows, and `user_his[u]` is the CSR
+        of u's [item, time] rows in that order (reference
+        SeqReader.py:20-32). As in the JAX package, positions go by row
+        identity (all_df row r IS split row r), not by merging back on
+        (user, item, time): the same output for unique keys, where the
+        reference's merge would duplicate rows that share all three."""
+        logging.info("Appending history info...")
+        u = self.all_df["user_id"].to_numpy(np.int64)
+        i = self.all_df["item_id"].to_numpy(np.int64)
+        t = self.all_df["time"].to_numpy(np.int64)
+        n = len(u)
+        order = np.lexsort((u, t))                # primary time, secondary user
+        us = u[order]
+        sidx = np.argsort(us, kind="stable")      # group by user, keep time order
+        counts = np.bincount(us, minlength=self.n_users)
+        offsets = np.zeros(self.n_users + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        pos_sorted = np.empty(n, dtype=np.int64)
+        pos_sorted[sidx] = np.arange(n, dtype=np.int64) - np.repeat(offsets[:-1], counts)
+        position_all = np.empty(n, dtype=np.int64)
+        position_all[order] = pos_sorted
+        his_order = order[sidx]
+        self.user_his = CSRRows(np.stack([i[his_order], t[his_order]], axis=1), offsets)
+        lo = 0
+        for key in ["train", "dev", "test"]:
+            L = len(self.data_df[key])
+            self.data_df[key]["position"] = position_all[lo: lo + L]
+            lo += L

@@ -27,6 +27,7 @@ import numpy as np
 from rechorus_tpu_torch import registry
 from rechorus_tpu_torch.data.batching import get_batcher
 from rechorus_tpu_torch.models.base import count_variables
+from rechorus_tpu_torch.ops.layers import set_dense_init
 from rechorus_tpu_torch.utils import io as utils
 from rechorus_tpu_torch.utils.rng import init_seed
 
@@ -52,9 +53,9 @@ def parse_global_args(parser):
     parser.add_argument("--regenerate", type=int, default=0, help="Whether to regenerate intermediate files")
     parser.add_argument("--dense_init", type=str, default="reference",
                         choices=["reference", "glorot"],
-                        help="Dense-layer init scheme. Only 'reference' (N(0,0.01)) is "
-                             "ported: no ported model has a dense layer yet, and "
-                             "'glorot' raises.")
+                        help="Dense-layer init scheme: 'reference' = N(0,0.01) kernel+bias "
+                             "(reference BaseModel.init_weights); 'glorot' = glorot-uniform "
+                             "kernel, zero bias.")
     return parser
 
 
@@ -166,9 +167,8 @@ def main(args, model_cls, reader_cls, runner_cls):
     if getattr(args, "dist_coordinator", ""):
         raise NotImplementedError("--dist_coordinator: multi-process runs are not ported "
                                   "yet (ROADMAP A12: parallel/)")
-    if getattr(args, "dense_init", "reference") != "reference":
-        raise NotImplementedError("--dense_init glorot comes with the first model that "
-                                  "has a dense layer (ROADMAP A8)")
+    # process-global, read when the model's dense layers are built
+    set_dense_init(getattr(args, "dense_init", "reference"))
     init_seed(args.random_seed)
     corpus, runner, model, batchers, arrays = build_stack(args, model_cls, reader_cls, runner_cls)
     state, _ = train_and_eval(args, corpus, runner, model, batchers, arrays, args.random_seed)
@@ -176,7 +176,9 @@ def main(args, model_cls, reader_cls, runner_cls):
     return state
 
 
-def build_parser_and_run(argv=None):
+def parse_cli(argv=None):
+    """(args, model class, reader class, runner class) of a command line,
+    with the default log and model paths filled in."""
     init_parser = argparse.ArgumentParser(description="Model", add_help=False)
     init_parser.add_argument("--model_name", type=str, default="BPRMF", help="Choose a model to run.")
     init_parser.add_argument("--model_mode", type=str, default="", help="Task mode suffix (e.g. CTR, TopK, Impression).")
@@ -206,7 +208,11 @@ def build_parser_and_run(argv=None):
         args.log_file = "log/{}/{}.txt".format(init_args.model_name + init_args.model_mode, log_file_name)
     if args.model_path == "":
         args.model_path = "model/{}/{}.bin".format(init_args.model_name + init_args.model_mode, log_file_name)
+    return args, model_cls, reader_cls, runner_cls
 
+
+def build_parser_and_run(argv=None):
+    args, model_cls, reader_cls, runner_cls = parse_cli(argv)
     utils.init_logging(args.log_file, args.verbose)
     return main(args, model_cls, reader_cls, runner_cls)
 

@@ -1,11 +1,14 @@
-"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-146).
+"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-168).
 
 A model is an `nn.Module` whose keyword arguments are hyperparameters,
 filled from CLI args + corpus statistics by `from_args`. It declares
 which reader / runner / batcher it needs as class attributes, implements
-`forward(feed) -> out_dict` with out_dict["prediction"] of shape
-[B, n_candidates], and `loss(out_dict, feed) -> scalar` on plain tensors,
-which autograd differentiates.
+`forward(feed, training=False, gen=None) -> out_dict` with
+out_dict["prediction"] of shape [B, n_candidates], and
+`loss(out_dict, feed) -> scalar` on plain tensors, which autograd
+differentiates. `training` and the step's generator `gen` are what the
+flax models get as `training` and the 'dropout' rng: the runner's train
+step passes both, evaluation neither.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 from torch import nn
 
 from rechorus_tpu_torch.ops import losses
-from rechorus_tpu_torch.ops.layers import INIT_STD
+from rechorus_tpu_torch.ops.layers import param_init
 
 
 class BaseModel(nn.Module):
@@ -27,12 +30,13 @@ class BaseModel(nn.Module):
     # Catalog-scoring protocol (full-catalog eval/serving): models that
     # factor as score(u, i) = u_v . table[i] (+ bias[i]) set this True and
     # accept forward(feed, catalog=True) returning {"u_v": [B, d]}. The
-    # catalog is then scored as one [B, d] x [d, N] product against the
-    # table at `catalog_table` (a submodule path whose `.weight` is the
-    # table). `catalog_raw_table` is True when that table IS the raw
-    # parameter (so serving can pre-build its grouped rescore copy once);
-    # models with a transformed table (LightGCN's propagated embeddings)
-    # set it False.
+    # catalog is then scored as one [B, d] x [d, N] product against
+    # `catalog_item_table()`, which the runner builds once per evaluation
+    # call: by default the table at `catalog_table` (a submodule path
+    # whose `.weight` is the table). `catalog_raw_table` is True when that
+    # table IS the raw parameter; models with a computed table (FPMC's
+    # [iu | il], the JAX package's `i_table` output) set it False and
+    # override `catalog_item_table`.
     supports_catalog: ClassVar[bool] = False
     catalog_table: ClassVar[tuple] = ("i_embeddings",)
     catalog_raw_table: ClassVar[bool] = True
@@ -70,10 +74,22 @@ class BaseModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
-        """Redraw every parameter N(0, 0.01) from `gen` (reference
-        BaseModel.init_weights), on the device the generator lives on."""
-        for p in self.parameters():
-            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device) * INIT_STD)
+        """Redraw every parameter from `gen`, in `parameters()` order, on
+        the device the generator lives on: N(0, 0.01) (reference
+        BaseModel.init_weights) unless its module names another
+        initialiser in `PARAM_INITS` (ops/layers.py)."""
+        for mod in self.modules():
+            for name, p in mod.named_parameters(recurse=False):
+                p.copy_(param_init(mod, name)(p.shape, gen))
+
+    def catalog_item_table(self) -> torch.Tensor:
+        """The [N, d] f32 table the catalog protocol scores `u_v` against.
+        A bf16 table is cast here, once per call (bf16 -> f32 is exact):
+        the rank and top-k kernels take f32 tables."""
+        node = self
+        for name in self.catalog_table:
+            node = getattr(node, name)
+        return node.weight.detach().float().contiguous()
 
     def loss(self, out_dict: Dict[str, torch.Tensor], feed: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
@@ -142,3 +158,29 @@ class GeneralModel(BaseModel):
 
     def loss(self, out_dict, feed):
         return losses.bpr_multi_neg(out_dict["prediction"])
+
+
+class SequentialModel(GeneralModel):
+    """Adds truncated history feeds (reference BaseModel.py:216-245; JAX
+    rechorus_tpu/models/base.py:149-168)."""
+
+    reader: ClassVar[str] = "SeqReader"
+    batcher: ClassVar[str] = "sequential"
+
+    def __init__(self, *, history_max: int = 20, **kwargs):
+        super().__init__(**kwargs)
+        self.history_max = history_max
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--history_max", type=int, default=20,
+                            help="Maximum length of history.")
+        return GeneralModel.parse_model_args(parser)
+
+    def lazy_table_specs(self) -> dict:
+        specs = dict(super().lazy_table_specs())
+        # history ids also gather from the item table (pad id 0 rides along:
+        # its rows are masked out of every model's output, so its gradient
+        # row is 0)
+        specs["i_embeddings.weight"] = ("item_id", "history_items")
+        return specs

@@ -33,7 +33,7 @@ class BPRMF(GeneralModel):
         parser.add_argument("--emb_size", type=int, default=64, help="Size of embedding vectors.")
         return GeneralModel.parse_model_args(parser)
 
-    def forward(self, feed, catalog: bool = False):
+    def forward(self, feed, catalog: bool = False, training: bool = False, gen=None):
         """feed["user_id"] [B]; feed["item_id"] [B, C]. Returns
         {"prediction": [B, C]}, or {"u_v": [B, D]} with catalog=True."""
         u_v = self.u_embeddings(feed["user_id"])

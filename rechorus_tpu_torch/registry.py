@@ -46,6 +46,11 @@ _MODULES = [
     "rechorus_tpu_torch.data.readers",
     "rechorus_tpu_torch.runners.base",
     "rechorus_tpu_torch.models.general.bprmf",
+    "rechorus_tpu_torch.models.sequential.sasrec",
+    "rechorus_tpu_torch.models.sequential.gru4rec",
+    "rechorus_tpu_torch.models.sequential.narm",
+    "rechorus_tpu_torch.models.sequential.caser",
+    "rechorus_tpu_torch.models.sequential.fpmc",
 ]
 
 

@@ -248,6 +248,10 @@ class BaseRunner:
             if value != default:
                 raise NotImplementedError(f"--{flag} {value}: not ported yet ({item})")
         self.device = device_of_gpu_flag(getattr(args, "gpu", "0"))
+        # full f32 in cuDNN's GRU and convolution too (GRU4Rec, NARM, Caser):
+        # the arithmetic chip_smoke.py checks, not TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         self.epoch = args.epoch
         self.check_epoch = args.check_epoch
         self.test_epoch = args.test_epoch
@@ -399,7 +403,7 @@ class BaseRunner:
             feed["_target_col"] = inv[:, 0]
 
         def loss_fn():
-            out = model(feed)
+            out = model(feed, training=True, gen=gen)
             if inv is not None and out["prediction"].dim() == 2:
                 out["prediction"] = sampling.restore_predictions(out["prediction"], inv)
             return model.loss(out, feed)
@@ -507,23 +511,12 @@ class BaseRunner:
         return model(feed)
 
     @staticmethod
-    def _catalog_parts(model, feed, table_f32=None):
-        """(u_vecs, item_table, bias) for catalog-protocol models."""
+    def _catalog_parts(model, feed):
+        """(u_vecs, bias) of catalog-protocol models, per eval batch; the
+        item table comes from `model.catalog_item_table()`, once per
+        evaluation call (FPMC's computed [iu | il] included)."""
         out = model(feed, catalog=True)
-        table = out.get("i_table")
-        if table is None:
-            table = table_f32
-        return out["u_v"], table, out.get("i_bias")
-
-    @staticmethod
-    def _raw_catalog_table(model) -> torch.Tensor:
-        """The model's catalog table as f32. A bf16 table is cast ONCE per
-        eval call (bf16 -> f32 is exact, so scores equal those of a product
-        that upcasts inside): the rank and top-k kernels take f32 tables."""
-        node = model
-        for name in model.catalog_table:
-            node = getattr(node, name)
-        return node.weight.detach().float().contiguous()
+        return out["u_v"], out.get("i_bias")
 
     def _eval_batches(self, n: int):
         idx = torch.arange(n, device=self.device)
@@ -544,7 +537,7 @@ class BaseRunner:
         self._check_forward_eval(model, batcher)
         test_all = getattr(batcher, "test_all", False)
         catalog = test_all and getattr(model, "supports_catalog", False)
-        table_f32 = self._raw_catalog_table(model) if catalog else None
+        table = model.catalog_item_table() if catalog else None
         n_items = batcher.corpus.n_items
         ranks = []
         for idx in self._eval_batches(len(batcher)):
@@ -552,7 +545,7 @@ class BaseRunner:
             if catalog:
                 # catalog protocol: u . table as one product instead of a
                 # [B, N, d] embedding gather through the model
-                u, table, bias = self._catalog_parts(model, feed, table_f32)
+                u, bias = self._catalog_parts(model, feed)
                 if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
                     # large catalog: stream tiles, never build [B, N]
                     r = topk_ops.tiled_catalog_ranks(
@@ -580,19 +573,18 @@ class BaseRunner:
         test_all = getattr(batcher, "test_all", False)
         catalog = test_all and getattr(model, "supports_catalog", False)
         n_items = batcher.corpus.n_items
-        table_f32 = grouped = None
+        table = grouped = None
         if catalog:
-            table_f32 = self._raw_catalog_table(model)
+            table = model.catalog_item_table()
             # grouped-slice rescore copy, built ONCE per call outside the
-            # batch loop, only when the tiled branch reads the RAW table
-            if getattr(model, "catalog_raw_table", True) and table_f32.shape[0] >= max(
-                    topk_ops.MIN_ROWS_FOR_TILED, topk_ops.DEFAULT_BUCKET * 128):
-                grouped = topk_ops.group_table_for_rescore(table_f32)
+            # batch loop, like the table itself
+            if table.shape[0] >= max(topk_ops.MIN_ROWS_FOR_TILED, topk_ops.DEFAULT_BUCKET * 128):
+                grouped = topk_ops.group_table_for_rescore(table)
         all_items, all_scores = [], []
         for idx in self._eval_batches(len(batcher)):
             feed = batcher.eval_feed(arrays, idx)
             if catalog:
-                u, table, bias = self._catalog_parts(model, feed, table_f32)
+                u, bias = self._catalog_parts(model, feed)
                 if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
                     scores, items = topk_ops.tiled_catalog_topk(
                         u, table, k, bias=bias, clicked_rows=feed["_clicked_rows"],
@@ -657,7 +649,7 @@ class BaseRunner:
             if training_time > 0:
                 logging.debug("throughput: %.0f examples/s/chip", n_train / training_time)
             if self.check_epoch > 0 and (epoch == 0 or (epoch + 1) % self.check_epoch == 0):
-                self.check(state)
+                self.check(state, batchers["dev"], arrays["dev"])
 
             dev_result = self.evaluate(
                 state, batchers["dev"], arrays["dev"], "dev", [self.main_topk], self.metrics
@@ -705,16 +697,40 @@ class BaseRunner:
         model.load_state_dict(best_params)
         return state
 
-    def check(self, state: TrainState):
+    def check(self, state: TrainState, batcher=None, arrays=None):
         """Tensor observation every --check_epoch epochs (reference
-        utils.check, utils/utils.py:37-44): per-parameter-group mean|w|
-        (drift/NaN watch). The JAX package also prints the intermediates a
-        model `sow`s; torch has no such collection and BPRMF sows none."""
+        utils.check, utils/utils.py:37-44, logs the model's check_list):
+        per-parameter-group mean|w| (drift/NaN watch) plus one line per
+        attention map the model's `MultiHeadAttention` layers keep on one
+        dev batch (the JAX package's sown intermediates; the path is the
+        module's, '/'-joined, as flax names it). Models with no such layer
+        run no forward here; under --test_all a catalog-protocol model runs
+        its catalog forward, never a [B, N] one."""
+        model = state.model
         groups: Dict[str, List[float]] = {}
-        for name, p in state.model.named_parameters():
+        for name, p in model.named_parameters():
             groups.setdefault(name.split(".")[0], []).append(float(p.detach().float().abs().mean()))
         lines = ["{:<20} mean|w|={:.4f}".format(name, float(np.mean(vals)))
                  for name, vals in groups.items()]
+        if batcher is not None and len(batcher) and \
+                any(hasattr(m, "intermediates") for m in model.modules()):
+            model.eval()
+            self._check_forward_eval(model, batcher)
+            catalog = getattr(batcher, "test_all", False) and getattr(model, "supports_catalog", False)
+            idx = torch.arange(min(self.eval_batch_size, len(batcher)), device=self.device)
+            with torch.no_grad(), layers_ops.record_intermediates():
+                model(batcher.eval_feed(arrays, idx), catalog=True) if catalog \
+                    else model(batcher.eval_feed(arrays, idx))
+            for path, mod in model.named_modules():
+                kept = getattr(mod, "intermediates", None)
+                if not kept:
+                    continue
+                mod.intermediates = None
+                for key, v in kept.items():
+                    v = v.float().cpu().numpy()
+                    lines.append("{:<40} shape={} mean={:.4f} std={:.4f} max={:.4f}".format(
+                        path.replace(".", "/") + "/" + key, "x".join(map(str, v.shape)),
+                        float(v.mean()), float(v.std()), float(v.max())))
         logging.info(os.linesep.join([os.linesep] + lines) + os.linesep)
 
     def eval_termination(self, criterion: List[float]) -> bool:

@@ -91,10 +91,7 @@ class ServeIndex:
             raise ValueError(
                 f"{type(model).__name__} does not expose a raw catalog table; precompute "
                 "(u_table, i_table) and use ServeIndex.from_tables")
-        node = model
-        for name in model.catalog_table:
-            node = getattr(node, name)
-        i_table = node.weight
+        i_table = model.catalog_item_table()
         u_mod = getattr(model, "u_embeddings", None)
         if u_mod is None:
             raise ValueError("no u_embeddings table; use from_tables")

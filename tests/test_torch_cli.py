@@ -1,7 +1,9 @@
 """The port's CLI end to end on the CPU (`--gpu ''`): the flagship BPRMF
 command on a small block-structured corpus in each of the four optimizer
-lanes, the checkpoint round trip, the top-100 export, the log grammar the
-JAX package's multi-seed harness parses, the corpus cache, the flags that
+lanes, the sequential models (SASRec, GRU4Rec, NARM, Caser, FPMC) in the
+dense and packed lanes, the checkpoint round trip, the top-100 export, the
+log grammar the JAX package's multi-seed harness parses, `check()`'s
+attention lines, `--dense_init glorot`, the corpus cache, the flags that
 wait for a later slice, and the copies of the jax-free helper modules.
 """
 import argparse
@@ -45,14 +47,15 @@ def data_root(tmp_path_factory):
 def _reset_globals():
     yield
     tlayers.set_table_dtype(None)
+    tlayers.set_dense_init("reference")
     for h in logging.root.handlers[:]:
         logging.root.removeHandler(h)
         h.close()
 
 
-def _run(data_root, tmp_path, tag, *extra, epochs=12):
+def _run(data_root, tmp_path, tag, *extra, epochs=12, model="BPRMF"):
     log = tmp_path / f"{tag}.log"
-    argv = ["--model_name", "BPRMF", "--emb_size", "16", "--lr", "1e-2", "--l2", "1e-6",
+    argv = ["--model_name", model, "--emb_size", "16", "--lr", "1e-2", "--l2", "1e-6",
             "--batch_size", "64", "--dataset", "Synth", "--path", str(data_root), "--gpu", "",
             "--epoch", str(epochs), "--log_file", str(log), "--check_epoch", "5", *extra]
     if "--model_path" not in extra:
@@ -117,11 +120,102 @@ def test_reload_export_grammar_and_cache(data_root, tmp_path):
     assert "Load corpus from" in text2
 
 
+# the sequential models at small widths (docs/benchmark_commands.md's
+# flags, narrowed); the packed lane runs with NaN-poisoned stale tables, so
+# a table read that bypasses TableEmbed would NaN the loss
+SEQ_MODELS = {
+    "SASRec": ["--num_layers", "2", "--num_heads", "2"],
+    "GRU4Rec": ["--hidden_size", "24"],
+    "NARM": ["--hidden_size", "24", "--attention_size", "8"],
+    "Caser": ["--L", "3", "--num_horizon", "8", "--num_vertical", "4"],
+    "FPMC": [],
+}
+SEQ_LANES = {"dense": [], "packed": ["--lazy_emb_adam", "1", "--debug_nan_placeholder", "1"]}
+
+
+@pytest.mark.parametrize("lane", list(SEQ_LANES))
+@pytest.mark.parametrize("name", list(SEQ_MODELS))
+def test_sequential_model_trains_reloads_and_exports(data_root, tmp_path, name, lane):
+    flags = ["--history_max", "8", *SEQ_MODELS[name], *SEQ_LANES[lane]]
+    _, text = _run(data_root, tmp_path, "seq", *flags, epochs=4, model=name)
+    epochs = _epochs(text)
+    assert len(epochs) == 4 and all(l == l for l, _ in epochs)   # no NaN abort
+    assert epochs[-1][0] < epochs[0][0]                          # loss falls
+    assert max(hr for _, hr in epochs) > 0.4                     # chance is 0.25
+    test_after = re.search(r"^Test After Training: (\(.*\))$", text, re.M).group(1)
+    export = pd.read_csv(data_root / "Synth" / f"rec-{name}-test.csv", sep="\t")
+    items = ast.literal_eval(export["rec_items"][0])
+    assert len(items) == 20 and len(set(items)) == 20            # target + 19 negatives
+    _, text2 = _run(data_root, tmp_path, "seq_reload", *flags, "--load", "1", "--train", "0",
+                    "--save_final_results", "0", "--model_path", str(tmp_path / "seq.bin"), model=name)
+    assert re.search(r"^Test Before Training: (\(.*\))$", text2, re.M).group(1) == test_after
+    assert (data_root / "Synth" / "SeqReader.torch.pkl").exists()
+
+
+def test_sasrec_test_all_glorot_and_attention_lines(data_root, tmp_path):
+    """`--test_all 1` ranks over the whole catalog (B1's plain version on
+    the CPU); `--dense_init glorot` starts the dense layers at
+    glorot-uniform kernels and zero biases; `check()` prints one line per
+    attention map on a dev batch, in the JAX package's grammar."""
+    state, text = _run(data_root, tmp_path, "sas_all", "--history_max", "8", "--num_layers", "2",
+                       "--num_heads", "2", "--test_all", "1", "--dense_init", "glorot",
+                       "--check_epoch", "1", epochs=3, model="SASRec")
+    assert len(_epochs(text)) == 3
+    export = pd.read_csv(data_root / "Synth" / "rec-SASRec-test.csv", sep="\t")
+    items = ast.literal_eval(export["rec_items"][0])                # over the whole catalog
+    assert len(items) == 100 and len(set(items)) == 100 and min(items) >= 1
+    before = re.search(r"^Test Before Training: \(HR@5:([\d.]+)", text, re.M)
+    after = re.search(r"^Test After Training: \(HR@5:([\d.]+)", text, re.M)
+    assert float(before.group(1)) < 0.15 < float(after.group(1))   # 150 items: chance 5/150
+    lines = re.findall(r"^(transformer_\d/mha/attention) +shape=(\S+) mean=([\d.]+) std=[\d.]+ "
+                       r"max=([\d.]+)$", text, re.M)
+    assert {p for p, *_ in lines} == {"transformer_0/mha/attention", "transformer_1/mha/attention"}
+    assert len(lines) == 2 * 3                                    # after epochs 1, 2 and 3
+    assert all(shape.endswith("x2x8x8") and float(mean) == pytest.approx(1 / 8, abs=1e-4)
+               for _, shape, mean, _ in lines)                    # causal rows sum to 1
+    model = state.model
+    assert all(getattr(m, "intermediates", None) is None for m in model.modules())
+    # glorot: the dense kernels are not at the N(0, 0.01) scale
+    assert float(model.transformer_0.ff1.weight.detach().std()) > 0.1
+
+
+@pytest.fixture(scope="module")
+def large_catalog_root(tmp_path_factory):
+    """40 users over 9000 items: past the 8192 items above which a [B, N]
+    forward evaluation is refused."""
+    root = tmp_path_factory.mktemp("torch_cli_large")
+    make_topk_dataset(str(root / "Synth"), n_users=40, n_items=9000, n_per_user=12)
+    return root
+
+
+@pytest.mark.parametrize("model,extra", [("BPRMF", []),
+                                         ("SASRec", ["--history_max", "8", "--num_heads", "2"])])
+def test_check_under_test_all_runs_no_full_catalog_forward(large_catalog_root, tmp_path,
+                                                           monkeypatch, model, extra):
+    """`check()` every epoch under `--test_all 1` over a catalog larger than
+    8192 items: no evaluation forward runs without the catalog protocol
+    (it would build [B, N, d]); BPRMF, which records nothing, runs none in
+    `check()`, and SASRec still prints its attention lines."""
+    cls = registry.get_model(model)
+    calls, forward = [], cls.forward
+
+    def spy(self, feed, catalog=False, training=False, gen=None):
+        calls.append((catalog, training))
+        return forward(self, feed, catalog=catalog, training=training, gen=gen)
+
+    monkeypatch.setattr(cls, "forward", spy)
+    _, text = _run(large_catalog_root, tmp_path, "large", "--test_all", "1", "--check_epoch", "1",
+                   "--save_final_results", "0", *extra, epochs=2, model=model)
+    assert len(_epochs(text)) == 2
+    assert all(catalog for catalog, training in calls if not training), calls
+    lines = re.findall(r"^transformer_0/mha/attention +shape=\S+", text, re.M)
+    assert len(lines) == (2 if model == "SASRec" else 0)
+
+
 @pytest.mark.parametrize("flag,value", [("--approx_topk", "1"), ("--data_parallel", "2"),
                                         ("--model_parallel", "2"), ("--ckpt_format", "orbax"),
                                         ("--host_shard_input", "1"), ("--profile", "trace_dir"),
-                                        ("--dist_coordinator", "localhost:1234"),
-                                        ("--dense_init", "glorot")])
+                                        ("--dist_coordinator", "localhost:1234")])
 def test_flags_of_later_slices_raise(data_root, tmp_path, flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(data_root, tmp_path, "later", flag, value, epochs=1)
@@ -161,8 +255,8 @@ def test_default_log_and_model_paths_lie_inside_the_working_directory(data_root,
 
 
 def test_unported_model_name_raises_a_key_error_that_names_it():
-    with pytest.raises(KeyError, match="SASRec"):
-        registry.get_model("SASRec")
+    with pytest.raises(KeyError, match="TiSASRec"):
+        registry.get_model("TiSASRec")
     with pytest.raises(KeyError, match="BPRMFImpression"):
         registry.get_model("BPRMF", "Impression")
     assert registry.get_model("BPRMF").registered_name == "BPRMF"

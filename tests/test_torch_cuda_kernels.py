@@ -224,6 +224,45 @@ def test_adam_commit_kernel_equals_plain(dev, N, R, D, layout, l2):
     assert LA.adam_commit.launches == before + 1
 
 
+@pytest.mark.parametrize("layout", ["packed", "rows_f32"])
+def test_adam_commit_at_a_sequential_step(dev, layout):
+    """A sequential model's item-table commit at batch 4096: the ids of the
+    targets, one negative each and 20 history slots per row (a fifth of
+    them the pad id 0), 4096 x 22 before dedup, over a 1M-item table:
+    one [N, 192] packed block, or three [N, 64] tables."""
+    N, B, H, D = 1_000_000, 4096, 20, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    history = torch.randint(1, N, (B, H), generator=gen, device=dev)
+    history[torch.rand(B, H, generator=gen, device=dev) < 0.2] = 0
+    ids = torch.cat([torch.randint(1, N, (2 * B,), generator=gen, device=dev), history.reshape(-1)])
+    assert ids.shape[0] == B * 22
+    rows, scatter, _ = LA.unique_rows_hashed(ids, N)
+    R = ids.shape[0]
+    p = torch.randn(N, D, generator=gen, device=dev) * 0.05
+    mu = torch.randn(N, D, generator=gen, device=dev) * 0.01
+    nu = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+    g = torch.randn(R, D, generator=gen, device=dev) * 0.1
+    tx = LA.LazyAdamTx(1e-4, 1e-6)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 7)
+    before = LA.adam_commit.launches
+    if layout == "packed":
+        table = torch.cat([p, mu, nu], dim=1)
+        del p, mu, nu
+        want = LA.adam_commit_plain(tx, bc1, bc2, tx.l2, table.clone(), g, scatter, gathered=table[rows])
+        got = LA.adam_commit(tx, bc1, bc2, tx.l2, table, g, scatter, gathered=table[rows].clone())
+        assert torch.equal(got, want)
+    else:
+        vals = p[rows]
+        want = [t.clone() for t in (p, mu, nu)]
+        LA.adam_commit_plain(tx, bc1, bc2, tx.l2, want[0], g, scatter, vals=vals, rows=rows,
+                             mu=want[1], nu=want[2])
+        LA.adam_commit(tx, bc1, bc2, tx.l2, p, g, scatter, vals=vals, rows=rows, mu=mu, nu=nu)
+        for name, a, b in zip(("p", "mu", "nu"), (p, mu, nu), want):
+            assert torch.equal(a, b), name
+    assert LA.adam_commit.launches == before + 1
+    assert int((scatter < N).sum()) == int(torch.unique(ids).numel())
+
+
 def test_adam_commit_unaligned_views_and_empty(dev):
     """Bases 4 bytes (2 for a bf16 p) into their storage leave the 16-byte
     path; R = 0 launches nothing."""

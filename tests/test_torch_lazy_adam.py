@@ -269,7 +269,7 @@ def test_table_embed_sparse_lookup_forward_and_row_gradient(with_pos_map):
 class _BypassBPRMF(BPRMF):
     """Reads the item table raw, past TableEmbed's sparse lookup."""
 
-    def forward(self, feed, catalog: bool = False):
+    def forward(self, feed, catalog: bool = False, training: bool = False, gen=None):
         u_v = self.u_embeddings(feed["user_id"])
         return {"prediction": (u_v[:, None, :] * self.i_embeddings.weight[feed["item_id"]]).sum(-1)}
 

@@ -26,6 +26,7 @@ from rechorus_tpu.ops import topk as JT
 from rechorus_tpu.serve import ServeIndex as JaxServeIndex
 from rechorus_tpu_torch import weights
 from rechorus_tpu_torch.data.readers import BaseReader
+from rechorus_tpu_torch.models.base import BaseModel
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
 from rechorus_tpu_torch.ops import metrics as tmetrics
 from rechorus_tpu_torch.ops.cuda_kernels import catalog_ranks
@@ -154,6 +155,7 @@ def test_grocery_catalog_ranks_match_jax(grocery):
 class _BiasedMF(nn.Module):
     supports_catalog = True
     catalog_table = ("i_embeddings",)
+    catalog_item_table = BaseModel.catalog_item_table   # what ServeIndex.build reads
 
     def __init__(self, n_users, n_items, dim, bias_rows):
         super().__init__()
