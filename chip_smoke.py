@@ -23,6 +23,11 @@ shapes the main path gives it, and drives the port's main paths:
     lanes, with its 1M-item ranks (B3) and top-100 (B2) held against dense
     exact references, then the same evaluation for FPMC's computed
     [1M, 128] table;
+  * KDA through the CLI on Grocery with bench.py's kda lane flags (dense
+    Adam, its s/train-epoch, `--test_all 1` by the dense route and, with
+    the trained weights, by the candidate-tiled route, `--lazy_emb_adam
+    1`), and KDA's tiled full-catalog evaluation on a 100,000-item
+    synthetic KG catalog;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64.
 
@@ -57,6 +62,7 @@ import torch
 import pandas as pd
 
 from rechorus_tpu_torch import main as port_main
+from rechorus_tpu_torch.data import synthetic
 from rechorus_tpu_torch.data.batching import GeneralBatcher, SequentialBatcher
 from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
@@ -68,7 +74,7 @@ from rechorus_tpu_torch.ops import cuda_scatter as CS
 from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import topk as TT
-from rechorus_tpu_torch.ops.metrics import evaluate_topk_from_ranks
+from rechorus_tpu_torch.ops.metrics import evaluate_topk_from_ranks, masked_topk
 from rechorus_tpu_torch.runners.base import BaseRunner
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
 from rechorus_tpu_torch.tools import launch_path
@@ -144,6 +150,24 @@ SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
 SEQ_TIMED_EPOCHS = 5            # bench.py:97-127: one warm-up epoch, then five timed
 # 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
 SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
+# KDA: bench.py's kda lane flags (bench.py:58-60). Floors from the JAX
+# package run on a CPU with the same command and --random_seed 0, 1, 2
+# (its CLI, --save_final_results 0): dev HR@5 after 5 dense epochs 0.4643,
+# 0.4596, 0.4598; with --lazy_emb_adam 1 after 2 epochs 0.3410, 0.3483,
+# 0.3332; by SEQ_MODELS' rule (the higher of the band's minimum less four
+# widths and the minimum less 0.03, to 0.01).
+KDA_FLAGS = ["--emb_size", "64", "--include_attr", "1", "--freq_rand", "0", "--lr", "1e-3",
+             "--l2", "1e-6", "--num_heads", "4", "--history_max", "20"]
+KDA_EPOCHS, KDA_DEV_HR5_FLOOR, KDA_LAZY_DEV_HR5_FLOOR = 5, 0.44, 0.30
+# the candidate-tiled evaluation by the real rule: a synthetic KG catalog
+# past 4 x --eval_candidate_chunk (the port's KG generator)
+KDA_TILED_ITEMS, KDA_TILED_USERS, KDA_CHUNK, KDA_DENSE_ROWS = 100_000, 600, 8192, 8
+# the tiled route on Grocery's 8,714 items with trained weights: a chunk
+# small enough for the runner's rule (8,714 > 4 x 2048)
+KDA_TRAINED_CHUNK = 2048
+# a KDA step's entity rows at batch 256: item_id [256, 2], history_items
+# [256, 20], item_val [256, 2, 4], head_id and tail_id [256, 2], value_id [256]
+KDA_ENTITY_ROWS = 256 * (2 + SEQ_HISTORY + 2 * 4 + 2 + 2 + 1)
 
 
 def emit(phase: str, **fields) -> None:
@@ -268,11 +292,16 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def near_ties(s64, tscore, ok):
+def near_ties(s64, tscore, ok, scale=None):
     """[B] count of unmasked columns whose float64 score lies within
-    NEAR_TIE_RTOL (relative) of the f32 target score."""
+    NEAR_TIE_RTOL of the f32 target score, relative to its magnitude or,
+    where given, to the larger of that and `scale` [B]: the sum of the
+    magnitudes of the target's dot-product terms. FP32 rounding follows
+    the terms, not their sum, so a target score cancelled to near 0 would
+    leave a window relative to it no room for the rounding."""
     ts = tscore.double()[:, None]
-    return (((s64 - ts).abs() <= NEAR_TIE_RTOL * ts.abs().clamp_min(1e-30)) & ok).sum(1)
+    ref = ts.abs() if scale is None else torch.maximum(ts.abs(), scale.double()[:, None])
+    return (((s64 - ts).abs() <= NEAR_TIE_RTOL * ref.clamp_min(1e-30)) & ok).sum(1)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -337,16 +366,18 @@ def phase_kernels(gen):
             return torch.randint(-8, 9, shape, generator=gen, device=dev).float()
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # B1 ge_count at the Grocery eval shape (pure compares: exact either way)
-    n_grocery = 8714
-    for kind in ("int", "gauss"):
-        pred = inputs(kind, EVAL_BATCH, n_grocery)
-        cols = torch.randint(0, n_grocery, (EVAL_BATCH,), generator=gen, device=dev)
-        target = pred.gather(1, cols[:, None])[:, 0].contiguous()
-        got, ref = CK.ge_count(pred, target), CK.ge_count_plain(pred, target)
-        torch.cuda.synchronize()
-        err["ge_count"] = max(err["ge_count"], float((got - ref).abs().max()))
-        check(torch.equal(got, ref), f"ge_count {kind} equals its plain version")
+    # B1 ge_count at the Grocery eval shape and at the tiled KDA evaluation's
+    # chunks, whole and sliced to the last chunk's valid column (pure
+    # compares: exact either way)
+    for B, N in B1_SHAPES:
+        for kind in ("int", "gauss"):
+            pred = inputs(kind, B, N)
+            cols = torch.randint(0, N, (B,), generator=gen, device=dev)
+            target = pred.gather(1, cols[:, None])[:, 0].contiguous()
+            got, ref = CK.ge_count(pred, target), CK.ge_count_plain(pred, target)
+            torch.cuda.synchronize()
+            err["ge_count"] = max(err["ge_count"], float((got - ref).abs().max()))
+            check(torch.equal(got, ref), f"ge_count {kind} [{B}, {N}] equals its plain version")
 
     sub = torch.randperm(BATCH, generator=gen, device=dev)[:N_PLAIN].sort().values
     for kind, with_bias, n_valid, off, D in B23_CASES:
@@ -426,7 +457,7 @@ def phase_kernels(gen):
         torch.cuda.empty_cache()
     reciprocal = commit_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
-         b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
+         b1_shapes=[list(x) for x in B1_SHAPES], b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
          b2_b3_cases=[list(c) for c in B23_CASES],
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
@@ -434,6 +465,12 @@ def phase_kernels(gen):
     return err
 
 
+# B1 at the dense Grocery evaluation and the tiled KDA chunks ([B, chunk],
+# and the last chunk sliced to its valid columns: 100,001 - 12 x 8192 =
+# 1,697; Grocery's trained tiled route: 8,715 - 4 x 2048 = 523)
+B1_SHAPES = [(EVAL_BATCH, 8714), (EVAL_BATCH, KDA_CHUNK),
+             (EVAL_BATCH, KDA_TILED_ITEMS + 1 - KDA_CHUNK * (KDA_TILED_ITEMS // KDA_CHUNK)),
+             (EVAL_BATCH, KDA_TRAINED_CHUNK), (EVAL_BATCH, 8715 - 4 * KDA_TRAINED_CHUNK)]
 # B2 / B3 at the catalog shapes: (kind, bias, n_valid, col_offset, D); the
 # last is FPMC's computed [iu | il] table, the run-time-D instance
 B23_CASES = [("int", False, None, 0, EMB), ("gauss", True, N_ITEMS + 7 - 1000, 7, EMB),
@@ -447,7 +484,10 @@ COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # pac
                 ("rows", N_ITEMS, EMB, torch.float32, 2 * BATCH, 1e-6),   # three-table, f32
                 ("rows", N_ITEMS, EMB, torch.bfloat16, 2 * BATCH, 0.0),   # three-table, bf16 p
                 ("packed", N_ITEMS, EMB, torch.float32, BATCH * SEQ_ROWS, 1e-6),  # 1M SASRec
-                ("packed", 8714, EMB, torch.float32, 256 * SEQ_ROWS, 1e-6)]       # Grocery SASRec
+                ("packed", 8714, EMB, torch.float32, 256 * SEQ_ROWS, 1e-6),       # Grocery SASRec
+                ("packed", 8771, EMB, torch.float32, KDA_ENTITY_ROWS, 1e-6),     # KDA's entity table
+                ("packed", 8714, 1, torch.float32, 2 * 256, 0.0),    # KDA's item_bias (D = 1)
+                ("packed", 14682, EMB, torch.float32, 256, 1e-6)]    # Grocery's user table
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -513,11 +553,12 @@ def _epoch_lines(text: str):
 
 
 def _grocery_dir(tmp: str) -> str:
-    """A Grocery data directory under `tmp` whose split files link to the
-    committed ones: the corpus cache and the export land there."""
+    """A Grocery data directory under `tmp` whose files link to the
+    committed ones: the corpus and interval caches and the export land
+    there."""
     data = os.path.join(tmp, "data", GROCERY)
     os.makedirs(data)
-    for name in ("train.csv", "dev.csv", "test.csv"):
+    for name in ("train.csv", "dev.csv", "test.csv", "item_meta.csv"):
         os.symlink(os.path.join(ROOT, "data", GROCERY, name), os.path.join(data, name))
     return data
 
@@ -705,6 +746,7 @@ def _step_profile(lane, batch: int, reps: int = 5) -> dict:
     runner, state, batcher, arrays = lane
     gen = runner._generator(SEED, 3)
     perm = torch.randperm(len(batcher), generator=gen, device=runner.device)
+    arrays = {**arrays, **batcher.epoch_arrays(arrays, gen)}   # as `fit` runs a step
     if runner._packed_lane_ok():
         runner._pack(state, batcher.train_feed(arrays, perm[:1], gen))
     step = lambda: runner.train_step(state, batcher, arrays, perm[:batch], gen)  # noqa: E731
@@ -921,6 +963,26 @@ def _seq_lane(corpus, model_cls, flags, **kw):
     return runner, state, train, train.device_arrays(runner.device), dev, dev.device_arrays(runner.device)
 
 
+def _rank_diff_report(s64, tscore, scale, ok, clicked, target, diff, ties) -> str:
+    """What a failure of the near-tie rule leaves to read: for each row
+    whose rank difference passes its near-tie count, the difference, the
+    count, the target's score and its terms' magnitude sum, and how many
+    unmasked and how many clicked (target aside) float64 scores lie within
+    1e-5 of the score (relative)."""
+    bad = (diff > ties).nonzero()[:, 0]
+    if not len(bad):
+        return ""
+    others = torch.zeros_like(ok)
+    others.scatter_(1, clicked, True)
+    others.scatter_(1, target[:, None], False)
+    others[:, 0] = False
+    t = tscore[bad].double()[:, None]
+    near = (s64[bad] - t).abs() <= 1e-5 * t.abs()
+    return (f": rows {bad.tolist()}, difference {diff[bad].tolist()}, near-ties {ties[bad].tolist()}, "
+            f"target scores {tscore[bad].tolist()}, their scale {scale[bad].tolist()}, unmasked within 1e-5 "
+            f"{(near & ok[bad]).sum(1).tolist()}, clicked within 1e-5 {(near & others[bad]).sum(1).tolist()}")
+
+
 def _catalog_eval_vs_dense(totals, lane) -> dict:
     """The runner's full-catalog ranks (B3) and top-100 (B2 + exact
     select) of the BATCH dev rows, against dense exact references on
@@ -950,11 +1012,14 @@ def _catalog_eval_vs_dense(totals, lane) -> dict:
         ok.scatter_(1, cl, False)
         s = s.masked_fill(~ok, float("-inf"))
         dense_rank = (s >= ts).sum(1) + 1
-        ties = near_ties(u.double() @ table.double().T, ts[:, 0], ok)
+        s64 = u.double() @ table.double().T
+        scale = (u.abs() * table[target].abs()).sum(-1)
+        ties = near_ties(s64, ts[:, 0], ok, scale)
         diff = (torch.from_numpy(ranks[:N_CHECK]).cuda().long() - dense_rank).abs()
         ref_v, ref_i = torch.topk(s, TOPK, dim=1)
-        del s, ok
-    check(bool((diff <= ties).all()), "1M sequential ranks = dense ranks within the near-tie rule")
+        why = _rank_diff_report(s64, ts[:, 0], scale, ok, cl, target, diff, ties)
+        del s, ok, s64
+    check(bool((diff <= ties).all()), "1M sequential ranks = dense ranks within the near-tie rule" + why)
     check(((ranks >= 1) & (ranks <= N_ITEMS)).all(), "ranks in range")
     ref_v, ref_i = ref_v.cpu().numpy(), ref_i.cpu().numpy()
     check(items.shape == (len(dev_b), TOPK) and np.isfinite(scores).all(), "top-100 shape")
@@ -1014,6 +1079,224 @@ def phase_train_1m_seq(totals):
          warm_steps=WARM_STEPS, corpus_build_s=round(build_s, 3), lanes=out,
          seconds=round(time.perf_counter() - t0, 3))
     return out
+
+
+def phase_train_grocery_kda(totals):
+    """KDA through the CLI on the card with bench.py's kda lane flags, on
+    the committed Grocery corpus and its item_meta.csv: KDA_EPOCHS dense
+    epochs (the loss falls, dev HR@5 over its floor), bench.py's
+    s/train-epoch and the steady step's profile, a `--test_all 1` run
+    (the dense route: B1 over [256, 8714] predictions of the model's own
+    forward; peak device memory), the tiled route on the trained weights,
+    and a `--lazy_emb_adam 1` run (the packed lane's Adam commit on the
+    user, item-bias and entity tables). The KDAReader build (triplets,
+    interval lists, freq_x) is timed on its own first."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+
+        def argv(tag, *extra, epochs):
+            return ["--model_name", "KDA", *KDA_FLAGS, "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
+                    "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
+
+        def run(tag, *extra, epochs):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with counted(totals) as c:
+                port_main.build_parser_and_run(argv(tag, *extra, epochs=epochs))
+            text = open(os.path.join(tmp, tag + ".log")).read()
+            seen = _epoch_lines(text)
+            check(len(seen) == epochs, f"KDA {tag}: one log line per epoch")
+            check(all(np.isfinite(l) for l, _ in seen) and seen[-1][0] < seen[0][0],
+                  f"KDA {tag}: finite loss, lower at the last epoch: {seen}")
+            return dict(seconds=time.perf_counter() - t, losses=[l for l, _ in seen],
+                        dev_hr5=[h for _, h in seen], dev=_log_metrics(text, "Dev  After Training"),
+                        test=_log_metrics(text, "Test After Training"), launches=c.launches,
+                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                        epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
+                                                              text, re.M)])
+
+        # 0. the reader, built once here; the CLI runs load its cache
+        t = time.perf_counter()
+        rargs, _, reader_cls, _ = port_main.parse_cli(argv("reader", epochs=1))
+        corpus = port_main.build_corpus(rargs, reader_cls)
+        reader_build_s = time.perf_counter() - t
+        # 1. dense Adam, sampled evaluation
+        out["dense"] = run("kda_dense", epochs=KDA_EPOCHS)
+        check(out["dense"]["dev"]["HR@5"] > KDA_DEV_HR5_FLOOR,
+              f"KDA dev HR@5 {out['dense']['dev']['HR@5']} above {KDA_DEV_HR5_FLOOR}")
+        # 1b. the tiled route with the trained weights
+        out["tiled_trained"] = _kda_trained_tiled(totals, argv(
+            "kda_dense", "--test_all", "1", "--eval_candidate_chunk", str(KDA_TRAINED_CHUNK), epochs=1))
+        # 2. its s/train-epoch as bench.py measures it, and its step profile
+        out["lane"] = _grocery_lane("KDA", argv("timing", epochs=1), SEQ_TIMED_EPOCHS)
+        # 3. --test_all 1: dense route, every evaluation ranks through B1
+        n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
+        n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
+        out["test_all"] = run("kda_test_all", "--test_all", "1", epochs=GROCERY_SHORT_EPOCHS)
+        want = 2 * n_batch["test"] + (GROCERY_SHORT_EPOCHS + 1) * n_batch["dev"]
+        check(out["test_all"]["launches"]["ge_count"] == want,
+              f"ge_count launches of the KDA --test_all run: {out['test_all']['launches']} != {want}")
+        # 4. --lazy_emb_adam 1: one commit per lazy table per step
+        out["lazy"] = run("kda_lazy", "--lazy_emb_adam", "1", epochs=GROCERY_SHORT_EPOCHS)
+        steps = n_batch["train"] * GROCERY_SHORT_EPOCHS
+        check(out["lazy"]["launches"]["adam_commit"] == 3 * steps,
+              f"adam_commit launches of the KDA lazy run: {out['lazy']['launches']} != 3 x {steps}")
+        check(out["lazy"]["dev"]["HR@5"] > KDA_LAZY_DEV_HR5_FLOOR,
+              f"KDA lazy dev HR@5 {out['lazy']['dev']['HR@5']} above {KDA_LAZY_DEV_HR5_FLOOR}")
+    emit("train_grocery_kda", flags=KDA_FLAGS, floors=dict(dense=KDA_DEV_HR5_FLOOR, lazy=KDA_LAZY_DEV_HR5_FLOOR),
+         rows=n_rows, n_items=corpus.n_items, n_entities=corpus.n_entities,
+         n_relations=corpus.n_relations, triplets=len(corpus.relation_df),
+         reader_build_s=round(reader_build_s, 3), seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def _dense_forward_ranks(model, b, arr, idx):
+    """(pred [B, N], the target's score [B], its rank, the near-ties [B, N])
+    of one eval batch through the dense [B, N] forward: the target's score
+    gathered from the same prediction, item 0 and the clicked ids (the
+    target among them) masked, ties counting against the target."""
+    feed = b.eval_feed(arr, idx)
+    pred = model(feed)["prediction"]
+    target, cl = feed["_target"].long(), feed["_clicked_rows"].long()
+    ts = pred.gather(1, target[:, None])[:, 0]
+    ok = torch.ones_like(pred, dtype=torch.bool)
+    ok[:, 0] = False
+    ok.scatter_(1, cl, False)
+    rank = (pred.masked_fill(~ok, float("-inf")) >= ts[:, None]).sum(1) + 1
+    ties = ((pred - ts[:, None]).abs() <= NEAR_TIE_RTOL * ts.abs()[:, None]) & ok
+    return pred, ts, rank, ties
+
+
+def _kda_trained_tiled(totals, argv) -> dict:
+    """KDA's tiled ranks with trained weights, where many targets rank 1:
+    Grocery's test rows at a chunk small enough for the runner's rule to
+    tile, every rank at least 1, held against the dense forward's ranks of
+    the same weights up to near-ties. Also counts the rows whose target
+    the one-candidate forward (the tiled route's t) scores apart from the
+    dense forward."""
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    init_seed(SEED)
+    corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls,
+                                                                    runner_cls)
+    state = runner.load_model(runner.init_state(model, SEED))
+    model.eval()
+    b, arr = batchers["test"], arrays["test"]
+    check(runner._use_tiled_forward(model, b, arr),
+          f"{corpus.n_items} items at chunk {KDA_TRAINED_CHUNK} take the tiled route")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with counted(totals) as c:
+        ranks = runner.predict_ranks(state, b, arr, "test")
+    ranks_s = time.perf_counter() - t
+    n_chunks, n_batches = -(-corpus.n_items // KDA_TRAINED_CHUNK), -(-len(b) // runner.eval_batch_size)
+    check(c.launches["ge_count"] == n_chunks * n_batches,
+          f"B1 once per chunk and batch: {c.launches} != {n_chunks} x {n_batches}")
+    check(((ranks >= 1) & (ranks < corpus.n_items)).all(),
+          f"trained tiled ranks in [1, n_items): min {ranks.min()}")
+    dense, diff_max, over_ties, ties_n, self_diff = [], 0, 0, 0, 0
+    with torch.no_grad():
+        for s, idx in enumerate(runner._eval_batches(len(b))):
+            _, ts, rank, ties = _dense_forward_ranks(model, b, arr, idx)
+            target = b.eval_feed(arr, idx, cands=torch.zeros(len(idx), 1, dtype=torch.long,
+                                                             device=runner.device))["_target"]
+            t1 = model(b.eval_feed(arr, idx, cands=target.long()[:, None]))["prediction"][:, 0]
+            lo = s * runner.eval_batch_size
+            diff = (torch.from_numpy(ranks[lo: lo + len(idx)]).to(rank.device).long() - rank).abs()
+            over_ties += int((diff > ties.sum(1)).sum())
+            diff_max, ties_n = max(diff_max, int(diff.max())), ties_n + int(ties.sum())
+            self_diff += int((t1 != ts).sum())
+            dense.append(rank.cpu().numpy())
+    dense = np.concatenate(dense)
+    check(over_ties == 0, f"trained tiled ranks = dense ranks within the near-tie rule: "
+                          f"{over_ties} rows past it")
+    return dict(test_rows=len(b), chunk=KDA_TRAINED_CHUNK, chunks=n_chunks, launches=c.launches,
+                ranks_s=ranks_s, rank_1_rows=int((ranks == 1).sum()),
+                min_rank=int(ranks.min()), rank_max_abs_diff=diff_max, rank_near_ties=ties_n,
+                rows_differing=int((ranks != dense).sum()), target_self_mismatch=self_diff,
+                hr5=float((ranks <= 5).mean()), dense_hr5=float((dense <= 5).mean()))
+
+
+def phase_kda_tiled(totals):
+    """KDA's full-catalog evaluation by the runner's own rule on a synthetic
+    KG catalog of KDA_TILED_ITEMS items (past 4 x --eval_candidate_chunk,
+    so `_use_tiled_forward` holds) at full width (D=64, 4 heads, history
+    20), random weights from the seed: the ranks and top-100 of every test
+    row through [256, 8192] candidate chunks, B1 once per chunk and batch;
+    then KDA_DENSE_ROWS rows against the dense [rows, N] forward: ranks
+    equal up to near-ties, top-100 values equal."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.make_kg_dataset(os.path.join(tmp, "SynthKG"), n_users=KDA_TILED_USERS,
+                                  n_items=KDA_TILED_ITEMS, n_per_user=10, seed=SEED % 1000)
+        gen_s = time.perf_counter() - t0
+        args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
+            ["--model_name", "KDA", *KDA_FLAGS, "--dataset", "SynthKG", "--path", tmp,
+             "--test_all", "1", "--eval_candidate_chunk", str(KDA_CHUNK), "--random_seed", str(SEED),
+             "--log_file", os.path.join(tmp, "kda.log"), "--model_path", os.path.join(tmp, "kda.bin")])
+        init_seed(SEED)
+        corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls,
+                                                                        runner_cls)
+    build_s = time.perf_counter() - t0 - gen_s
+    state = runner.init_state(model, SEED)
+    model.eval()
+    b, arr = batchers["test"], arrays["test"]
+    n_items = corpus.n_items
+    check(runner._use_tiled_forward(model, b, arr), f"{n_items} items take the tiled route")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with counted(totals) as c:
+        ranks = runner.predict_ranks(state, b, arr, "test")
+    ranks_s = time.perf_counter() - t
+    n_chunks, n_batches = -(-n_items // KDA_CHUNK), -(-len(b) // runner.eval_batch_size)
+    check(c.launches["ge_count"] == n_chunks * n_batches,
+          f"B1 once per chunk and batch: {c.launches} != {n_chunks} x {n_batches}")
+    check(((ranks >= 1) & (ranks < n_items)).all(), "tiled ranks in range")
+    t = time.perf_counter()
+    items, scores = runner.predict_topk(state, b, arr, "test", k=TOPK)
+    topk_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    check(items.shape == (len(b), TOPK) and np.isfinite(scores).all()
+          and ((items > 0) & (items < n_items)).all(), "tiled top-100 shape and ids")
+
+    # KDA_DENSE_ROWS rows against the dense forward over the whole catalog
+    idx = torch.arange(KDA_DENSE_ROWS, device=runner.device)
+    with torch.no_grad():
+        pred, ts, dense_rank, ties = _dense_forward_ranks(model, b, arr, idx)
+        feed = b.eval_feed(arr, idx)
+        # the target's score as the tiled ranks take it, from a
+        # one-candidate forward; the counts and their corrections come from
+        # the chunks' forwards, so a difference here moves no rank
+        t1 = model(b.eval_feed(arr, idx, cands=feed["_target"].long()[:, None]))["prediction"][:, 0]
+        self_diff = (t1 != ts).long()
+        tiled_rank = runner._tiled_forward_ranks(model, b, arr, idx).long()
+        diff = (tiled_rank - dense_rank).abs()
+        diff_256 = (torch.from_numpy(ranks[:KDA_DENSE_ROWS]).cuda().long() - dense_rank).abs()
+        tiled_i, tiled_v = runner._tiled_forward_topk(model, b, arr, idx, TOPK)
+        ref_v, _ = masked_topk(pred, feed["_clicked_rows"], TOPK)
+        del pred
+    check(bool((diff <= ties.sum(1)).all()) and bool((diff_256 <= ties.sum(1)).all()),
+          f"tiled ranks (batch {KDA_DENSE_ROWS} and {runner.eval_batch_size}) = dense ranks within "
+          f"the near-tie rule: {diff.tolist()}, {diff_256.tolist()}")
+    tv, rv = tiled_v.cpu().numpy(), ref_v.cpu().numpy()
+    check(np.allclose(tv, rv, rtol=1e-5, atol=1e-9), "tiled top-100 values = dense masked_topk")
+    check(np.allclose(scores[:KDA_DENSE_ROWS], rv, rtol=1e-5, atol=1e-9),
+          "predict_topk's values = dense masked_topk")
+    emit("kda_tiled", n_items=n_items, n_entities=corpus.n_entities, test_rows=len(b),
+         eval_batch=runner.eval_batch_size, chunk=KDA_CHUNK, chunks=n_chunks, launches=c.launches,
+         ranks_s=ranks_s, topk_s=topk_s, peak_memory_bytes=peak, generator_s=round(gen_s, 3),
+         stack_build_s=round(build_s, 3), dense_rows=KDA_DENSE_ROWS,
+         rank_max_abs_diff=int(diff.max()), rank_near_ties=int(ties.sum()),
+         target_self_mismatch=int(self_diff.sum()), batch256_rank_max_abs_diff=int(diff_256.max()),
+         top100_values_equal=bool(np.array_equal(tv, rv)),
+         top100_max_abs_diff=float(np.abs(tv - rv).max()), mean_rank=float(ranks.mean()),
+         seconds=round(time.perf_counter() - t0, 3))
 
 
 def phase_train_windows(rounds: int = WINDOW_ROUNDS):
@@ -1316,6 +1599,8 @@ def main() -> int:
     phase_train_1m(totals)
     phase_train_grocery_seq(totals)
     phase_train_1m_seq(totals)
+    phase_train_grocery_kda(totals)
+    phase_kda_tiled(totals)
     phase_train_windows()
     with counted(totals) as serving:
         g_model, g_corpus = phase_grocery(g_model)

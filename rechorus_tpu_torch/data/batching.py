@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-196 and 307-381).
+rechorus_tpu/data/batching.py:26-38, 83-196, 307-381 and 941-1056).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -23,6 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from rechorus_tpu_torch.ops import kg as kg_ops
 from rechorus_tpu_torch.ops import sampling
 
 BATCHER_REGISTRY: Dict[str, type] = {}
@@ -188,3 +189,105 @@ class SequentialBatcher(GeneralBatcher):
 
     def eval_feed(self, arrays, idx, cands=None):
         return self._with_history(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+@register_batcher("kda")
+class KDABatcher(SequentialBatcher):
+    """KDA feeds (port of rechorus_tpu/data/batching.py:941-1056):
+    sequential feeds plus the per-candidate relation-value entities
+    (item_val [B, C, R]), the log-normalized history time deltas, and in
+    training a DistMult KG batch of one triplet per row with mixed
+    head/tail corruption.
+
+    Parity: reference KDA.Dataset (KDA.py:192-263). The reference samples
+    the epoch's KG rows and negatives on the host (actions_before_epoch);
+    here `epoch_arrays` draws them once per epoch on the device, from the
+    epoch's generator.
+    """
+
+    def build(self):
+        super().build()
+        self.arrays["time"] = self._df["time"].to_numpy().astype(np.int64)
+        self.arrays["_item_val"] = self.corpus.item_value_matrix()
+        if self.phase == "train":
+            rel = self.corpus.relation_df
+            self.arrays["kg_head"] = rel["head"].to_numpy().astype(np.int32)
+            self.arrays["kg_tail"] = rel["tail"].to_numpy().astype(np.int32)
+            self.arrays["kg_relation"] = rel["relation"].to_numpy().astype(np.int32)
+            self.arrays["_triplet_keys"] = self.corpus.member_table()
+            mat, lens = self.corpus.share_attr_matrix()
+            self.arrays["_share_mat"] = mat
+            self.arrays["_share_len"] = lens
+
+    def _common(self, feed, arrays, idx):
+        feed["item_val"] = arrays["_item_val"][feed["item_id"]]  # [B, C, R]
+        dt = (arrays["time"][idx][:, None] - feed["history_times"]).to(torch.float32)
+        # norm_time (reference KDAReader.py:33-37)
+        feed["history_delta_t"] = torch.clamp_min(torch.log2(dt / self.model.t_scalar + 1e-6), 0.0)
+        return feed
+
+    def _sample_kg_block(self, arrays, gen, M: int, rounds: int = 8):
+        """One DistMult KG row and its corruptions per train row, for M rows
+        at once: {head_id, tail_id: [M, 1 + num_neg], relation_id,
+        value_id: [M]}. Attribute rows take a random item sharing the
+        attribute as their tail. A corrupted head or tail is redrawn while
+        it forms a known triplet (`kg.is_member`), all rounds drawn at once
+        ([rounds + 1, M, num_neg]) and the first accepted kept."""
+        n_items = self.corpus.n_items
+        n_rel, n_ent = self.corpus.n_relations, self.corpus.n_entities
+        keys_arr = arrays["_triplet_keys"]
+        N = self.model.num_neg
+        dev = keys_arr.device
+        tri = torch.randint(0, len(self.arrays["kg_head"]), (M,), generator=gen, device=dev)
+        h, t, r = arrays["kg_head"][tri], arrays["kg_tail"][tri], arrays["kg_relation"][tri]
+        is_attr = t >= n_items
+        val = torch.where(is_attr, t, 0)
+        # attr rows: the tail becomes a random item SHARING the attribute
+        row = (t - n_items).clamp(0, arrays["_share_mat"].shape[0] - 1)
+        j = torch.randint(0, 1 << 30, (M,), generator=gen, device=dev) \
+            % arrays["_share_len"][row].clamp_min(1)
+        t_item = torch.where(is_attr, arrays["_share_mat"][row, j], t)
+
+        def draw():
+            return torch.randint(1, n_items, (rounds + 1, M, N), generator=gen, device=dev)
+
+        # negative heads: (h', r, tail-or-value) must not exist
+        probe_t = torch.where(is_attr, val, t_item)
+        cand = draw()
+        neg_head_cand = sampling.first_accepted(cand, kg_ops.is_member(
+            keys_arr, cand, r[None, :, None], probe_t[None, :, None], n_rel, n_ent))
+        # negative tails: item-item rows probe (h, r, t'); attribute rows
+        # probe (t', r, value) -- the corrupted item must not share it
+        cand = draw()
+        bad = torch.where(
+            is_attr[None, :, None],
+            kg_ops.is_member(keys_arr, cand, r[None, :, None], val[None, :, None], n_rel, n_ent),
+            kg_ops.is_member(keys_arr, h[None, :, None], r[None, :, None], cand, n_rel, n_ent))
+        neg_tail_cand = sampling.first_accepted(cand, bad)
+        choose_head = torch.rand((M, N), generator=gen, device=dev) < self.model.neg_head_p
+        neg_heads = torch.where(choose_head, neg_head_cand, h[:, None])
+        neg_tails = torch.where(choose_head, t_item[:, None], neg_tail_cand)
+        return {
+            "head_id": torch.cat([h[:, None], neg_heads], dim=1),
+            "tail_id": torch.cat([t_item[:, None], neg_tails], dim=1),
+            "relation_id": r,
+            "value_id": val,
+        }
+
+    def epoch_arrays(self, arrays, gen):
+        """The KG block of every train row, drawn once per epoch (the JAX
+        package hoists it the same way); the rec negatives stay per step."""
+        if self.phase != "train":
+            return {}
+        return {"_ep_kg_" + k: v for k, v in self._sample_kg_block(arrays, gen, self.n).items()}
+
+    def train_feed(self, arrays, idx, gen):
+        """Needs the epoch's KG block in `arrays` (`epoch_arrays`, which
+        `BaseRunner.fit` merges before the steps)."""
+        feed = self._common(super().train_feed(arrays, idx, gen), arrays, idx)
+        for k in ("head_id", "tail_id", "relation_id", "value_id"):
+            feed[k] = arrays["_ep_kg_" + k][idx]
+        return feed
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._common(super().eval_feed(arrays, idx, cands), arrays, idx)

@@ -1,6 +1,6 @@
-"""Top-k corpus readers (port of rechorus_tpu/data/readers.py:1-259 and
-:333-381: `BaseReader` with its fixed-shape history arrays, and
-`SeqReader`).
+"""Top-k corpus readers (port of rechorus_tpu/data/readers.py:1-259,
+:333-381 and :681-936: `BaseReader` with its fixed-shape history arrays,
+`SeqReader`, and the knowledge-aware `KGReader` and `KDAReader`).
 
 Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
@@ -21,6 +21,7 @@ import numpy as np
 import pandas as pd
 
 from rechorus_tpu_torch.data.csr import CSRRows, csr_fill_matrix, pairs_to_csr
+from rechorus_tpu_torch.ops import kg as kg_ops
 from rechorus_tpu_torch.registry import register_reader
 
 
@@ -225,3 +226,259 @@ class SeqReader(BaseReader):
             L = len(self.data_df[key])
             self.data_df[key]["position"] = position_all[lo: lo + L]
             lo += L
+
+
+@register_reader("KGReader")
+class KGReader(SeqReader):
+    """Knowledge-aware reader (port of rechorus_tpu/data/readers.py:681-758):
+    item-item relation triplets from item_meta.csv's `r_*` list columns and,
+    with --include_attr, attribute relations from its `i_*` columns, whose
+    values become entities past n_items.
+
+    Parity: src/helpers/KGReader.py:31-73 -- relation index 0 is reserved
+    for the virtual "buy"/self relation; n_entities = max id over
+    heads/tails + 1; exposes `relation_df`, `n_relations`,
+    `item_relations`, `attr_relations` and `share_attr_dict`. The triplets
+    are assembled with numpy in the JAX package's order (relation by
+    relation, items in file order, tails in list order); the python
+    `triplet_set` of the JAX reader is not kept: membership goes through
+    `member_table()`.
+    """
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--include_attr", type=int, default=0,
+                            help="Whether include attribute-based relations.")
+        return SeqReader.parse_data_args(parser)
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.include_attr = args.include_attr
+        item_meta_path = os.path.join(self.prefix, self.dataset, "item_meta.csv")
+        self.item_meta_df = eval_list_columns(pd.read_csv(item_meta_path, sep=self.sep))
+        self._construct_kg()
+
+    def _construct_kg(self):
+        logging.info("Constructing relation triplets...")
+        heads, relations, tails = [], [], []
+        meta = self.item_meta_df
+        meta_items = meta["item_id"].to_numpy().astype(np.int64)
+        self.item_relations = [r for r in meta.columns if r.startswith("r_")]
+        for r_idx, r in enumerate(self.item_relations):
+            lists = meta[r].to_list()
+            lens = np.fromiter((len(x) for x in lists), dtype=np.int64, count=len(lists))
+            heads.append(np.repeat(meta_items, lens))
+            tails.append(np.concatenate([np.asarray(x, dtype=np.int64) for x in lists])
+                         if lens.sum() else np.empty(0, np.int64))
+            relations.append(np.full(int(lens.sum()), r_idx + 1, dtype=np.int64))  # 0: virtual
+        logging.info("Item-item relations:" + str(self.item_relations))
+
+        self.attr_relations = list()
+        if self.include_attr:
+            self.attr_relations = [r for r in meta.columns if r.startswith("i_")]
+            self.attr_max, self.share_attr_dict = list(), dict()
+            for r_idx, attr in enumerate(self.attr_relations):
+                base = self.n_items + int(np.sum(self.attr_max))
+                relation_idx = len(self.item_relations) + r_idx + 1
+                vals = meta[attr].to_numpy()
+                has = vals != 0  # 0 encodes NaN
+                heads.append(meta_items[has])
+                tails.append(vals[has].astype(np.int64) + base)
+                relations.append(np.full(int(has.sum()), relation_idx, dtype=np.int64))
+                for val, val_df in meta.groupby(attr):
+                    self.share_attr_dict[int(val + base)] = val_df["item_id"].tolist()
+                self.attr_max.append(int(meta[attr].max()) + 1)
+            logging.info("Attribute-based relations:" + str(self.attr_relations))
+
+        self.relations = self.item_relations + self.attr_relations
+        cat = (lambda parts: np.concatenate(parts) if parts else np.empty(0, np.int64))
+        self.relation_df = pd.DataFrame({"head": cat(heads), "relation": cat(relations),
+                                         "tail": cat(tails)})
+        self.n_relations = len(self.relations) + 1
+        self.n_entities = int(pd.concat((self.relation_df["head"], self.relation_df["tail"])).max()) + 1 \
+            if len(self.relation_df) else self.n_items
+        logging.info('"# relation": {}, "# triplet": {}'.format(self.n_relations, len(self.relation_df)))
+
+    def sorted_triplet_keys(self) -> np.ndarray:
+        return kg_ops.sorted_triplet_keys(self.relation_df, self.n_relations, self.n_entities)
+
+    def member_table(self) -> np.ndarray:
+        """Cuckoo membership table of the triplets (ops/kg.py), the form
+        every `kg.is_member` caller takes; built once and kept on the
+        reader, which the batchers of all phases share."""
+        if getattr(self, "_member_table", None) is None:
+            self._member_table = kg_ops.build_member_table(
+                self.relation_df["head"].to_numpy(),
+                self.relation_df["relation"].to_numpy(),
+                self.relation_df["tail"].to_numpy(),
+                self.n_relations, self.n_entities)
+        return self._member_table
+
+
+@register_reader("KDAReader")
+class KDAReader(KGReader):
+    """KDA reader (port of rechorus_tpu/data/readers.py:761-936): per-relation
+    time-interval distributions, DFT'd into the complex
+    freq_x[n_relations, n_dft // 2 + 1] that starts KDA's frequency-domain
+    decay parameters.
+
+    Parity: src/helpers/KDAReader.py -- norm_time (33-37) log2-normalizes
+    intervals; _time_interval_cnt (53-85) collects per-relation delta-t
+    lists (the virtual adjacent-interaction relation, the
+    attribute-sharing relations, and the natural item relations, where
+    each target takes its nearest related predecessor); _cal_freq_x
+    (88-106) histograms and DFTs them. The lists are cached as
+    `interval.torch.pkl` in the dataset directory (the JAX package caches
+    its own as `interval.pkl`); they are built by vectorised numpy over
+    all users at once and equal the JAX reader's, list by list.
+    """
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--t_scalar", type=int, default=60, help="Time interval scalar.")
+        parser.add_argument("--n_dft", type=int, default=64, help="The point of DFT.")
+        parser.add_argument("--freq_rand", type=int, default=0,
+                            help="Whether randomly initialize parameters in frequency domain.")
+        return KGReader.parse_data_args(parser)
+
+    @staticmethod
+    def dft(x, n_dft=-1) -> np.ndarray:
+        if n_dft <= 0:
+            n_dft = 2 ** (int(np.log2(len(x))) + 1)
+        freq_x = np.fft.fft(x, n_dft)
+        return 2 * freq_x[: n_dft // 2 + 1]  # fold negative frequencies
+
+    @staticmethod
+    def norm_time(a, t_scalar: int) -> np.ndarray:
+        norm_t = np.log2(np.asarray(a) / t_scalar + 1e-6)
+        return np.maximum(norm_t, 0)
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.t_scalar = args.t_scalar
+        self.n_dft = args.n_dft
+        self.freq_rand = args.freq_rand
+        self.regenerate = getattr(args, "regenerate", 0)
+        self.interval_file = os.path.join(self.prefix, self.dataset, "interval.torch.pkl")
+        self.freq_x = np.empty((self.n_relations, self.n_dft // 2 + 1), dtype=complex)
+        if not self.freq_rand:
+            self._time_interval_cnt()
+            self._cal_freq_x()
+
+    # pairs (source, target) enumerated per chunk of target rows
+    PAIR_BUDGET = 1 << 22
+
+    def _time_interval_cnt(self):
+        import pickle
+
+        if os.path.exists(self.interval_file) and not self.regenerate:
+            with open(self.interval_file, "rb") as f:
+                self.interval_dict = pickle.load(f)
+            return
+        logging.info("Counting relational time intervals...")
+        merge_df = pd.merge(self.all_df, self.item_meta_df, how="left", on="item_id")
+        # each user's rows in all_df order, users ascending (the JAX
+        # reader's groupby("user_id") order)
+        order = np.argsort(merge_df["user_id"].to_numpy(), kind="stable")
+        users = merge_df["user_id"].to_numpy()[order]
+        times = merge_df["time"].to_numpy().astype(np.int64)[order]
+        iids = merge_df["item_id"].to_numpy().astype(np.int64)[order]
+        out = {}
+        # virtual adjacent-interaction relation
+        delta = times[1:] - times[:-1]
+        out["virtual"] = delta[(users[1:] == users[:-1]) & (delta > 0)]
+        # attribute-sharing relations: consecutive rows of a (user, value)
+        # group, values ascending, NaN values left out (groupby's order)
+        for attr in self.attr_relations:
+            vals = merge_df[attr].to_numpy()[order]
+            keep = np.flatnonzero(~pd.isna(vals))
+            sub = keep[np.lexsort((keep, vals[keep].astype(np.float64), users[keep]))]
+            d = times[sub][1:] - times[sub][:-1]
+            same = (users[sub][1:] == users[sub][:-1]) & (vals[sub][1:] == vals[sub][:-1])
+            out[attr] = d[same & (d > 0)]
+        # natural item relations: per target row, the nearest earlier row of
+        # the same user related to it by r (with a positive time gap)
+        keys = self.sorted_triplet_keys() if len(self.relation_df) else np.empty(0, np.int64)
+        n = len(users)
+        starts = np.r_[0, np.flatnonzero(users[1:] != users[:-1]) + 1]
+        local = np.arange(n) - np.repeat(starts, np.diff(np.r_[starts, n]))  # sources per row
+        found = {r: [] for r in self.item_relations}
+        bound = np.cumsum(local)
+        lo = 0
+        while len(keys) and lo < n:
+            hi = max(lo + 1, int(np.searchsorted(bound, bound[lo] - local[lo] + self.PAIR_BUDGET,
+                                                 side="right")))
+            hi = min(hi, n)
+            cnt = local[lo:hi]
+            tgt = np.repeat(np.arange(lo, hi), cnt)
+            first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+            src = tgt - np.repeat(cnt, cnt) + (np.arange(len(tgt)) - first)
+            dt = times[tgt] - times[src]
+            for r_idx, relation in enumerate(self.item_relations):
+                q = kg_ops.pack_keys(iids[src], r_idx + 1, iids[tgt], self.n_relations,
+                                     self.n_entities)
+                pos = np.searchsorted(keys, q)
+                ok = np.flatnonzero((keys[np.clip(pos, 0, len(keys) - 1)] == q) & (dt > 0))
+                if not len(ok):
+                    continue
+                # pairs run by target, sources ascending: the last hit of a
+                # target is its nearest predecessor
+                last = ok[np.r_[tgt[ok][1:] != tgt[ok][:-1], True]]
+                found[relation].append(dt[last])
+            lo = hi
+        for relation, parts in found.items():
+            out[relation] = np.concatenate(parts) if parts else np.empty(0, np.int64)
+        self.interval_dict = out
+        try:
+            with open(self.interval_file, "wb") as f:
+                pickle.dump(self.interval_dict, f)
+        except OSError:
+            logging.warning("Could not cache interval.torch.pkl (read-only data dir?)")
+
+    def _cal_freq_x(self):
+        distributions = []
+        for col in ["virtual"] + self.relations:
+            lst = self.interval_dict[col]
+            if not len(lst):  # degenerate relation: flat distribution
+                distributions.append(np.ones(2))
+                continue
+            intervals = self.norm_time(lst, self.t_scalar)
+            bin_num = int(max(intervals)) + 1
+            ns = np.bincount(intervals.astype(np.int64), minlength=bin_num).astype(np.float64)
+            distributions.append(ns / max(ns))
+            min_dft = 2 ** (int(np.log2(bin_num) + 1))
+            if self.n_dft < min_dft:
+                self.n_dft = min_dft
+        self.freq_x = np.empty((self.n_relations, self.n_dft // 2 + 1), dtype=complex)
+        for i, dist in enumerate(distributions):
+            self.freq_x[i] = self.dft(dist, self.n_dft)
+        del self.interval_dict
+
+    def item_value_matrix(self) -> np.ndarray:
+        """[n_items, n_relations] value-entity ids per item: 0 for the
+        virtual and natural item relations, the attribute entity id for the
+        attribute relations (reference KDA.Dataset item_val_dict)."""
+        R = self.n_relations
+        out = np.zeros((self.n_items, R), dtype=np.int32)
+        meta = self.item_meta_df
+        for idx, r in enumerate(self.attr_relations):
+            base = self.n_items + int(np.sum(self.attr_max[:idx]))
+            col = len(self.item_relations) + 1 + idx
+            out[meta["item_id"].to_numpy(), col] = meta[r].to_numpy().astype(np.int32) + base
+        return out
+
+    def share_attr_matrix(self):
+        """Padded [n_attr_entities, max_share] matrix of the items sharing
+        each attribute entity (rows indexed by entity_id - n_items), and
+        the row lengths."""
+        n_attr = self.n_entities - self.n_items
+        if n_attr <= 0:
+            return np.zeros((1, 1), dtype=np.int32), np.ones(1, dtype=np.int32)
+        max_share = max((len(v) for v in self.share_attr_dict.values()), default=1)
+        mat = np.zeros((n_attr, max_share), dtype=np.int32)
+        lens = np.ones(n_attr, dtype=np.int32)
+        for ent, items in self.share_attr_dict.items():
+            row = ent - self.n_items
+            mat[row, : len(items)] = items
+            lens[row] = len(items)
+        return mat, lens

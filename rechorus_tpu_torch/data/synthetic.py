@@ -1,0 +1,124 @@
+"""Synthetic datasets in the reference CSV contract (own copy of
+rechorus_tpu/data/synthetic.py:17-69 and :269-297: `make_topk_dataset` and
+`make_kg_dataset`, numpy and pandas only).
+
+They write train/dev/test.csv (and item_meta.csv for the KG set) with the
+columns the readers expect (reference data/README.md:9-60), with learnable
+structure (a block preference matrix), for tests and `chip_smoke.py`.
+`make_topk_dataset` writes the JAX package's files byte for byte.
+`make_kg_dataset` draws the same kind of relation lists (distinct
+same-group items, never the item itself) with one vectorised draw per
+group, where the JAX package's generator scans the catalog once per item
+(O(n_items^2)): its item_meta.csv follows the same contract with other
+draws.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import pandas as pd
+
+
+def make_topk_dataset(
+    path: str,
+    n_users: int = 200,
+    n_items: int = 100,
+    n_per_user: int = 12,
+    n_neg: int = 19,
+    n_groups: int = 4,
+    seed: int = 0,
+):
+    """Block-structured interactions: user group g prefers item group g."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for u in range(1, n_users + 1):
+        g = u % n_groups
+        group_items = np.arange(1, n_items + 1)[(np.arange(1, n_items + 1) % n_groups) == g]
+        t0 = rng.integers(1e8, 2e8)
+        items = rng.choice(group_items, size=min(n_per_user, len(group_items)), replace=False)
+        for j, it in enumerate(items):
+            rows.append((u, int(it), int(t0 + j * 86400)))
+    # guarantee the top item id is observed so the reader's n_items covers
+    # the full sampled-negative range [1, n_items]
+    if not any(r[1] == n_items for r in rows):
+        rows.append((1, n_items, int(rng.integers(1e8, 2e8))))
+    df = pd.DataFrame(rows, columns=["user_id", "item_id", "time"])
+    df = df.sort_values(by=["time", "user_id"], kind="mergesort").reset_index(drop=True)
+    clicked = df.groupby("user_id")["item_id"].apply(set).to_dict()
+
+    leave = df.groupby("user_id").head(1)
+    rest = df.drop(leave.index)
+    test = rest.groupby("user_id").tail(1)
+    rest = rest.drop(test.index)
+    dev = rest.groupby("user_id").tail(1)
+    rest = rest.drop(dev.index)
+    train = pd.concat([leave, rest]).sort_index()
+
+    def add_negs(d):
+        d = d.copy()
+        neg = rng.integers(1, n_items + 1, size=(len(d), n_neg))
+        for i, uid in enumerate(d["user_id"].to_numpy()):
+            cset = clicked[uid]
+            for j in range(n_neg):
+                while neg[i, j] in cset:
+                    neg[i, j] = rng.integers(1, n_items + 1)
+        d["neg_items"] = [list(map(int, r)) for r in neg]
+        return d
+
+    os.makedirs(path, exist_ok=True)
+    train.to_csv(os.path.join(path, "train.csv"), sep="\t", index=False)
+    add_negs(dev).to_csv(os.path.join(path, "dev.csv"), sep="\t", index=False)
+    add_negs(test).to_csv(os.path.join(path, "test.csv"), sep="\t", index=False)
+    return {"n_users": n_users, "n_items": n_items}
+
+
+
+
+def make_kg_dataset(
+    path: str,
+    n_users: int = 200,
+    n_items: int = 100,
+    n_per_user: int = 12,
+    n_neg: int = 19,
+    n_groups: int = 4,
+    seed: int = 3,
+):
+    """Top-k dataset + item_meta.csv with r_complement / r_substitute list
+    columns (same-group items related) and an i_category_c attribute, in
+    the reference's KG conventions (data/README.md + KGReader contract)."""
+    stats = make_topk_dataset(path, n_users, n_items, n_per_user, n_neg, n_groups, seed)
+    rng = np.random.default_rng(seed + 100)
+    items = np.arange(1, n_items + 1)
+    comp, subst = [None] * n_items, [None] * n_items
+    for g in range(n_groups):
+        group = items[items % n_groups == g]
+        for lists, k in ((comp, 3), (subst, 2)):
+            for it, related in zip(group, _same_group_choice(rng, group, k)):
+                lists[it - 1] = related
+    item_meta = pd.DataFrame({
+        "item_id": items,
+        "r_complement": comp,
+        "r_substitute": subst,
+        "i_category_c": [int(i % n_groups) + 1 for i in items],
+    })
+    item_meta.to_csv(os.path.join(path, "item_meta.csv"), sep="\t", index=False)
+    return stats
+
+
+def _same_group_choice(rng, group: np.ndarray, k: int) -> list:
+    """For each item of `group`, min(k, len(group) - 1) distinct other items
+    of the group, sorted, as the reference's list strings ("[3, 7, 11]"):
+    distinct offsets in [1, len(group)) from each item's position, rows
+    with a repeat drawn again."""
+    m = len(group)
+    k = min(k, m - 1)
+    off = rng.integers(1, m, size=(m, k)) if k > 0 else np.zeros((m, 0), np.int64)
+    while k > 1:
+        s = np.sort(off, axis=1)
+        again = (s[:, 1:] == s[:, :-1]).any(axis=1)
+        if not again.any():
+            break
+        off[again] = rng.integers(1, m, size=(int(again.sum()), k))
+    related = np.sort(group[(np.arange(m)[:, None] + off) % m], axis=1)
+    return ["[" + ", ".join(map(str, row)) + "]" for row in related.tolist()]

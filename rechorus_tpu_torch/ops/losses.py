@@ -1,9 +1,22 @@
-"""Training losses (port of rechorus_tpu/ops/losses.py:32-46,
-`bpr_multi_neg` only; the other losses come with their runners).
+"""Training losses (port of rechorus_tpu/ops/losses.py:20-46:
+`masked_softmax` and `bpr_multi_neg`; the other losses come with their
+runners and models).
 """
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30  # finite stand-in for -inf: keeps softmax grads NaN-free
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax over `dim` restricted to mask == True; all-masked rows -> 0.
+    The max is taken without gradient, as the JAX version's stop_gradient."""
+    logits = torch.where(mask, logits, NEG_INF)
+    logits = logits - logits.amax(dim=dim, keepdim=True).detach()
+    unnorm = torch.where(mask, torch.exp(logits), 0.0)
+    denom = unnorm.sum(dim=dim, keepdim=True)
+    return unnorm / denom.clamp(min=1e-12)
 
 
 def bpr_multi_neg(predictions: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,7 @@ _MODULES = [
     "rechorus_tpu_torch.models.sequential.narm",
     "rechorus_tpu_torch.models.sequential.caser",
     "rechorus_tpu_torch.models.sequential.fpmc",
+    "rechorus_tpu_torch.models.sequential.kda",
 ]
 
 

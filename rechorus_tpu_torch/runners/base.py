@@ -38,7 +38,7 @@ from rechorus_tpu_torch.ops import layers as layers_ops
 from rechorus_tpu_torch.ops import metrics as metrics_ops
 from rechorus_tpu_torch.ops import sampling
 from rechorus_tpu_torch.ops import topk as topk_ops
-from rechorus_tpu_torch.ops.cuda_kernels import catalog_ranks
+from rechorus_tpu_torch.ops.cuda_kernels import catalog_ranks, ge_count
 from rechorus_tpu_torch.serve import dense_catalog_scores, resolve_device
 from rechorus_tpu_torch.utils import io as utils
 
@@ -172,9 +172,10 @@ class BaseRunner:
         parser.add_argument("--batch_size", type=int, default=256, help="Batch size during training.")
         parser.add_argument("--eval_batch_size", type=int, default=256, help="Batch size during testing.")
         parser.add_argument("--eval_candidate_chunk", type=int, default=8192,
-                            help="Kept for CLI parity: the candidate-tiled "
-                                 "forward eval of models without the catalog "
-                                 "protocol is not ported yet (ROADMAP A9).")
+                            help="Candidates per forward in the candidate-tiled "
+                                 "full-catalog eval of models without the catalog "
+                                 "protocol (taken above 4x this many items, or when "
+                                 "the dense feed's candidate bytes pass 2 GiB).")
         parser.add_argument("--optimizer", type=str, default="Adam", help="optimizer: SGD, Adam, Adagrad, Adadelta")
         parser.add_argument("--num_workers", type=int, default=0, help="Kept for CLI parity; input pipeline is on-device.")
         parser.add_argument("--pin_memory", type=int, default=0, help="Kept for CLI parity.")
@@ -260,6 +261,7 @@ class BaseRunner:
         self.l2 = args.l2
         self.batch_size = args.batch_size
         self.eval_batch_size = args.eval_batch_size
+        self.eval_candidate_chunk = int(getattr(args, "eval_candidate_chunk", 8192))
         self.optimizer_name = args.optimizer
         self.topk = [int(x) for x in args.topk.split(",")]
         self.metrics = [m.strip().upper() for m in args.metric.split(",")]
@@ -522,25 +524,124 @@ class BaseRunner:
         idx = torch.arange(n, device=self.device)
         return [idx[s: s + self.eval_batch_size] for s in range(0, n, self.eval_batch_size)]
 
-    @staticmethod
-    def _check_forward_eval(model, batcher) -> None:
-        if getattr(batcher, "test_all", False) and not getattr(model, "supports_catalog", False) \
-                and batcher.corpus.n_items > 8192:
-            raise NotImplementedError(
-                "full-catalog eval of a model without the catalog protocol over a large "
-                "catalog needs the candidate-tiled forward eval (ROADMAP A9)")
+    # dense [B, N] eval feeds whose candidate axis takes more than this
+    # route through the tiled forward even at a modest N
+    MAX_DENSE_FEED_BYTES = 2 << 30
+
+    def _dense_feed_bytes(self, batcher, arrays) -> int:
+        """Bytes of the candidate axis of a dense full-catalog eval feed:
+        the per-candidate bytes of the feed's tensors, read from one-row
+        probes with one and two candidates (a tensor whose second axis
+        follows the candidate count is per candidate), times the eval batch
+        and n_items."""
+        idx = torch.zeros(1, dtype=torch.long, device=self.device)
+        probes = [batcher.eval_feed(arrays, idx, cands=torch.zeros(1, c, dtype=torch.long,
+                                                                    device=self.device))
+                  for c in (1, 2)]
+        per_cand = sum(v.element_size() * int(np.prod(v.shape[2:], dtype=np.int64))
+                       for k, v in probes[0].items()
+                       if torch.is_tensor(v) and v.dim() >= 2 and v.shape[1] == 1
+                       and probes[1][k].shape[1] == 2)
+        return per_cand * min(self.eval_batch_size, len(batcher)) * batcher.corpus.n_items
+
+    def _use_tiled_forward(self, model, batcher, arrays) -> bool:
+        """A model without the catalog protocol evaluates the full catalog
+        candidate-tiled (JAX runners/base.py:817-834) when the catalog is
+        more than four chunks wide, or when it is wider than one chunk and
+        the dense feed's candidate axis would pass MAX_DENSE_FEED_BYTES.
+        The port's ids are int64 where the JAX package's are int32, so an
+        id feed counts twice the JAX package's bytes here."""
+        if not getattr(batcher, "test_all", False) or getattr(model, "supports_catalog", False):
+            return False
+        n_items = batcher.corpus.n_items
+        if n_items > 4 * self.eval_candidate_chunk:
+            return True
+        if n_items <= self.eval_candidate_chunk:
+            return False  # a single chunk IS the dense feed
+        return self._dense_feed_bytes(batcher, arrays) > self.MAX_DENSE_FEED_BYTES
+
+    def _chunk_cands(self, j: int, chunk: int, B: int, n_items: int):
+        """(the [chunk] ids of chunk j; its [B, chunk] candidates: the ids
+        with the last chunk's overhang clamped to n_items - 1, so that its
+        features stay gatherable)."""
+        ids = j * chunk + torch.arange(chunk, device=self.device)
+        return ids, ids.clamp(max=n_items - 1)[None, :].expand(B, chunk)
+
+    def _tiled_forward_ranks(self, model, batcher, arrays, idx) -> torch.Tensor:
+        """Full-catalog ranks through the model's ordinary forward over
+        [B, chunk] candidate slices, never [B, N] (port of JAX
+        runners/base.py:694-738): rank = #(>= target over the real ids) -
+        #(clicked >=) - [id 0 >=] + 1, ties counting against the target.
+        A one-candidate forward gives the target's score t. Each chunk's
+        count is B1 (`ge_count`) on its prediction sliced to the valid
+        columns, and the corrections are read from the same prediction (the
+        columns of the clicked ids and of id 0 that fall in the chunk): a
+        forward of another shape may score an item differently in the last
+        bit, so a correction taken from it could remove the target where B1
+        did not count it and give rank 0. Candidate-aligned feed extras
+        (KDA's item_val) are rebuilt per chunk by `eval_feed(cands=...)`."""
+        n_items = batcher.corpus.n_items
+        chunk = min(self.eval_candidate_chunk, n_items)
+        B = idx.shape[0]
+        probe = batcher.eval_feed(arrays, idx, cands=torch.zeros(B, 1, dtype=torch.long,
+                                                                 device=self.device))
+        target, clicked = probe["_target"].long(), probe["_clicked_rows"].long()
+        t = self._apply_eval(model, batcher.eval_feed(arrays, idx, cands=target[:, None]))[
+            "prediction"][:, 0].contiguous()
+        real = clicked > 0
+        total = torch.zeros(B, dtype=torch.int32, device=self.device)
+        dropped = torch.zeros(B, dtype=torch.long, device=self.device)
+        for j in range(-(-n_items // chunk)):
+            _, cands = self._chunk_cands(j, chunk, B, n_items)
+            width = min(chunk, n_items - j * chunk)
+            p = self._apply_eval(model, batcher.eval_feed(arrays, idx, cands=cands))["prediction"]
+            p = p[:, :width].contiguous()
+            total += ge_count(p, t)
+            col = clicked - j * chunk
+            here = real & (col >= 0) & (col < width)
+            dropped += ((p.gather(1, col.clamp(0, width - 1)) >= t[:, None]) & here).sum(1)
+            if j == 0:
+                dropped += p[:, 0] >= t
+        return total - dropped.to(torch.int32) + 1
+
+    def _tiled_forward_topk(self, model, batcher, arrays, idx, k: int):
+        """Full-catalog top-k through the model's ordinary forward over
+        [B, chunk] candidate slices with a running top-(k + M) merge; the
+        clicked ids (at most M per row) are knocked out at the end (port of
+        JAX runners/base.py:740-786). Returns (item ids, scores)."""
+        n_items = batcher.corpus.n_items
+        chunk = min(self.eval_candidate_chunk, n_items)
+        B = idx.shape[0]
+        probe = batcher.eval_feed(arrays, idx, cands=torch.zeros(B, 1, dtype=torch.long,
+                                                                 device=self.device))
+        clicked = probe["_clicked_rows"].long()
+        k_wide = min(k + clicked.shape[1], n_items)
+        best_v = torch.full((B, k_wide), float("-inf"), device=self.device)
+        best_i = torch.zeros((B, k_wide), dtype=torch.long, device=self.device)
+        for j in range(-(-n_items // chunk)):
+            ids, cands = self._chunk_cands(j, chunk, B, n_items)
+            p = self._apply_eval(model, batcher.eval_feed(arrays, idx, cands=cands))["prediction"]
+            p = p.masked_fill(((ids == 0) | (ids >= n_items))[None, :], float("-inf"))
+            best_v, sel = torch.topk(torch.cat([best_v, p], dim=1), k_wide, dim=1)
+            best_i = torch.cat([best_i, cands], dim=1).gather(1, sel)
+        hit = (best_i[:, :, None] == clicked[:, None, :]).any(-1)
+        v, sel = torch.topk(best_v.masked_fill(hit, float("-inf")), min(k, k_wide), dim=1)
+        return best_i.gather(1, sel), v
 
     @torch.no_grad()
     def predict_ranks(self, state: TrainState, batcher, arrays, phase: str) -> np.ndarray:
         model = state.model
         model.eval()
-        self._check_forward_eval(model, batcher)
         test_all = getattr(batcher, "test_all", False)
         catalog = test_all and getattr(model, "supports_catalog", False)
+        tiled = self._use_tiled_forward(model, batcher, arrays)
         table = model.catalog_item_table() if catalog else None
         n_items = batcher.corpus.n_items
         ranks = []
         for idx in self._eval_batches(len(batcher)):
+            if tiled:
+                ranks.append(self._tiled_forward_ranks(model, batcher, arrays, idx))
+                continue
             feed = batcher.eval_feed(arrays, idx)
             if catalog:
                 # catalog protocol: u . table as one product instead of a
@@ -569,9 +670,9 @@ class BaseRunner:
         including test_all full-catalog ranking with clicked-item masking."""
         model = state.model
         model.eval()
-        self._check_forward_eval(model, batcher)
         test_all = getattr(batcher, "test_all", False)
         catalog = test_all and getattr(model, "supports_catalog", False)
+        tiled = self._use_tiled_forward(model, batcher, arrays)
         n_items = batcher.corpus.n_items
         table = grouped = None
         if catalog:
@@ -582,6 +683,11 @@ class BaseRunner:
                 grouped = topk_ops.group_table_for_rescore(table)
         all_items, all_scores = [], []
         for idx in self._eval_batches(len(batcher)):
+            if tiled:
+                items, scores = self._tiled_forward_topk(model, batcher, arrays, idx, k)
+                all_items.append(items.to(torch.int32))
+                all_scores.append(scores)
+                continue
             feed = batcher.eval_feed(arrays, idx)
             if catalog:
                 u, bias = self._catalog_parts(model, feed)
@@ -705,7 +811,8 @@ class BaseRunner:
         dev batch (the JAX package's sown intermediates; the path is the
         module's, '/'-joined, as flax names it). Models with no such layer
         run no forward here; under --test_all a catalog-protocol model runs
-        its catalog forward, never a [B, N] one."""
+        its catalog forward and any other model its forward over one
+        candidate chunk, never a [B, N] one."""
         model = state.model
         groups: Dict[str, List[float]] = {}
         for name, p in model.named_parameters():
@@ -715,12 +822,19 @@ class BaseRunner:
         if batcher is not None and len(batcher) and \
                 any(hasattr(m, "intermediates") for m in model.modules()):
             model.eval()
-            self._check_forward_eval(model, batcher)
-            catalog = getattr(batcher, "test_all", False) and getattr(model, "supports_catalog", False)
+            test_all = getattr(batcher, "test_all", False)
+            catalog = test_all and getattr(model, "supports_catalog", False)
             idx = torch.arange(min(self.eval_batch_size, len(batcher)), device=self.device)
             with torch.no_grad(), layers_ops.record_intermediates():
-                model(batcher.eval_feed(arrays, idx), catalog=True) if catalog \
-                    else model(batcher.eval_feed(arrays, idx))
+                if catalog:
+                    model(batcher.eval_feed(arrays, idx), catalog=True)
+                elif test_all:
+                    n_items = batcher.corpus.n_items
+                    _, cands = self._chunk_cands(0, min(self.eval_candidate_chunk, n_items),
+                                                 idx.shape[0], n_items)
+                    model(batcher.eval_feed(arrays, idx, cands=cands))
+                else:
+                    model(batcher.eval_feed(arrays, idx))
             for path, mod in model.named_modules():
                 kept = getattr(mod, "intermediates", None)
                 if not kept:

@@ -11,6 +11,8 @@ the kind of each module, which fixes how its leaves cross:
   dense       `kernel` [in, out] -> `weight` [out, in] (transposed), `bias`
   layer_norm  `scale` -> `weight`, `bias`
   conv        `kernel` HWIO -> `weight` OIHW, `bias`
+  param       a raw top-level parameter (flax `self.param`), the same
+              name and axes on both sides
 
 The torch module path is the flax one with '/' -> '.' and flax's
 `GRUCell_0` -> `cell`. Every transform is a permutation of axes, so a
@@ -37,6 +39,10 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
               "fc": "dense", "out": "dense"},
     "FPMC": {"ui_embeddings": "embed", "iu_embeddings": "embed", "li_embeddings": "embed",
              "il_embeddings": "embed"},
+    "KDA": {"user_embeddings": "embed", "entity_embeddings": "embed", "item_bias": "embed",
+            "relation_embeddings": "param", "freq_(real|imag)": "param",
+            r"attn_\d+/[qkv]": "dense", r"w[12]_\d+": "dense", "A": "dense", "A_out": "dense",
+            r"ln_\d+": "layer_norm"},
 }
 # kind -> {flax leaf: (torch leaf, flax -> torch axes)}; None keeps the axes
 _LEAVES = {
@@ -64,6 +70,10 @@ def _kind(model: str, module: str) -> str:
 
 def _torch_leaf(model: str, path) -> tuple:
     """(state_dict key, flax -> torch axes) of one flax leaf path."""
+    if len(path) == 1:  # a raw top-level parameter
+        if _kind(model, path[0]) != "param":
+            raise KeyError(f"{model}: unmapped flax leaf {path[0]!r}")
+        return path[0], None
     module = "/".join(path[:-1])
     leaves = _LEAVES[_kind(model, module)]
     if path[-1] not in leaves:
@@ -94,6 +104,11 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF")
     tree: dict = {}
     for key, value in state_dict.items():
         parts = key.split(".")
+        if len(parts) == 1:  # a raw top-level parameter
+            if _kind(model, key) != "param":
+                raise KeyError(f"{model}: unmapped torch parameter {key!r}")
+            tree[key] = value.detach().float().cpu().numpy().copy()
+            continue
         path = ["GRUCell_0" if p == "cell" else p for p in parts[:-1]]
         leaves = _LEAVES[_kind(model, "/".join(path))]
         match = [(f, axes) for f, (t, axes) in leaves.items() if t == parts[-1]]

@@ -181,8 +181,8 @@ def test_sasrec_test_all_glorot_and_attention_lines(data_root, tmp_path):
 
 @pytest.fixture(scope="module")
 def large_catalog_root(tmp_path_factory):
-    """40 users over 9000 items: past the 8192 items above which a [B, N]
-    forward evaluation is refused."""
+    """40 users over 9000 items: more than one --eval_candidate_chunk of
+    8192 candidates."""
     root = tmp_path_factory.mktemp("torch_cli_large")
     make_topk_dataset(str(root / "Synth"), n_users=40, n_items=9000, n_per_user=12)
     return root

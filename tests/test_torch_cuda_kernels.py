@@ -47,6 +47,25 @@ def test_ge_count_kernel_equals_plain(dev, B, N):
     torch.testing.assert_close(got.cpu(), CK.ge_count_plain(pred, target), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_valid", [8192, 4097, 1697, 1])
+def test_ge_count_on_a_tiled_chunk_slice(dev, n_valid):
+    """The candidate-tiled evaluation's B1 call: a [256, 8192] chunk's
+    Gaussian prediction sliced to its valid columns (the whole chunk, a
+    ragged cut, the last chunk of a 100,001-id catalog, a one-column
+    chunk), against the plain
+    count of the same slice; the chunks' counts add up to the whole row's."""
+    gen = torch.Generator(device=dev).manual_seed(n_valid)
+    pred = torch.randn(256, 2 * 8192, generator=gen, device=dev)
+    target = pred[:, 17].contiguous()
+    parts = [pred[:, :8192], pred[:, 8192:8192 + n_valid]]
+    before = CK.ge_count.launches
+    got = [CK.ge_count(p.contiguous(), target) for p in parts]
+    assert CK.ge_count.launches == before + 2
+    for g, p in zip(got, parts):
+        assert torch.equal(g, CK.ge_count_plain(p, target))
+    assert torch.equal(got[0] + got[1], CK.ge_count_plain(pred[:, :8192 + n_valid], target))
+
+
 SHAPES = [  # B, N, D, bucket, bias, col_offset, n_valid offset from N + col_offset
     (1, 1, 1, 16, False, 0, None),
     (5, 300, 24, 4, True, 0, -3),
@@ -263,6 +282,52 @@ def test_adam_commit_at_a_sequential_step(dev, layout):
     assert int((scatter < N).sum()) == int(torch.unique(ids).numel())
 
 
+@pytest.mark.parametrize("layout", ["packed", "rows_f32"])
+def test_adam_commit_at_the_kda_entity_table(dev, layout):
+    """KDA's entity-table commit on Grocery at batch 256: the rows of
+    item_id [256, 2], history_items [256, 20] (a fifth pad), item_val
+    [256, 2, 4] (attribute entities past the 8,714 items, else 0),
+    head_id and tail_id [256, 2] and value_id [256], 256 x 35 = 8,960 ids
+    before dedup, over the [8771, 64] table: one [8771, 192] packed block,
+    or three [8771, 64] tables."""
+    N, n_items, B, D = 8771, 8714, 256, 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    items = lambda *shape: torch.randint(1, n_items, shape, generator=gen, device=dev)  # noqa: E731
+    history = items(B, 20)
+    history[torch.rand(B, 20, generator=gen, device=dev) < 0.2] = 0
+    item_val = torch.zeros(B, 2, 4, dtype=torch.long, device=dev)
+    item_val[:, :, 3] = torch.randint(n_items, N, (B, 2), generator=gen, device=dev)
+    value = torch.where(torch.rand(B, generator=gen, device=dev) < 0.3,
+                        torch.randint(n_items, N, (B,), generator=gen, device=dev), 0)
+    ids = torch.cat([items(B, 2).reshape(-1), history.reshape(-1), item_val.reshape(-1),
+                     items(B, 2).reshape(-1), items(B, 2).reshape(-1), value])
+    assert ids.shape[0] == B * 35
+    rows, scatter, _ = LA.unique_rows_hashed(ids, N)
+    R = ids.shape[0]
+    p = torch.randn(N, D, generator=gen, device=dev) * 0.05
+    mu = torch.randn(N, D, generator=gen, device=dev) * 0.01
+    nu = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+    g = torch.randn(R, D, generator=gen, device=dev) * 0.1
+    tx = LA.LazyAdamTx(1e-3, 1e-6)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 11)
+    before = LA.adam_commit.launches
+    if layout == "packed":
+        table = torch.cat([p, mu, nu], dim=1)
+        want = LA.adam_commit_plain(tx, bc1, bc2, tx.l2, table.clone(), g, scatter, gathered=table[rows])
+        got = LA.adam_commit(tx, bc1, bc2, tx.l2, table, g, scatter, gathered=table[rows].clone())
+        assert torch.equal(got, want)
+    else:
+        vals = p[rows]
+        want = [t.clone() for t in (p, mu, nu)]
+        LA.adam_commit_plain(tx, bc1, bc2, tx.l2, want[0], g, scatter, vals=vals, rows=rows,
+                             mu=want[1], nu=want[2])
+        LA.adam_commit(tx, bc1, bc2, tx.l2, p, g, scatter, vals=vals, rows=rows, mu=mu, nu=nu)
+        for name, a, b in zip(("p", "mu", "nu"), (p, mu, nu), want):
+            assert torch.equal(a, b), name
+    assert LA.adam_commit.launches == before + 1
+    assert int((scatter < N).sum()) == int(torch.unique(ids).numel())
+
+
 def test_adam_commit_unaligned_views_and_empty(dev):
     """Bases 4 bytes (2 for a bf16 p) into their storage leave the 16-byte
     path; R = 0 launches nothing."""
@@ -313,3 +378,26 @@ def test_adam_commit_checks_its_inputs(dev):
         commit(torch.zeros(10, 4, dtype=torch.float16, device=dev), g, ids,
                vals=torch.zeros(3, 4, device=dev), rows=ids, mu=torch.zeros(10, 4, device=dev),
                nu=torch.zeros(10, 4, device=dev))
+
+
+def test_adam_commit_at_the_kda_item_bias_table(dev):
+    """KDA's item_bias commit on Grocery at batch 256: the [8714, 1] bias
+    packed as [8714, 3] (D = 1, the commit's scalar path), the rows of
+    item_id [256, 2], no L2 (a bias is exempt), against the plain commit
+    bit for bit."""
+    N, B = 8714, 256
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ids = torch.randint(1, N, (B * 2,), generator=gen, device=dev)
+    rows, scatter, _ = LA.unique_rows_hashed(ids, N)
+    table = torch.cat([torch.randn(N, 1, generator=gen, device=dev) * 0.05,
+                       torch.randn(N, 1, generator=gen, device=dev) * 0.01,
+                       torch.rand(N, 1, generator=gen, device=dev) * 1e-3], dim=1)
+    g = torch.randn(B * 2, 1, generator=gen, device=dev) * 0.1
+    tx = LA.LazyAdamTx(1e-3, 0.0)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 5)
+    before = LA.adam_commit.launches
+    want = LA.adam_commit_plain(tx, bc1, bc2, 0.0, table.clone(), g, scatter, gathered=table[rows])
+    got = LA.adam_commit(tx, bc1, bc2, 0.0, table, g, scatter, gathered=table[rows].clone())
+    assert LA.adam_commit.launches == before + 1
+    assert torch.equal(got, want)
+    assert int((scatter < N).sum()) > B                        # most of the 512 rows distinct
