@@ -28,8 +28,15 @@ shapes the main path gives it, and drives the port's main paths:
     the trained weights, by the candidate-tiled route, `--lazy_emb_adam
     1`), and KDA's tiled full-catalog evaluation on a 100,000-item
     synthetic KG catalog;
+  * the rest of the general family through the CLI on Grocery with
+    docs/benchmark_commands.md's flags (POP, NeuMF, DirectAU, LightGCN,
+    BUIR, CFKG: dense Adam over a floor, the step profile, `--test_all 1`,
+    `--lazy_emb_adam 1` for the four with lazy tables), and LightGCN's
+    propagated [1M, 64] table ranked (B3) and top-100'd (B2) at the 1M-item
+    training shape;
   * serving and full-catalog ranking: the Grocery weights just trained,
-    then a seeded 1M-item catalog at D=64.
+    then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
+    and the runner's approx lane at 100,000 items (dense scores).
 
 It checks what comes out (loss falls, dev HR@5 above a band taken from the
 JAX package, reload reproduces, lanes bit-equal, served ids and ranks equal
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import itertools
 import json
 import math
@@ -66,6 +74,7 @@ from rechorus_tpu_torch.data import synthetic
 from rechorus_tpu_torch.data.batching import GeneralBatcher, SequentialBatcher
 from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
+from rechorus_tpu_torch.models.general.lightgcn import LightGCN, build_edges
 from rechorus_tpu_torch.models.sequential.fpmc import FPMC
 from rechorus_tpu_torch.models.sequential.sasrec import SASRec
 from rechorus_tpu_torch.ops import _build
@@ -102,6 +111,9 @@ KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     "fused_ge_count": (CT.fused_ge_count, "rechorus_tpu/ops/pallas_topk.py:185", CATALOG_SRC),
     "scatter_rows": (CS.scatter_rows, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
     "adam_commit": (LA.adam_commit, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
+    # the approx lane's select: `jax.lax.approx_max_k`, an XLA primitive of
+    # the TPU (PartialReduce), not a pallas_call
+    "approx_bin_max": (CT.approx_bin_max, "rechorus_tpu/ops/topk.py:338", CATALOG_SRC),
 }
 # B4's byte-copy instance: the sparse lanes commit through its Adam
 # instance (`adam_commit`), so no main path launches it; it is still
@@ -159,6 +171,39 @@ SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
 KDA_FLAGS = ["--emb_size", "64", "--include_attr", "1", "--freq_rand", "0", "--lr", "1e-3",
              "--l2", "1e-6", "--num_heads", "4", "--history_max", "20"]
 KDA_EPOCHS, KDA_DEV_HR5_FLOOR, KDA_LAZY_DEV_HR5_FLOOR = 5, 0.44, 0.30
+# The rest of the general family on Grocery with docs/benchmark_commands.md's
+# flags (:21-27, D = 64): model -> (flags, dense epochs, dev HR@5 floor,
+# --lazy_emb_adam floor or None (no lazy tables), commits per lazy step).
+# Floors from the JAX package run on a CPU with the same command and
+# epochs at --random_seed 0, 1, 2 (its CLI, --save_final_results 0), dev
+# HR@5 over the sampled candidates: 2 dense epochs of LightGCN 0.2825,
+# 0.2907, 0.2855; NeuMF 0.2675, 0.2655, 0.2662; DirectAU 0.2487, 0.2432,
+# 0.2498; BUIR 0.2186, 0.2183, 0.2312; CFKG 0.2661, 0.2631, 0.2609; and 2
+# epochs of --lazy_emb_adam 1: NeuMF 0.2661, 0.2674, 0.2684; DirectAU
+# 0.1673, 0.1725, 0.1665; BUIR 0.2276, 0.2347, 0.2338; CFKG 0.2675, 0.2650,
+# 0.2644. By SEQ_MODELS' rule, rounded down to 0.01. POP (--train 0) scores
+# by train counts: its dev HR@5, 0.2667 in the JAX package, must come out
+# the same.
+GENERAL_MODELS = {
+    "POP": (["--train", "0"], 0, None, None, 0),
+    "NeuMF": (["--emb_size", "64", "--layers", "[64]", "--lr", "5e-4", "--l2", "1e-7",
+               "--dropout", "0.2"], 2, 0.25, 0.25, 4),
+    "DirectAU": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-5", "--gamma", "0.3"],
+                 2, 0.21, 0.14, 2),
+    "LightGCN": (["--emb_size", "64", "--n_layers", "3", "--lr", "1e-3", "--l2", "1e-8"],
+                 2, 0.25, None, 0),
+    "BUIR": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6"], 2, 0.18, 0.19, 2),
+    "CFKG": (["--emb_size", "64", "--margin", "1", "--include_attr", "1", "--lr", "1e-4",
+              "--l2", "1e-8"], 2, 0.24, 0.25, 1),
+}
+POP_DEV_HR5 = 0.2667
+# the approx lane: its recall targets, and the runner's dense route at
+# 100,000 items (ids 0..100,000: 4096 x 100,001 scores are under
+# DENSE_APPROX_MAX_ELEMS); the kernel is held bit-equal at the bins these
+# widths give for k + M = TOPK + N_CLICKED
+APPROX_RECALLS = (0.90, 0.95, 0.98)
+APPROX_ITEMS = 100_001
+APPROX_WINDOW = 8    # batches per timing window
 # the candidate-tiled evaluation by the real rule: a synthetic KG catalog
 # past 4 x --eval_candidate_chunk (the port's KG generator)
 KDA_TILED_ITEMS, KDA_TILED_USERS, KDA_CHUNK, KDA_DENSE_ROWS = 100_000, 600, 8192, 8
@@ -455,12 +500,29 @@ def phase_kernels(gen):
         check(torch.equal(got[keep], table[keep]), f"{what} leaves unnamed rows untouched")
         del table, block, got, ref
         torch.cuda.empty_cache()
+    err["approx_bin_max"] = 0.0
+    for (B, N), L, kind in APPROX_CASES:
+        x = inputs(kind, B, N)
+        x[:, ::997] = float("-inf")
+        before = CT.approx_bin_max.launches
+        vals, cols = CT.approx_bin_max(x, L)
+        want_v, want_c = CT.approx_bin_max_plain(x, L)
+        torch.cuda.synchronize()
+        what = f"approx_bin_max {kind} [{B}, {N}] L={L}"
+        check(CT.approx_bin_max.launches == before + 1, f"{what}: one launch")
+        check(torch.equal(vals, want_v) and torch.equal(cols, want_c),
+              f"{what} equals its plain version bitwise")
+        err["approx_bin_max"] = max(err["approx_bin_max"], float((vals - want_v).abs().nan_to_num().max()),
+                                    float((cols - want_c).abs().max()))
+        del x, vals, cols, want_v, want_c
+        torch.cuda.empty_cache()
     reciprocal = commit_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
          b1_shapes=[list(x) for x in B1_SHAPES], b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
          b2_b3_cases=[list(c) for c in B23_CASES],
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
+         approx_bin_max_cases=[[b, n, L, kind] for (b, n), L, kind in APPROX_CASES],
          **reciprocal)
     return err
 
@@ -475,6 +537,13 @@ B1_SHAPES = [(EVAL_BATCH, 8714), (EVAL_BATCH, KDA_CHUNK),
 # last is FPMC's computed [iu | il] table, the run-time-D instance
 B23_CASES = [("int", False, None, 0, EMB), ("gauss", True, N_ITEMS + 7 - 1000, 7, EMB),
              ("gauss", False, None, 0, 2 * EMB)]
+# the bin max at the approx lane's shapes: B2's [4096, G] bucket maxima at
+# 1M items and the dense [4096, 100,001] scores at 100k, at the bins of
+# each recall target for k + M = 132 (integer inputs: ties)
+_G_1M = -(-N_ITEMS // (TT.DEFAULT_BUCKET * CT.NB)) * CT.NB
+APPROX_CASES = [((BATCH, n), CT.approx_bins(n, TOPK + N_CLICKED, r), kind)
+                for n in (_G_1M, APPROX_ITEMS) for r in APPROX_RECALLS for kind in ("gauss", "int")
+                if kind == "gauss" or r == APPROX_RECALLS[-1]]
 # the Adam commit at the training shapes: (layout, N, D, param dtype, R, l2);
 # a sequential step's item rows are the batch's targets, negatives and
 # histories: BATCH x (2 + SEQ_HISTORY) ids before dedup (Grocery: 256 x 22)
@@ -928,24 +997,26 @@ def phase_train_grocery_seq(totals):
          seconds=round(time.perf_counter() - t0, 3), **out)
 
 
-def seq_corpus_1m() -> SeqReader:
+def seq_corpus_1m(n_items: int = N_ITEMS) -> SeqReader:
     """A SeqReader over an in-memory corpus: users 1..N_USERS, each with
     SEQ_PER_USER interactions at increasing times, items uniform in
-    [1, N_ITEMS) from the seed. The last interaction of users 1..BATCH is
-    the dev split (BATCH rows to rank), the rest is train. Clicked sets,
-    positions and histories come from the reader's own code."""
+    [1, n_items) from the seed (N_USERS x SEQ_PER_USER = 2M interactions,
+    scripts/prod_bench.py's training shape at 1M items). The last
+    interaction of users 1..BATCH is the dev split (BATCH rows to rank),
+    the rest is train. Clicked sets, positions and histories come from the
+    reader's own code."""
     rng = np.random.default_rng(SEED)
     users = np.repeat(np.arange(1, N_USERS + 1), SEQ_PER_USER)
     times = np.repeat(rng.integers(0, 10 ** 8, size=N_USERS), SEQ_PER_USER) \
         + np.tile(np.arange(SEQ_PER_USER) * 60, N_USERS)
-    df = pd.DataFrame({"user_id": users, "item_id": rng.integers(1, N_ITEMS, size=len(users)),
+    df = pd.DataFrame({"user_id": users, "item_id": rng.integers(1, n_items, size=len(users)),
                        "time": times})
     is_dev = (np.tile(np.arange(SEQ_PER_USER), N_USERS) == SEQ_PER_USER - 1) & (users <= BATCH)
     corpus = SeqReader.__new__(SeqReader)
     corpus.data_df = {"train": df[~is_dev].reset_index(drop=True),
                       "dev": df[is_dev].reset_index(drop=True), "test": df.iloc[:0].copy()}
     corpus.all_df = pd.concat([corpus.data_df[k] for k in ("train", "dev", "test")])
-    corpus.n_users, corpus.n_items = N_USERS + 1, N_ITEMS
+    corpus.n_users, corpus.n_items = N_USERS + 1, n_items
     corpus._build_clicked_sets()
     corpus._append_his_info()
     return corpus
@@ -998,7 +1069,7 @@ def _catalog_eval_vs_dense(totals, lane) -> dict:
     topk_s = time.perf_counter() - t - rank_s
     check(c.launches["fused_ge_count"] == 1 and c.launches["fused_bucket_max"] == 1,
           f"one B3 and one B2 launch for {len(dev_b)} rows: {c.launches}")
-    feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device="cuda"))
+    feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device=runner.device))
     with torch.no_grad():
         u = model(feed, catalog=True)["u_v"][:N_CHECK]
         table = model.catalog_item_table()
@@ -1043,7 +1114,7 @@ def phase_train_1m_seq(totals):
     t0 = time.perf_counter()
     corpus = seq_corpus_1m()
     build_s = time.perf_counter() - t0
-    out = {}
+    out = {"corpus": corpus}
     for name, flags in (("dense_adam", []), ("packed_f32", ["--lazy_emb_adam", "1"])):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1074,11 +1145,12 @@ def phase_train_1m_seq(totals):
           f"1M FPMC packed: loss {loss}, launches {c.launches}")
     out["fpmc_eval"] = _catalog_eval_vs_dense(totals, lane)
     check(out["fpmc_eval"]["table"] == [N_ITEMS, 2 * EMB], "FPMC scores against [iu | il]")
+    corpus = out.pop("corpus")
     emit("train_1m_seq", n_users=N_USERS, n_items=N_ITEMS, per_user=SEQ_PER_USER, emb_size=EMB,
          history_max=SEQ_HISTORY, batch=BATCH, train_rows=len(batcher), steps=SEQ_TRAIN_STEPS,
          warm_steps=WARM_STEPS, corpus_build_s=round(build_s, 3), lanes=out,
          seconds=round(time.perf_counter() - t0, 3))
-    return out
+    return corpus
 
 
 def phase_train_grocery_kda(totals):
@@ -1299,6 +1371,250 @@ def phase_kda_tiled(totals):
          seconds=round(time.perf_counter() - t0, 3))
 
 
+def phase_train_grocery_general(totals):
+    """POP, NeuMF, DirectAU, LightGCN, BUIR and CFKG through the CLI on the
+    card, on the committed Grocery corpus (CFKG with its item_meta.csv
+    attributes), with docs/benchmark_commands.md's flags: dense Adam for
+    GENERAL_MODELS' epochs (the loss falls, dev HR@5 over its floor; POP
+    with --train 0 equals the JAX package's), the steady step's profile, a
+    `--test_all 1` run (B1 over the catalog scores: LightGCN's propagated
+    table through the catalog protocol, the others' [256, 8714] forward)
+    and, for the four models with lazy tables, a `--lazy_emb_adam 1` run
+    (the Adam commit: packed for NeuMF, DirectAU and CFKG, the three-table
+    layout for BUIR, whose runner hooks the step)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+
+        def argv(name, tag, *extra, epochs):
+            return ["--model_name", name, *GENERAL_MODELS[name][0], "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
+                    "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
+
+        def run(name, tag, *extra, epochs):
+            t = time.perf_counter()
+            with counted(totals) as c:
+                port_main.build_parser_and_run(argv(name, tag, *extra, epochs=epochs))
+            text = open(os.path.join(tmp, tag + ".log")).read()
+            seen = _epoch_lines(text)
+            trains = "--train" not in GENERAL_MODELS[name][0]
+            check(len(seen) == (epochs if trains else 0), f"{tag}: one log line per epoch")
+            if trains:
+                check(all(np.isfinite(l) for l, _ in seen) and seen[-1][0] < seen[0][0],
+                      f"{tag}: finite loss, lower at the last epoch: {seen}")
+            return dict(seconds=time.perf_counter() - t, losses=[l for l, _ in seen],
+                        dev=_log_metrics(text, "Dev  After Training"),
+                        test=_log_metrics(text, "Test After Training"), launches=c.launches,
+                        epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
+                                                              text, re.M)])
+
+        for name, (flags, epochs, floor, lazy_floor, commits) in GENERAL_MODELS.items():
+            res = out[name] = {}
+            rargs, _, reader_cls, _ = port_main.parse_cli(argv(name, "reader", epochs=1))
+            corpus = port_main.build_corpus(rargs, reader_cls)
+            rows = {k: len(corpus.data_df[k]) for k in ("train", "dev", "test")}
+            if name == "CFKG":      # its train rows: the KG triplets and the interactions
+                rows["train"] += len(corpus.relation_df)
+            n_batch = {k: -(-n // EVAL_BATCH) for k, n in rows.items()}
+            # 1. dense Adam, sampled evaluation
+            res["dense"] = run(name, name, epochs=epochs)
+            hr5 = res["dense"]["dev"]["HR@5"]
+            if floor is None:
+                check(hr5 == POP_DEV_HR5, f"POP dev HR@5 {hr5} == the JAX package's {POP_DEV_HR5}")
+            else:
+                check(hr5 > floor, f"{name} dev HR@5 {hr5} above {floor}")
+            # 2. the steady step's profile
+            res["lane"] = _grocery_lane(name, argv(name, "profile", epochs=1), 0)
+            # 3. --test_all 1: every evaluation ranks over the catalog through B1
+            short = min(epochs, GROCERY_SHORT_EPOCHS)
+            res["test_all"] = run(name, name + "_test_all", "--test_all", "1", epochs=short)
+            want = 2 * n_batch["test"] + (short + 1) * n_batch["dev"]
+            check(res["test_all"]["launches"]["ge_count"] == want,
+                  f"ge_count launches of the {name} --test_all run: {res['test_all']['launches']} "
+                  f"!= {want}")
+            # 4. --lazy_emb_adam 1: one commit per lazy table per step
+            if lazy_floor is not None:
+                res["lazy"] = run(name, name + "_lazy", "--lazy_emb_adam", "1", epochs=epochs)
+                steps = n_batch["train"] * epochs
+                check(res["lazy"]["launches"]["adam_commit"] == commits * steps,
+                      f"adam_commit launches of the {name} lazy run: {res['lazy']['launches']} "
+                      f"!= {commits} x {steps}")
+                check(res["lazy"]["dev"]["HR@5"] > lazy_floor,
+                      f"{name} lazy dev HR@5 {res['lazy']['dev']['HR@5']} above {lazy_floor}")
+            res["rows"] = rows
+    emit("train_grocery_general", flags={k: v[0] for k, v in GENERAL_MODELS.items()},
+         floors={k: dict(dense=v[2] if v[2] is not None else POP_DEV_HR5, lazy=v[3])
+                 for k, v in GENERAL_MODELS.items()},
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_lightgcn_1m(totals, corpus):
+    """LightGCN (D=64, 3 layers) over the 1M-item training shape of
+    `seq_corpus_1m` (200,000 users x 1M items x 2M uniform interactions):
+    the edge list's build, the propagation's time (no grad: the catalog
+    table) and peak memory, training steps at batch BATCH (the
+    propagation's backward included), then the runner's ranks (B3) and
+    top-100 (B2) of BATCH dev rows over the propagated table against dense
+    references."""
+    t0 = time.perf_counter()
+    edges = build_edges(corpus.n_users, corpus.n_items, corpus.train_clicked_set)
+    edges_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = BaseRunner(_runner_args("--eval_batch_size", str(BATCH), "--l2", "1e-8"))
+    model = LightGCN(user_num=corpus.n_users, item_num=corpus.n_items, emb_size=EMB, n_layers=3,
+                     num_neg=1, test_all=1, edges=edges)
+    train, dev = (GeneralBatcher(corpus, model, p, runner.args) for p in ("train", "dev"))
+    train_a, dev_a = train.device_arrays(runner.device), dev.device_arrays(runner.device)
+    state = runner.init_state(model, SEED)
+    with torch.no_grad():
+        prop_ms = cuda_ms(model.propagate, 5)
+    prop_peak = torch.cuda.max_memory_allocated()
+    warm_loss = runner.fit(state, train, train_a, 1, max_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss = runner.fit(state, train, train_a, 2, max_steps=WARM_STEPS)
+    step_ms = (time.perf_counter() - t) * 1e3 / WARM_STEPS
+    check(np.isfinite(loss), f"1M LightGCN: loss {warm_loss} -> {loss}")
+    step_peak = torch.cuda.max_memory_allocated()
+    ev = _catalog_eval_vs_dense(totals, (runner, state, None, None, dev, dev_a))
+    check(ev["table"] == [N_ITEMS, EMB], "LightGCN scores against its propagated [N, D] table")
+    emit("lightgcn_1m", n_users=corpus.n_users, n_items=corpus.n_items, emb_size=EMB, n_layers=3,
+         edges=len(edges["rows"]), edges_build_s=round(edges_s, 3), propagate_ms=prop_ms,
+         propagate_peak_memory_bytes=prop_peak, train_ms_per_step=step_ms, batch=BATCH,
+         train_peak_memory_bytes=step_peak, loss=loss, warm_loss=warm_loss, eval=ev,
+         seconds=round(time.perf_counter() - t0, 3))
+
+
+def _recall(items, ref_items) -> float:
+    """Mean share of each row's reference ids that `items` holds."""
+    return float(np.mean([len(np.intersect1d(a, b)) / len(b) for a, b in zip(items, ref_items)]))
+
+
+def _check_served(items, scores, u, table, clicked, n_items, what):
+    """Served ids real and unclicked, each score the f32 score of its id
+    (float64 reference), scores sorted."""
+    check(((items > 0) & (items < n_items)).all(), f"{what}: real item ids")
+    check(not (items[:, :, None] == clicked[:, None, :]).any(), f"{what}: no clicked id")
+    with torch.no_grad():
+        ids = torch.from_numpy(items).cuda().long()
+        ref = (u.double()[:, None, :] * table[ids].double()).sum(-1).cpu().numpy()
+    check(np.allclose(scores, ref, rtol=1e-5, atol=1e-9), f"{what}: every score its id's score")
+    check((np.diff(scores, axis=1) <= 0).all(), f"{what}: scores sorted")
+
+
+def _in_turns(lanes: dict, fn, rounds: int = 2) -> dict:
+    """{lane: [seconds of fn(lane) per window]}: the lanes in order, then
+    in reverse, `rounds` times (a, b, c, c, b, a, ...), so each meets the
+    host and the card of its neighbours."""
+    names, out = list(lanes), {k: [] for k in lanes}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(lanes[name])
+            out[name].append(time.perf_counter() - t)
+    return out
+
+
+def phase_approx(totals, idx, ut, it, users):
+    """The approx lane against the exact lane on the same users, at
+    APPROX_RECALLS: `ServeIndex(approx=True)` over the seeded 1M-item
+    catalog (the tiled route: B2, the bin max over its [BATCH, G] bucket
+    maxima, the grouped rescore) and the runner's `--approx_topk 1` top-100
+    at APPROX_ITEMS items (B x N under DENSE_APPROX_MAX_ELEMS: the bin max
+    over dense [BATCH, N] scores), its exact lane there being the tiled
+    route. Item recall against the exact lane at least the target, every
+    id served with its exact score; users/s and ms per batch of each lane
+    taken in turns; one approx batch's device time by kernel."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    batches = [rng.choice(N_USERS, size=BATCH, replace=False) for _ in range(APPROX_WINDOW)]
+    lanes = {"exact": idx, **{f"approx_{r}": dataclasses.replace(idx, approx=True, recall_target=r)
+                              for r in APPROX_RECALLS}}
+    clicked = idx.clicked[torch.from_numpy(users).cuda()].cpu().numpy()
+    u = ut[torch.from_numpy(users).cuda()]
+    ref_items, _ = idx.query(users)
+    serve = {}
+    for name, lane in lanes.items():
+        if not lane.approx:
+            continue
+        with counted(totals) as c:
+            items, scores = lane.query(users)
+        check(c.launches["approx_bin_max"] == 1 and c.launches["fused_bucket_max"] == 1,
+              f"1M {name}: one B2 and one bin max launch: {c.launches}")
+        _check_served(items, scores, u, it, clicked, N_ITEMS, f"1M {name}")
+        G = -(-N_ITEMS // (TT.DEFAULT_BUCKET * CT.NB)) * CT.NB
+        rec = _recall(items, ref_items)
+        check(rec >= lane.recall_target, f"1M {name}: recall {rec} >= {lane.recall_target}")
+        serve[name] = dict(recall=rec, bins=CT.approx_bins(G, TOPK + N_CLICKED, lane.recall_target),
+                           selected_axis=G, launches=c.launches)
+    for lane in lanes.values():
+        lane.query(batches[0])                              # warm-up
+    secs = _in_turns(lanes, lambda lane: [lane.query(b) for b in batches])
+    for name, w in secs.items():
+        serve.setdefault(name, {}).update(
+            users_per_s=[APPROX_WINDOW * BATCH / x for x in w],
+            ms_per_batch=[x * 1e3 / APPROX_WINDOW for x in w])
+    top = f"approx_{APPROX_RECALLS[-1]}"
+    serve[top]["device_ms_by_kernel"] = dict(list(ms_by_kernel(
+        lambda: lanes[top].query(batches[1]), 3, whole_launches=True).items())[:10])
+    serve["exact"]["device_ms_by_kernel"] = dict(list(ms_by_kernel(
+        lambda: lanes["exact"].query(batches[1]), 3, whole_launches=True).items())[:10])
+
+    # the runner's --approx_topk 1 at APPROX_ITEMS items: dense scores
+    t = time.perf_counter()
+    corpus = seq_corpus_1m(APPROX_ITEMS)
+    corpus_s = time.perf_counter() - t
+    runners = {"exact": BaseRunner(_runner_args("--eval_batch_size", str(BATCH)))}
+    for r in APPROX_RECALLS:
+        runners[f"approx_{r}"] = BaseRunner(_runner_args(
+            "--eval_batch_size", str(BATCH), "--approx_topk", "1", "--approx_topk_recall", str(r)))
+    model = BPRMF(user_num=corpus.n_users, item_num=corpus.n_items, emb_size=EMB, test_all=1)
+    state = runners["exact"].init_state(model, SEED)
+    dev_b = GeneralBatcher(corpus, model, "dev", runners["exact"].args)
+    dev_a = dev_b.device_arrays(runners["exact"].device)
+    feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device=runners["exact"].device))
+    with torch.no_grad():
+        u100 = model(feed, catalog=True)["u_v"]
+    cl100 = feed["_clicked_rows"].cpu().numpy()
+    kk = TOPK + cl100.shape[1]
+    check(len(dev_b) * APPROX_ITEMS <= TT.DENSE_APPROX_MAX_ELEMS, "the dense approx route applies")
+    dense, results = {}, {}
+    for name, runner in runners.items():
+        with counted(totals) as c:
+            results[name] = runner.predict_topk(state, dev_b, dev_a, "dev", k=TOPK)
+        approx = name != "exact"
+        check((c.launches["approx_bin_max"], c.launches["fused_bucket_max"]) == (int(approx), int(not approx)),
+              f"100k {name}: the {'dense approx' if approx else 'tiled exact'} route: {c.launches}")
+        dense[name] = dict(launches=c.launches)
+    for name, (items, scores) in results.items():
+        _check_served(items, scores, u100, model.i_embeddings.weight.detach(), cl100, APPROX_ITEMS,
+                      f"100k {name}")
+        if name != "exact":
+            r = runners[name].approx_topk_recall
+            rec = _recall(items, results["exact"][0])
+            check(rec >= r, f"100k {name}: recall {rec} >= {r}")
+            dense[name].update(recall=rec, bins=CT.approx_bins(APPROX_ITEMS, kk, r),
+                               selected_axis=APPROX_ITEMS)
+    call = lambda runner: [runner.predict_topk(state, dev_b, dev_a, "dev", k=TOPK)  # noqa: E731
+                           for _ in range(3)]
+    secs = _in_turns(runners, call)
+    for name, w in secs.items():
+        dense[name].update(users_per_s=[3 * BATCH / x for x in w], ms_per_batch=[x * 1e3 / 3 for x in w])
+    dense[top]["device_ms_by_kernel"] = dict(list(ms_by_kernel(
+        lambda: runners[top].predict_topk(state, dev_b, dev_a, "dev", k=TOPK), 3,
+        whole_launches=True).items())[:10])
+    emit("approx", recall_targets=APPROX_RECALLS, batch=BATCH, k=TOPK, window_batches=APPROX_WINDOW,
+         serve_1m=serve, runner_100k=dict(n_items=APPROX_ITEMS, clicked_width=int(cl100.shape[1]),
+                                          corpus_build_s=round(corpus_s, 3), lanes=dense),
+         seconds=round(time.perf_counter() - t0, 3))
+
+
 def phase_train_windows(rounds: int = WINDOW_ROUNDS):
     """Host-clock examples/s of every training lane (the four 1M-item lanes
     and Grocery's dense lane at batch 256) over `rounds` rounds of
@@ -1453,6 +1769,24 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
         G = -(-N // (TT.DEFAULT_BUCKET * CT.NB)) * CT.NB
         bm_kw = dict(bucket=TT.DEFAULT_BUCKET, n_valid=N)
         u_eval = u[:EVAL_BATCH].contiguous()
+        bm = CT.fused_bucket_max(u, it, **bm_kw)
+        L = CT.approx_bins(G, TOPK + N_CLICKED, APPROX_RECALLS[-1])
+        s100 = torch.randn(B, APPROX_ITEMS, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                           device=dev)
+        L100 = CT.approx_bins(APPROX_ITEMS, TOPK + N_CLICKED, APPROX_RECALLS[-1])
+        rows["approx_bin_max"] = dict(
+            ms=cuda_ms(lambda: CT.approx_bin_max(bm, L), 20),
+            device_ms=device_ms(lambda: CT.approx_bin_max(bm, L), 5),
+            plain_ms=cuda_ms(lambda: CT.approx_bin_max_plain(bm, L), 5, warmup=1),
+            # strided bins of a width that L divides: one reshape and max
+            library_ms=cuda_ms(lambda: bm.view(B, G // L, L).max(1), 20),
+            library_device_ms=busy_ms(lambda: bm.view(B, G // L, L).max(1), 5),
+            shape=[B, G, L], bound=bound_ms(4 * B * G + 8 * B * L, B * G),
+            at_dense_100k=dict(shape=[B, APPROX_ITEMS, L100],
+                               ms=cuda_ms(lambda: CT.approx_bin_max(s100, L100), 20),
+                               bound=bound_ms(4 * B * APPROX_ITEMS + 8 * B * L100, B * APPROX_ITEMS)))
+        check(G % L == 0, f"the 1M bins divide G: {G} / {L}")
+        del bm, s100
         rows["fused_bucket_max"] = dict(
             ms=cuda_ms(lambda: CT.fused_bucket_max(u, it, **bm_kw), 10),
             device_ms=device_ms(lambda: CT.fused_bucket_max(u, it, **bm_kw), 3),
@@ -1598,16 +1932,20 @@ def main() -> int:
     g_model = phase_train_grocery(totals)
     phase_train_1m(totals)
     phase_train_grocery_seq(totals)
-    phase_train_1m_seq(totals)
+    corpus_1m = phase_train_1m_seq(totals)
     phase_train_grocery_kda(totals)
     phase_kda_tiled(totals)
+    phase_train_grocery_general(totals)
+    phase_lightgcn_1m(totals, corpus_1m)
+    del corpus_1m
     phase_train_windows()
     with counted(totals) as serving:
         g_model, g_corpus = phase_grocery(g_model)
         idx, ut, it, users, target = phase_catalog(gen)
-    emit("main_path_launches", serving=serving.launches, all_paths=totals)
     check(all(serving.launches[k] > 0 for k in ("ge_count", "fused_bucket_max", "fused_ge_count")),
           f"the serving path ran B1-B3: {serving.launches}")
+    phase_approx(totals, idx, ut, it, users)
+    emit("main_path_launches", serving=serving.launches, all_paths=totals)
     check(all(n > 0 for k, n in totals.items() if k not in OFF_PATH),
           f"every kernel of the main paths ran: {totals}")
 

@@ -10,6 +10,11 @@
 //   rtt_fused_ge_kernel    rechorus_tpu/ops/pallas_topk.py::fused_ge_count
 //                          (_ge_count_kernel)
 //
+// and one more replaces an XLA primitive of the TPU, not a Pallas kernel:
+//
+//   rtt_approx_bin_max_kernel  jax.lax.approx_max_k's PartialReduce
+//                          (rechorus_tpu/ops/topk.py:338, ops/metrics.py:273)
+//
 // The TPU kernels run their grid in order and carry a count in the output
 // block from one catalog step to the next. Here blocks run in parallel and
 // in no order: a block loops over its own slice of the catalog, and the
@@ -63,6 +68,41 @@ rtt_ge_count_kernel(const float* __restrict__ pred, const float* __restrict__ ta
     int s = 0;
     for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
     if (s) atomicAdd(counts + b, s);
+  }
+}
+
+// ------------------------------------------------------- approx bin max --
+// The first stage of the approximate top-k (Chern et al. 2022, "TPU-KNN",
+// arXiv 2206.14286): the reduction axis of length N is split into L
+// strided bins, column j into bin j mod L, and each bin keeps its maximum
+// and that column's index; an exact top-k over the L maxima follows in the
+// caller. Ties go to the lowest column (strict >, columns visited upwards);
+// a bin of -inf columns stays -inf with its first column.
+// Bounded by bytes: it reads the [B, N] f32 input once and writes [B, L]
+// maxima and int32 indices, one compare per element. Thread l of a row
+// walks bin l; at each step the threads of a warp read 32 adjacent columns
+// (the strided bins make the loads coalesce), and the loads of one thread
+// do not depend on its running maximum, so the unrolled loop keeps several
+// in flight. Rows are the grid's y axis, looped past the grid's limit.
+extern "C" __global__ void __launch_bounds__(kThreads)
+rtt_approx_bin_max_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                          int* __restrict__ idx, int B, int N, int L) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  if (l >= L) return;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* row = x + (int64_t)b * N;
+    float best = row[l];
+    int arg = l;
+#pragma unroll 4
+    for (int j = l + L; j < N; j += L) {
+      const float v = row[j];
+      if (v > best) {
+        best = v;
+        arg = j;
+      }
+    }
+    vals[(int64_t)b * L + l] = best;
+    idx[(int64_t)b * L + l] = arg;
   }
 }
 
@@ -539,6 +579,14 @@ extern "C" int rtt_fused_ge_count(const float* u, const float* table, const floa
   auto kernel = D == 64 ? rtt_fused_ge_kernel<64> : rtt_fused_ge_kernel<0>;
   return launch_fused(kernel, B, n_blocks, sm.bytes, stream, u, table, tscore, target_col, bias,
                       counts, B, N, D, kGeChunks, n_valid, col_offset, n_blocks, sm.resident);
+}
+
+extern "C" int rtt_approx_bin_max(const float* x, float* vals, int* idx, int B, int N, int L,
+                                  cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || L <= 0 || L > N) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)cdiv(L, kThreads), (unsigned)(B < kMaxGridY ? B : kMaxGridY));
+  rtt_approx_bin_max_kernel<<<grid, kThreads, 0, stream>>>(x, vals, idx, B, N, L);
+  return cudaGetLastError();
 }
 
 extern "C" const char* rtt_error_string(int err) {

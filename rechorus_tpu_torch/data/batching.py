@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-196, 307-381 and 941-1056).
+rechorus_tpu/data/batching.py:26-38, 83-196, 307-381, 692-827 and 941-1056).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -291,3 +291,117 @@ class KDABatcher(SequentialBatcher):
 
     def eval_feed(self, arrays, idx, cands=None):
         return self._common(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+# ---------------------------------------------------------------------------
+# Knowledge-aware batchers
+# ---------------------------------------------------------------------------
+
+
+def _kg_corruption(batcher, arrays, idx, gen, swap_feed: bool = False):
+    """The 4-column TransE corruption (h, h, h, h') x (t, t, t', t) of the KG
+    rows `idx`, negatives rejection-sampled on the device against the
+    triplet set (`kg.sample_kg_negatives`; reference CFKG.Dataset /
+    Chorus.Dataset.actions_before_epoch). `swap_feed` reverses head and
+    tail in the FEED (Chorus stage 1 trains the inverse relations,
+    reference Chorus.py:205-210). Needs `batcher.kg_neg_hi`, the bound of
+    both negative draws."""
+    h, r, t = arrays["kg_head"][idx], arrays["kg_relation"][idx], arrays["kg_tail"][idx]
+    neg_heads, neg_tails = kg_ops.sample_kg_negatives(
+        gen, h, r, t, arrays["_triplet_keys"], batcher.corpus.n_relations,
+        batcher.corpus.n_entities, hi_tail=batcher.kg_neg_hi, hi_head=batcher.kg_neg_hi)
+    head_id = torch.stack([h, h, h, neg_heads], dim=1)
+    tail_id = torch.stack([t, t, neg_tails, t], dim=1)
+    if swap_feed:
+        head_id, tail_id = tail_id, head_id
+    return {"head_id": head_id, "tail_id": tail_id, "relation_id": r[:, None].expand(-1, 4),
+            "batch_size": h.shape[0]}
+
+
+@register_batcher("cfkg")
+class CFKGBatcher(Batcher):
+    """CFKG: train rows = KG triplets + 'buy' interactions (relation 0);
+    eval = the user as head, relation 0, the candidates as tails. Entity
+    indexing in the FEED: users first, then entities (the + n_users
+    offsets are applied here, reference CFKG.Dataset._get_feed_dict). The
+    feeds carry no `item_id`.
+
+    As in the JAX package, both negative draws of a relation > 0 row are
+    uniform in U[1, n_entities) (the reference draws its first neg_tail
+    from U[1, n_items) and resamples in U[1, n_entities), the distribution
+    its loop converges to).
+    """
+
+    def build(self):
+        df = self.corpus.data_df[self.phase]
+        if self.phase == "train":
+            rel = self.corpus.relation_df
+            self.arrays["kg_head"] = np.concatenate(
+                [rel["head"].to_numpy(), df["user_id"].to_numpy()]).astype(np.int32)
+            self.arrays["kg_tail"] = np.concatenate(
+                [rel["tail"].to_numpy(), df["item_id"].to_numpy()]).astype(np.int32)
+            self.arrays["kg_relation"] = np.concatenate(
+                [rel["relation"].to_numpy(), np.zeros(len(df))]).astype(np.int32)
+            self.arrays["_triplet_keys"] = self.corpus.member_table()
+            self.arrays["_clicked"] = self.corpus.clicked_matrix(include_residual=False)
+            self.n = len(self.arrays["kg_head"])
+        else:
+            self.n = len(df)
+            self.arrays["user_id"] = df["user_id"].to_numpy().astype(np.int32)
+            self.arrays["target_item"] = df["item_id"].to_numpy().astype(np.int32)
+            self.test_all = bool(getattr(self.model, "test_all", 0))
+            if not self.test_all:
+                self.arrays["neg_items"] = np.stack(df["neg_items"].to_list()).astype(np.int32)
+            else:
+                self.arrays["_clicked_all"] = self.corpus.clicked_matrix(include_residual=True)
+
+    def train_feed(self, arrays, idx, gen):
+        h, r, t = arrays["kg_head"][idx], arrays["kg_relation"][idx], arrays["kg_tail"][idx]
+        is_buy = r == 0
+        B, dev = h.shape[0], h.device
+        n_users, n_items = self.corpus.n_users, self.corpus.n_items
+        n_entities, n_rel = self.corpus.n_entities, self.corpus.n_relations
+        clicked, keys = arrays["_clicked"], arrays["_triplet_keys"]
+
+        def in_clicked(users, cand):
+            return (cand[..., None] == clicked[users.clamp(0, n_users - 1)]).any(-1)
+
+        def draw(buy_hi):
+            # 8 resampling rounds, all drawn at once; a buy row's draw folds
+            # into [1, buy_hi)
+            raw = torch.randint(1, n_entities, (9, B), generator=gen, device=dev)
+            return torch.where(is_buy, 1 + (raw - 1) % (buy_hi - 1), raw)
+
+        # neg tail: buy rows avoid the head user's clicked items; KG rows
+        # avoid existing (h, r, t') triplets
+        cand = draw(n_items)
+        neg_tails = sampling.first_accepted(cand, torch.where(
+            is_buy, in_clicked(h[None].expand_as(cand), cand),
+            kg_ops.is_member(keys, h[None], r[None], cand, n_rel, n_entities)))
+        # neg head: buy rows take a user u' whose clicked set excludes t; KG
+        # rows avoid (h', r, t)
+        cand = draw(n_users)
+        neg_heads = sampling.first_accepted(cand, torch.where(
+            is_buy, in_clicked(cand, t[None].expand_as(cand)),
+            kg_ops.is_member(keys, cand, r[None], t[None], n_rel, n_entities)))
+        head_id = torch.stack([h, h, h, neg_heads], dim=1)
+        tail_id = torch.stack([t, t, neg_tails, t], dim=1) + n_users
+        head_id = torch.where((r > 0)[:, None], head_id + n_users, head_id)
+        return {"head_id": head_id, "tail_id": tail_id, "relation_id": r[:, None].expand(B, 4),
+                "batch_size": B}
+
+    def eval_feed(self, arrays, idx, cands=None):
+        users = arrays["user_id"][idx]
+        target = arrays["target_item"][idx]
+        B = users.shape[0]
+        if getattr(self, "test_all", False):
+            tails = cands if cands is not None else torch.arange(
+                self.corpus.n_items, device=users.device)[None, :].expand(B, self.corpus.n_items)
+            feed = {"_clicked_rows": arrays["_clicked_all"][users], "_target": target}
+        else:
+            tails = torch.cat([target[:, None], arrays["neg_items"][idx]], dim=1)
+            feed = {}
+        feed.update({"head_id": users[:, None].expand(tails.shape),
+                     "tail_id": tails + self.corpus.n_users,
+                     "relation_id": torch.zeros_like(tails), "batch_size": B})
+        return feed

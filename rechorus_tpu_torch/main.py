@@ -84,14 +84,11 @@ def build_corpus(args, reader_cls):
 
 def save_rec_results(args, corpus, runner, state, batchers, arrays, topk: int = 100):
     """Top-k prediction export (reference main.py:96-153): (user_id,
-    rec_items, rec_predictions) with the top-100 candidates. The CTR and
-    impression exports come with their runners."""
+    rec_items, rec_predictions) with the top-100 candidates, for the
+    top-k runners (BaseRunner, BUIRRunner). The CTR and impression exports
+    come with their runners."""
     import pandas as pd
 
-    from rechorus_tpu_torch.runners.base import BaseRunner
-
-    if type(runner) is not BaseRunner:
-        raise NotImplementedError(f"prediction export for {type(runner).__name__} (ROADMAP A10)")
     model = state.model
     result_path = os.path.join(args.path, args.dataset, "rec-{}-{}.csv".format(model.registered_name, "test"))
     utils.check_dir(result_path)

@@ -17,12 +17,21 @@ matrix never reaches device memory:
   tscore[b] under the id masks (global id > 0, < n_valid, !=
   target_col[b]); clicked exclusion is the caller's gathered correction.
 
+`approx_bin_max` -- the first stage of the approximate top-k
+  (`ops.topk.approx_max_k`): per row, the maximum and its column over
+  each of L strided bins (column j in bin j mod L), L from the recall
+  model of `approx_bins`. It replaces the PartialReduce of the TPU's
+  `jax.lax.approx_max_k`, an XLA primitive rather than a Pallas kernel.
+
 Masks live in GLOBAL id space: global id = local row + `col_offset`.
 On CUDA tensors the wrappers launch `rtt_bucket_max_kernel` /
-`rtt_fused_ge_kernel` (csrc/catalog_kernels.cu); on CPU tensors they run
-the `*_plain` versions, which materialize the masked scores.
+`rtt_fused_ge_kernel` / `rtt_approx_bin_max_kernel`
+(csrc/catalog_kernels.cu); on CPU tensors they run the `*_plain`
+versions, which materialize the masked scores.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -152,3 +161,63 @@ def fused_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None
 
 
 fused_ge_count.launches = 0
+
+
+def approx_bins(n: int, k: int, recall_target: float) -> int:
+    """The number of strided bins L that an approximate top-k of k out of
+    n columns at `recall_target` reduces to, by the recall model of the
+    TPU's PartialReduce (Chern et al. 2022, arXiv 2206.14286; XLA's
+    ApproxTopK sizing): a top-k element is lost only when another one
+    shares its bin, so the expected recall is ((L - 1) / L)^(k - 1) and
+    L >= (k - 1) / -ln(recall_target) suffices, and at least k. The bin
+    width n / L is rounded down to a power of two. L = n (no reduction,
+    an exact top-k) at recall_target 1 or where the width would be 1."""
+    if not 0.0 < recall_target <= 1.0:
+        raise ValueError(f"recall_target={recall_target} outside (0, 1]")
+    if recall_target == 1.0 or n <= k:
+        return n
+    m = max(k, int((k - 1) / -math.log(recall_target)))
+    if m >= n:
+        return n
+    width = 1 << ((n // m).bit_length() - 1)
+    return _cdiv(n, width)
+
+
+def approx_bin_max_plain(x: torch.Tensor, L: int):
+    """([B, L] maxima, [B, L] int32 columns) over the strided bins of x [B, N]
+    (column j in bin j mod L); ties go to the lowest column, -inf bins keep
+    their first column. The columns pad to a multiple of L with -inf, which
+    never wins: the first column of every bin is a real one."""
+    B, N = x.shape
+    W = _cdiv(N, L)
+    xw = F.pad(x, (0, W * L - N), value=float("-inf")).view(B, W, L)
+    vals = xw.amax(1)
+    step = torch.arange(W, dtype=torch.int32, device=x.device)[None, :, None]
+    w = torch.where(xw == vals[:, None, :], step, W).amin(1)
+    cols = w * L + torch.arange(L, dtype=torch.int32, device=x.device)[None, :]
+    return vals, cols
+
+
+def approx_bin_max(x: torch.Tensor, L: int):
+    """([B, L] float32 maxima, [B, L] int32 columns) of the strided bins of
+    x [B, N] float32 (column j in bin j mod L, 1 <= L <= N): the bin max of
+    `ops.topk.approx_max_k`. Kernel on CUDA tensors, plain on CPU ones."""
+    if x.device.type == "cpu":
+        return approx_bin_max_plain(x, L)
+    if x.device.type != "cuda":
+        raise ValueError(f"approx_bin_max: no kernel for device {x.device}")
+    B, N = x.shape
+    _build.check_input("approx_bin_max", "x", x, torch.float32, (B, N), x.device)
+    if not 1 <= L <= max(N, 1):
+        raise ValueError(f"approx_bin_max: L={L} outside [1, N={N}]")
+    _build.check_int32("approx_bin_max", B=B, N=N, L=L)
+    vals = torch.empty(B, L, dtype=torch.float32, device=x.device)
+    cols = torch.empty(B, L, dtype=torch.int32, device=x.device)
+    if B and N:
+        _build.launchers.rtt_approx_bin_max(x.get_device(), x.data_ptr(), vals.data_ptr(),
+                                            cols.data_ptr(), B, N, L)
+        approx_bin_max.launches += 1
+    return vals, cols
+
+
+approx_bin_max.launches = 0

@@ -1,7 +1,6 @@
-"""Knowledge-graph triplet membership (port of rechorus_tpu/ops/kg.py:19-51
-and :84-200: key packing and the two-choice cuckoo member table; the
-relational intervals and the KG negative sampler come with SLRC+/Chorus
-and CFKG).
+"""Knowledge-graph triplet membership (port of rechorus_tpu/ops/kg.py:19-51,
+:84-200 and :256-292: key packing, the two-choice cuckoo member table and
+the KG negative sampler; the relational intervals come with SLRC+/Chorus).
 
 Triplets (head, relation, tail) are stored as their two int32 key halves
 (hi = head, lo = relation * n_entities + tail) in a cuckoo hash table that
@@ -19,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from rechorus_tpu_torch.ops.sampling import first_accepted
 
 
 def pack_keys(heads, relations, tails, n_relations: int, n_entities: int):
@@ -178,3 +179,22 @@ def is_member(member_table: torch.Tensor, h, r, t, n_relations: int, n_entities:
     hi = h.long()
     lo = r.long() * n_entities + t.long()
     return member_probe(member_table, hi, lo)
+
+
+def sample_kg_negatives(gen: torch.Generator, heads, relations, tails, member_table,
+                        n_relations: int, n_entities: int, hi_tail: int, hi_head: int,
+                        rounds: int = 8):
+    """Corrupted (neg_head, neg_tail) [B] that avoid existing triplets
+    (reference Chorus.Dataset.actions_before_epoch, the CFKG relation > 0
+    path): neg_tail ~ U[1, hi_tail) with (h, r, neg_tail) not in the KG,
+    neg_head ~ U[1, hi_head) with (neg_head, r, t) not in the KG; `rounds`
+    + 1 draws at once, the first accepted kept (`sampling.first_accepted`;
+    the last draw where all collide)."""
+    B, dev = heads.shape[0], heads.device
+    cand = torch.randint(1, hi_tail, (rounds + 1, B), generator=gen, device=dev)
+    neg_tails = first_accepted(cand, is_member(member_table, heads[None], relations[None], cand,
+                                               n_relations, n_entities))
+    cand = torch.randint(1, hi_head, (rounds + 1, B), generator=gen, device=dev)
+    neg_heads = first_accepted(cand, is_member(member_table, cand, relations[None], tails[None],
+                                               n_relations, n_entities))
+    return neg_heads, neg_tails

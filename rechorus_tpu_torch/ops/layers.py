@@ -48,14 +48,30 @@ def _glorot_uniform(shape, gen):
     return (torch.rand(shape, generator=gen, device=gen.device) * 2.0 - 1.0) * limit
 
 
-def _lecun_normal(shape, gen):
-    """flax lecun_normal of a [out, in] weight: a normal truncated at two
-    standard deviations, std sqrt(1 / fan_in) / 0.8796 (the truncation's
-    std correction), drawn by inverting the normal CDF."""
-    std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
+def _truncated_normal(shape, gen, variance: float):
+    """flax's variance-scaling truncated normal: a normal truncated at two
+    standard deviations, std sqrt(variance) / 0.8796 (the truncation's std
+    correction), drawn by inverting the normal CDF."""
+    std = math.sqrt(variance) / 0.87962566103423978
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     u = torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
     return (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp(-2.0, 2.0) * std
+
+
+def _lecun_normal(shape, gen):
+    """flax lecun_normal of a [out, in] weight: variance 1 / fan_in."""
+    return _truncated_normal(shape, gen, 1.0 / shape[1])
+
+
+def _glorot_normal(shape, gen):
+    """flax glorot_normal (xavier_normal) of a 2-D weight, symmetric in the
+    fans: variance 2 / (fan_in + fan_out), truncated at two std."""
+    return _truncated_normal(shape, gen, 2.0 / (shape[0] + shape[1]))
+
+
+def _unit_normal(shape, gen):
+    """flax normal(1.0): N(0, 1)."""
+    return torch.randn(shape, generator=gen, device=gen.device)
 
 
 def _orthogonal(shape, gen):
@@ -195,12 +211,17 @@ class TableEmbed(nn.Module):
         return out.to(out_dtype)
 
 
-def embed(num: int, dim: int) -> TableEmbed:
+def embed(num: int, dim: int, init=None) -> TableEmbed:
     """[num, dim] embedding table, N(0, 0.01) init from torch's global RNG,
-    stored in the dtype of `set_table_dtype` (f32 unless --bf16_emb). Every
-    model-level table gather should go through this: a raw `weight[ids]`
-    bypasses the bf16 storage cast AND the sparse-lookup context."""
-    return TableEmbed(num, dim, dtype=_TABLE_DTYPE)
+    stored in the dtype of `set_table_dtype` (f32 unless --bf16_emb); `init`
+    names the initialiser `BaseModel.init_weights` draws it from (default
+    N(0, 0.01)). Every model-level table gather should go through this: a
+    raw `weight[ids]` bypasses the bf16 storage cast AND the sparse-lookup
+    context."""
+    table = TableEmbed(num, dim, dtype=_TABLE_DTYPE)
+    if init is not None:
+        table.PARAM_INITS = {"weight": init}
+    return table
 
 
 # ------------------------------------------------------- sequence blocks

@@ -1,6 +1,7 @@
-"""Training losses (port of rechorus_tpu/ops/losses.py:20-46:
-`masked_softmax` and `bpr_multi_neg`; the other losses come with their
-runners and models).
+"""Training losses (port of rechorus_tpu/ops/losses.py:20-46 and :229-251:
+`masked_softmax`, `bpr_multi_neg`, DirectAU's `alignment_loss` and
+`uniformity_loss`, and `margin_rank_loss`; the other losses come with
+their runners and models).
 """
 from __future__ import annotations
 
@@ -30,3 +31,31 @@ def bpr_multi_neg(predictions: torch.Tensor) -> torch.Tensor:
     neg_softmax = torch.softmax(neg_pred, dim=1)
     agg = (torch.sigmoid(pos_pred[:, None] - neg_pred) * neg_softmax).sum(dim=1)
     return -torch.log(agg.clamp(1e-8, 1 - 1e-8)).mean()
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def alignment_loss(u: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """DirectAU alignment: mean ||u - i||^2 of the L2-normalized rows
+    (reference src/models/general/DirectAU.py:54-57)."""
+    return ((_l2_normalize(u) - _l2_normalize(i)) ** 2).sum(-1).mean()
+
+
+def uniformity_loss(x: torch.Tensor) -> torch.Tensor:
+    """DirectAU uniformity: log mean exp(-2 * pdist^2) over the pairs i < j
+    of the L2-normalized rows (reference DirectAU.py:59-62). The squared
+    distances are summed directly, as in the JAX package, so a repeated row
+    (distance 0) keeps a finite gradient."""
+    x = _l2_normalize(x)
+    sq = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    iu = torch.triu_indices(x.shape[0], x.shape[0], offset=1, device=x.device)
+    return torch.log(torch.exp(-2.0 * sq[iu[0], iu[1]]).mean().clamp_min(1e-12))
+
+
+def margin_rank_loss(pos_score: torch.Tensor, neg_score: torch.Tensor,
+                     margin: float = 1.0) -> torch.Tensor:
+    """TransE-style margin ranking, mean max(0, margin + neg - pos) (CFKG,
+    Chorus stage 1; reference src/models/general/CFKG.py:70-76)."""
+    return torch.clamp_min(margin + neg_score - pos_score, 0.0).mean()

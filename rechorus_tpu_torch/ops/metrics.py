@@ -1,5 +1,5 @@
 """Evaluation metric kernels (port of rechorus_tpu/ops/metrics.py:31-83,
-251-280, exact lane).
+251-280).
 
 Ranks count ties AGAINST the ground truth: gt_rank = (predictions >=
 predictions[:, 0]).sum(-1), reference src/helpers/BaseRunner.py:63.
@@ -10,6 +10,8 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+from rechorus_tpu_torch.ops.topk import approx_max_k
 
 
 def gt_rank(predictions: torch.Tensor, valid_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -42,12 +44,14 @@ def evaluate_topk_from_ranks(gt_ranks: np.ndarray, topk: List[int], metrics: Lis
 
 
 def masked_topk(pred: torch.Tensor, clicked_rows: torch.Tensor, k: int,
-                n_valid: int | None = None):
+                n_valid: int | None = None, approx: bool = False,
+                recall_target: float = 0.98):
     """Gather-only top-k with exclusions: column 0 (pad item), columns >=
     n_valid (dead padded table rows) and the ids in clicked_rows [B, M]
     (0-padded). Two-stage: the top k+M candidates (a clicked item can
     displace at most M winners), knock out clicked among them by a
-    [B, k+M, M] compare, re-top-k.
+    [B, k+M, M] compare, re-top-k. `approx=True` takes the k+M candidates
+    with `topk.approx_max_k` at `recall_target` (the approx lane).
 
     pred [B, N] -> (values [B, k'], column ids [B, k'] int32), k' = min(k, N).
     """
@@ -58,7 +62,10 @@ def masked_topk(pred: torch.Tensor, clicked_rows: torch.Tensor, k: int,
         ok &= cols < n_valid
     pred = pred.masked_fill(~ok[None, :], float("-inf"))
     k_wide = min(N, k + clicked_rows.shape[1])
-    v, i = torch.topk(pred, k_wide, dim=1)
+    if approx:
+        v, i = approx_max_k(pred, k_wide, recall_target)
+    else:
+        v, i = torch.topk(pred, k_wide, dim=1)
     hit = (i[:, :, None] == clicked_rows[:, None, :].long()).any(-1)
     v = v.masked_fill(hit, float("-inf"))
     v2, sel = torch.topk(v, min(k, k_wide), dim=1)

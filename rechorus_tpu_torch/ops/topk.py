@@ -26,9 +26,16 @@ functions here stream the catalog through the fused kernels of
 `tiled_catalog_ranks` -- ground-truth rank for `--test_all`: the fused
   >=-count over the catalog minus clicked corrections by gather.
 
+`approx_max_k` -- the approximate select of the approx lane (the TPU's
+  `lax.approx_max_k`): `cuda_topk.approx_bin_max` reduces each row to L
+  strided bin maxima, then an exact top-k over them. `tiled_catalog_topk`
+  with `approx=True` selects its k+M buckets so, and rescores them as the
+  exact lane does; `metrics.masked_topk` selects over dense scores.
+
 There is one route: on CUDA tensors the kernels launch; on CPU tensors
-their plain versions run, so CPU tests walk the same code. The approx
-lane (`lax.approx_max_k`) and the scan route are not ported.
+their plain versions run, so CPU tests walk the same code. The JAX
+package's scan route is not ported. On the CPU `lax.approx_max_k` falls
+back to an exact top-k; `approx_max_k` here approximates on every device.
 """
 from __future__ import annotations
 
@@ -39,6 +46,10 @@ from rechorus_tpu_torch.ops import cuda_topk as CT
 # route serving through the tiled path at this table size (JAX package,
 # rechorus_tpu/ops/topk.py:50)
 MIN_ROWS_FOR_TILED = 16384
+# with --approx_topk the runner selects over dense [B, N] scores up to this
+# many elements and takes the tiled approx lane above (JAX package,
+# rechorus_tpu/ops/topk.py:58)
+DENSE_APPROX_MAX_ELEMS = 1 << 29
 DEFAULT_BUCKET = 16
 # contiguous two-level exact bucket select: fan by bucket-matrix width,
 # used at/above TWO_LEVEL_MIN_G (JAX package constants, topk.py:150-158)
@@ -77,6 +88,22 @@ def two_level_bucket_select(bm: torch.Tensor, kk: int, fan: int | None = None):
     gb_all = sb[:, :, None] * fan + torch.arange(fan, device=bm.device)
     v, sel = torch.topk(rows.reshape(B, -1), kk, dim=1)
     return v, gb_all.reshape(B, -1).gather(1, sel)
+
+
+def approx_max_k(x: torch.Tensor, k: int, recall_target: float = 0.98):
+    """Approximate top-k (values [B, k'], int64 columns [B, k']) of x [B, N],
+    k' = min(k, N), values descending: the maxima of L strided bins
+    (`cuda_topk.approx_bin_max`, L from `cuda_topk.approx_bins`), then the
+    exact top-k' of those. Each returned value is x at its column. A top-k
+    element is missed only when a larger one shares its bin; where L = N
+    (recall_target 1, or too few columns to reduce) it is the exact top-k."""
+    k = min(k, x.shape[1])
+    L = CT.approx_bins(x.shape[1], k, recall_target)
+    if L >= x.shape[1]:
+        return torch.topk(x, k, dim=1)
+    vals, cols = CT.approx_bin_max(x.contiguous(), L)
+    v, sel = torch.topk(vals, k, dim=1)
+    return v, cols.gather(1, sel).long()
 
 
 def group_table_for_rescore(table: torch.Tensor, bucket: int | None = None,
@@ -144,15 +171,17 @@ def _final_select(cs, cand, k, k_wide, clicked_rows, col_offset):
 
 def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
                        n_valid: int | None = None, bucket: int | None = None,
-                       approx: bool = False, col_offset: int = 0, grouped_table=None):
+                       approx: bool = False, recall_target: float = 0.98,
+                       col_offset: int = 0, grouped_table=None):
     """Exact masked top-k over u @ table.T + bias without the [B, N]
     matrix. Returns (values [B, k] float32, GLOBAL item ids [B, k] int32).
 
+    `approx=True` selects the k+M buckets with `approx_max_k` at
+    `recall_target` instead of exactly; their items are rescored exactly,
+    so every value is its id's score and only recall can drop.
     `table` holds global rows [col_offset, col_offset + N); masks,
     clicked comparisons and returned ids are global (n_valid too).
     `grouped_table` is `group_table_for_rescore(table, bucket)`."""
-    if approx:
-        raise NotImplementedError("approx lane not ported yet")
     bucket = bucket or DEFAULT_BUCKET
     N = table.shape[0]
     M = clicked_rows.shape[1] if clicked_rows is not None else 0
@@ -168,7 +197,9 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
     bm = CT.fused_bucket_max(u, table, bucket=bucket, bias=bias, n_valid=n_valid,
                              col_offset=col_offset)
     kk = min(k_wide, bm.shape[1])
-    if bm.shape[1] >= TWO_LEVEL_MIN_G:
+    if approx:
+        gv, gb = approx_max_k(bm, kk, recall_target)
+    elif bm.shape[1] >= TWO_LEVEL_MIN_G:
         gv, gb = two_level_bucket_select(bm, kk)
     else:
         gv, gb = torch.topk(bm, kk, dim=1)

@@ -45,7 +45,14 @@ def register_runner(name: str):
 _MODULES = [
     "rechorus_tpu_torch.data.readers",
     "rechorus_tpu_torch.runners.base",
+    "rechorus_tpu_torch.runners.buir",
     "rechorus_tpu_torch.models.general.bprmf",
+    "rechorus_tpu_torch.models.general.pop",
+    "rechorus_tpu_torch.models.general.neumf",
+    "rechorus_tpu_torch.models.general.directau",
+    "rechorus_tpu_torch.models.general.lightgcn",
+    "rechorus_tpu_torch.models.general.buir",
+    "rechorus_tpu_torch.models.general.cfkg",
     "rechorus_tpu_torch.models.sequential.sasrec",
     "rechorus_tpu_torch.models.sequential.gru4rec",
     "rechorus_tpu_torch.models.sequential.narm",

@@ -150,7 +150,6 @@ def device_of_gpu_flag(gpu: str) -> torch.device:
 
 # flags whose machinery waits for a later slice: (flag, default, ROADMAP item)
 _LATER_FLAGS = [
-    ("approx_topk", 0, "ROADMAP B3: the approximate top-k lane"),
     ("data_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
     ("model_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
     ("ckpt_format", "flax", "ROADMAP A11: sharded orbax checkpoints"),
@@ -188,10 +187,12 @@ class BaseRunner:
         parser.add_argument("--scan_unroll", type=int, default=1,
                             help="Kept for CLI parity; an epoch is a Python loop here.")
         parser.add_argument("--approx_topk", type=int, default=0,
-                            help="Approximate full-catalog top-k for the prediction "
-                                 "export (not ported yet: 1 raises).")
+                            help="Approximate full-catalog top-k (--test_all 1) for "
+                                 "the prediction export: strided bin maxima, then an "
+                                 "exact top-k of them. Metrics/eval stay exact.")
         parser.add_argument("--approx_topk_recall", type=float, default=0.98,
-                            help="Per-element recall target of the approx lane.")
+                            help="Per-element recall target of the approx lane: it "
+                                 "sets the number of bins.")
         parser.add_argument("--ckpt_format", type=str, default="flax",
                             choices=["flax", "orbax"],
                             help="Checkpoint serialization, named as in the JAX "
@@ -262,6 +263,8 @@ class BaseRunner:
         self.batch_size = args.batch_size
         self.eval_batch_size = args.eval_batch_size
         self.eval_candidate_chunk = int(getattr(args, "eval_candidate_chunk", 8192))
+        self.approx_topk = bool(getattr(args, "approx_topk", 0))
+        self.approx_topk_recall = float(getattr(args, "approx_topk_recall", 0.98))
         self.optimizer_name = args.optimizer
         self.topk = [int(x) for x in args.topk.split(",")]
         self.metrics = [m.strip().upper() for m in args.metric.split(",")]
@@ -331,6 +334,9 @@ class BaseRunner:
             self.bf16_emb = False
             model.float()
         model.init_weights(self._generator(seed, 0))
+        if hasattr(model, "post_init_state"):
+            # model-held state derived from the drawn parameters (BUIR's targets)
+            model.post_init_state()
         params = dict(model.named_parameters())
         if lazy_specs:
             tx = LA.LazyAdamTx(self.learning_rate, self.l2, decay_mask=_decay_mask)
@@ -359,7 +365,7 @@ class BaseRunner:
                 and type(self)._post_update is BaseRunner._post_update)
 
     def _post_update(self, state: TrainState):
-        """Hook after each optimizer step (BUIR's EMA will use it)."""
+        """Hook after each optimizer step (BUIRRunner's EMA of the targets)."""
 
     def _pack(self, state: TrainState, probe_feed) -> None:
         paths = list(LA.resolve_lazy_rows(self._lazy_specs, state.params, probe_feed))
@@ -411,6 +417,8 @@ class BaseRunner:
             return model.loss(out, feed)
 
         def grads_of(loss, leaves: Params) -> Params:
+            if not loss.requires_grad:      # POP: the loss reads no parameter
+                return {k: torch.zeros_like(p) for k, p in leaves.items()}
             got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
             return {k: (torch.zeros_like(p) if g is None else g)
                     for (k, p), g in zip(leaves.items(), got)}
@@ -689,20 +697,25 @@ class BaseRunner:
                 all_scores.append(scores)
                 continue
             feed = batcher.eval_feed(arrays, idx)
+            approx = dict(approx=self.approx_topk, recall_target=self.approx_topk_recall)
             if catalog:
                 u, bias = self._catalog_parts(model, feed)
-                if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
+                if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED and (
+                        not self.approx_topk
+                        or u.shape[0] * table.shape[0] > topk_ops.DENSE_APPROX_MAX_ELEMS):
+                    # streamed over the catalog, never [B, N]; the approx
+                    # lane selects over dense scores while they fit
                     scores, items = topk_ops.tiled_catalog_topk(
                         u, table, k, bias=bias, clicked_rows=feed["_clicked_rows"],
-                        n_valid=n_items, grouped_table=grouped)
+                        n_valid=n_items, grouped_table=grouped, **approx)
                 else:
                     pred = dense_catalog_scores(u, table, bias, n_items)
                     scores, items = metrics_ops.masked_topk(pred, feed["_clicked_rows"], k,
-                                                            n_valid=n_items)
+                                                            n_valid=n_items, **approx)
             elif test_all:
                 pred = self._apply_eval(model, feed)["prediction"]
                 # gather-only exclusion of item 0 + clicked rows
-                scores, cols = metrics_ops.masked_topk(pred, feed["_clicked_rows"], k)
+                scores, cols = metrics_ops.masked_topk(pred, feed["_clicked_rows"], k, **approx)
                 items = feed["item_id"].gather(1, cols.long()) if "item_id" in feed else cols
             else:
                 pred = self._apply_eval(model, feed)["prediction"]

@@ -12,7 +12,8 @@ and bake the per-user clicked-exclusion matrix.
 Query: user-vector gather -> `tiled_catalog_topk` (fused bucket-max
 kernel, exact bucket select, grouped rescore, clicked knockout) for
 catalogs of at least `MIN_ROWS_FOR_TILED` rows, else dense scores ->
-`masked_topk`.
+`masked_topk`. With `approx=True` both select approximately
+(`ops.topk.approx_max_k` at `recall_target`, the approx lane).
 
 Models whose catalog table is not the raw parameter build through
 `ServeIndex.from_tables(u_table, i_table, ...)`.
@@ -63,10 +64,13 @@ class ServeIndex:
     clicked: Optional[torch.Tensor]        # [n_users, M] int32 exclusion ids
     n_items: int
     k: int = 100
+    approx: bool = False
+    recall_target: float = 0.98
 
     @classmethod
     def from_tables(cls, u_table, i_table, *, i_bias=None, clicked=None,
-                    n_items: int | None = None, k: int = 100, device=None):
+                    n_items: int | None = None, k: int = 100, approx: bool = False,
+                    recall_target: float = 0.98, device=None):
         """Tables (tensors or arrays) go to `device` as float32."""
         device = resolve_device(device)
         u_table = _as_tensor(u_table, device, torch.float32)
@@ -78,11 +82,12 @@ class ServeIndex:
         return cls(u_table=u_table, i_table=i_table,
                    i_bias=_as_tensor(i_bias, device, torch.float32),
                    grouped=grouped, clicked=_as_tensor(clicked, device, torch.int32),
-                   n_items=int(n_items if n_items is not None else N), k=k)
+                   n_items=int(n_items if n_items is not None else N), k=k,
+                   approx=approx, recall_target=recall_target)
 
     @classmethod
-    def build(cls, model, corpus=None, *, k: int = 100, exclude_clicked: bool = True,
-              device=None):
+    def build(cls, model, corpus=None, *, k: int = 100, approx: bool = False,
+              recall_target: float = 0.98, exclude_clicked: bool = True, device=None):
         """From a catalog-protocol model whose catalog table is the raw
         parameter table. Other models: precompute the tables and use
         `from_tables`."""
@@ -110,7 +115,7 @@ class ServeIndex:
             clicked = corpus.clicked_matrix(include_residual=True)
         return cls.from_tables(u_mod.weight, i_table, i_bias=bias, clicked=clicked,
                                n_items=getattr(corpus, "n_items", None) or i_table.shape[0],
-                               k=k, device=device)
+                               k=k, approx=approx, recall_target=recall_target, device=device)
 
     @torch.no_grad()
     def query(self, user_ids):
@@ -122,10 +127,12 @@ class ServeIndex:
         if self.i_table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
             v, i = topk_ops.tiled_catalog_topk(
                 u, self.i_table, self.k, bias=self.i_bias, clicked_rows=cl,
-                n_valid=self.n_items, grouped_table=self.grouped)
+                n_valid=self.n_items, approx=self.approx, recall_target=self.recall_target,
+                grouped_table=self.grouped)
         else:
             scores = dense_catalog_scores(u, self.i_table, self.i_bias, self.n_items)
             if cl is None:
                 cl = torch.zeros((u.shape[0], 1), dtype=torch.int32, device=u.device)
-            v, i = metrics_ops.masked_topk(scores, cl, self.k, n_valid=self.n_items)
+            v, i = metrics_ops.masked_topk(scores, cl, self.k, n_valid=self.n_items,
+                                           approx=self.approx, recall_target=self.recall_target)
         return i.cpu().numpy(), v.cpu().numpy()

@@ -29,6 +29,12 @@ import torch
 _GRU = r"(ir|iz|in|hr|hz|hn)"
 FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
     "BPRMF": {"u_embeddings": "embed", "i_embeddings": "embed"},
+    "POP": {"_unused": "param"},
+    "NeuMF": {"(mf|mlp)_[ui]_embeddings": "embed", r"mlp_\d+": "dense", "prediction": "dense"},
+    "DirectAU": {"u_embeddings": "embed", "i_embeddings": "embed"},
+    "LightGCN": {"(user|item)_emb": "param"},
+    "BUIR": {"(user|item)_online": "embed", "predictor": "dense"},
+    "CFKG": {"e_embeddings": "embed", "r_embeddings": "embed"},
     "SASRec": {"i_embeddings": "embed", "p_embeddings": "embed",
                r"transformer_\d+/mha/[qkv]": "dense", r"transformer_\d+/ff[12]": "dense",
                r"transformer_\d+/ln[12]": "layer_norm"},

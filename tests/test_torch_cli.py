@@ -3,8 +3,9 @@ command on a small block-structured corpus in each of the four optimizer
 lanes, the sequential models (SASRec, GRU4Rec, NARM, Caser, FPMC) in the
 dense and packed lanes, the checkpoint round trip, the top-100 export, the
 log grammar the JAX package's multi-seed harness parses, `check()`'s
-attention lines, `--dense_init glorot`, the corpus cache, the flags that
-wait for a later slice, and the copies of the jax-free helper modules.
+attention lines, `--dense_init glorot`, the corpus cache, the approx
+lane's export (`--approx_topk 1`), the flags that wait for a later slice,
+and the copies of the jax-free helper modules.
 """
 import argparse
 import ast
@@ -12,6 +13,7 @@ import logging
 import os
 import re
 
+import numpy as np
 import pandas as pd
 import pytest
 import torch
@@ -212,13 +214,55 @@ def test_check_under_test_all_runs_no_full_catalog_forward(large_catalog_root, t
     assert len(lines) == (2 if model == "SASRec" else 0)
 
 
-@pytest.mark.parametrize("flag,value", [("--approx_topk", "1"), ("--data_parallel", "2"),
+@pytest.mark.parametrize("flag,value", [("--data_parallel", "2"),
                                         ("--model_parallel", "2"), ("--ckpt_format", "orbax"),
                                         ("--host_shard_input", "1"), ("--profile", "trace_dir"),
                                         ("--dist_coordinator", "localhost:1234")])
 def test_flags_of_later_slices_raise(data_root, tmp_path, flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(data_root, tmp_path, "later", flag, value, epochs=1)
+
+
+@pytest.mark.parametrize("route,recall", [("dense", 0.9), ("dense", 1.0), ("tiled", 0.5)])
+def test_approx_topk_runs_through_the_cli(large_catalog_root, tmp_path, monkeypatch, route, recall):
+    """`--test_all 1 --approx_topk 1` exports the top-100 of the approx lane:
+    over dense scores (the runner's route while B x N <= DENSE_APPROX_MAX_ELEMS)
+    or, with that bound at 0 and the tiled route opened at this catalog, over
+    approximately selected buckets. The export holds real unclicked items
+    with their exact scores, and recalls at least `recall` of the exact
+    export of the same weights; at recall 1 the bins are the columns and the
+    export equals the exact one."""
+    from rechorus_tpu_torch.ops import cuda_topk as CT
+    from rechorus_tpu_torch.ops import topk as TT
+
+    if route == "tiled":
+        monkeypatch.setattr(TT, "DENSE_APPROX_MAX_ELEMS", 0)
+        monkeypatch.setattr(TT, "MIN_ROWS_FOR_TILED", 4096)
+    bins = []
+    real = CT.approx_bin_max
+    monkeypatch.setattr(CT, "approx_bin_max", lambda x, L: bins.append(x.shape + (L,)) or real(x, L))
+    export_path = large_catalog_root / "Synth" / "rec-BPRMF-test.csv"
+    _run(large_catalog_root, tmp_path, "exact", "--test_all", "1", epochs=1)
+    exact = pd.read_csv(export_path, sep="\t")
+    _, text = _run(large_catalog_root, tmp_path, "approx", "--test_all", "1", "--load", "1",
+                   "--train", "0", "--approx_topk", "1", "--approx_topk_recall", str(recall),
+                   "--model_path", str(tmp_path / "exact.bin"), epochs=1)
+    approx = pd.read_csv(export_path, sep="\t")
+    assert "approx_topk           | 1" in text
+    if recall == 1.0:
+        assert not bins
+        pd.testing.assert_frame_equal(approx, exact)
+        return
+    width = 9000 + 1 if route == "dense" else -(-9001 // 2048) * 128
+    assert bins and all(n == width and L < n for _, n, L in bins), bins
+    got = [ast.literal_eval(x) for x in approx["rec_items"]]
+    want = [ast.literal_eval(x) for x in exact["rec_items"]]
+    recalled = np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(got, want)])
+    assert recall <= recalled < 1.0
+    train_df = pd.read_csv(large_catalog_root / "Synth" / "train.csv", sep="\t")
+    for user, items in zip(approx["user_id"], got):
+        assert len(items) == 100 and min(items) >= 1 and max(items) <= 9000
+        assert not set(train_df[train_df.user_id == user].item_id) & set(items)
 
 
 @pytest.mark.parametrize("flag,value", [("--scan_unroll", "4"), ("--xla_cache_dir", "somewhere"),

@@ -401,3 +401,32 @@ def test_adam_commit_at_the_kda_item_bias_table(dev):
     assert LA.adam_commit.launches == before + 1
     assert torch.equal(got, want)
     assert int((scatter < N).sum()) > B                        # most of the 512 rows distinct
+
+
+@pytest.mark.parametrize("B,N,L", [(1, 1, 1), (3, 4097, 513), (5, 62592, 7824), (2, 100001, 12501),
+                                   (70000, 3, 2)])
+def test_approx_bin_max_kernel_equals_plain(dev, B, N, L):
+    """The bin max on integer-valued inputs (many ties, so the lowest-column
+    rule is exercised), with -inf columns and a row of -inf, at ragged
+    shapes, the approx lane's shapes, and more rows than the grid's y axis
+    holds: maxima and columns equal the plain version's."""
+    gen = torch.Generator().manual_seed(B + N)
+    x = _ints(gen, B, N, lo=-3, hi=4)
+    x[torch.rand(B, N, generator=gen) < 0.3] = float("-inf")
+    x[0] = float("-inf")
+    before = CT.approx_bin_max.launches
+    vals, cols = CT.approx_bin_max(x.to(dev), L)
+    assert CT.approx_bin_max.launches == before + 1
+    want_v, want_c = CT.approx_bin_max_plain(x, L)
+    torch.testing.assert_close(vals.cpu(), want_v, rtol=0, atol=0)
+    torch.testing.assert_close(cols.cpu(), want_c, rtol=0, atol=0)
+
+
+def test_approx_bin_max_checks_its_inputs(dev):
+    x = torch.zeros(2, 10, device=dev)
+    with pytest.raises(ValueError, match="L=11"):
+        CT.approx_bin_max(x, 11)
+    with pytest.raises(TypeError, match="dtype"):
+        CT.approx_bin_max(x.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        CT.approx_bin_max(torch.zeros(10, 2, device=dev).T, 4)

@@ -1,6 +1,7 @@
 """The port's serving slice as a whole against the JAX package: the
 Grocery reader, BPRMF with flax weights carried over, `ServeIndex` on
-the dense and the tiled route, and the Grocery full-catalog ranks.
+the dense and the tiled route, exact and approx, and the Grocery
+full-catalog ranks.
 
 The JAX side takes its Pallas kernel route (`topk.PALLAS = "on"`,
 interpret mode on the CPU); the port runs on the CPU (`device="cpu"`),
@@ -130,6 +131,43 @@ def test_serve_tiled_route_matches_jax():
         JT.PALLAS = "auto"
     _assert_serve_match(items_s, scores_s, items_r, scores_r)
     assert not (items_s == clicked[users, :1]).any()
+    assert ((items_s > 0) & (items_s < N - 5)).all()
+
+
+@pytest.mark.parametrize("route,N", [("dense", 12000), ("tiled", 16384 + 37)])
+def test_serve_approx_lane_recalls_the_jax_result(route, N):
+    """`ServeIndex(approx=True)` on both routes: the bins reduce (L < the
+    selected axis), recall against the JAX package's approx lane (an exact
+    top-k on the CPU) is at least the target, every score is its id's
+    exact score, and no clicked or dead id is served."""
+    from rechorus_tpu_torch.ops import cuda_topk as CT
+
+    rng = np.random.default_rng(12)
+    n_users, D, k, recall = 40, 8, 50, 0.9
+    u_table = rng.normal(size=(n_users, D)).astype(np.float32)
+    i_table = rng.normal(size=(N, D)).astype(np.float32)
+    clicked = rng.integers(1, N, size=(n_users, 6)).astype(np.int32)
+    clicked[:, 0] = np.argmax(u_table @ i_table[1: N - 5].T, axis=1) + 1
+    users = np.arange(32, dtype=np.int32)
+    idx = ServeIndex.from_tables(u_table, i_table, clicked=clicked, n_items=N - 5, k=k,
+                                 approx=True, recall_target=recall, device="cpu")
+    assert (idx.grouped is not None) == (route == "tiled") and idx.approx
+    axis = N if route == "dense" else -(-N // (16 * 128)) * 128
+    assert CT.approx_bins(axis, k + 6, recall) < axis
+    items_s, scores_s = idx.query(users)
+    JT.PALLAS = "on"
+    try:
+        jidx = JaxServeIndex.from_tables(u_table, i_table, clicked=clicked, n_items=N - 5, k=k,
+                                         approx=True, recall_target=recall)
+        items_r, _ = jidx.query(users)
+    finally:
+        JT.PALLAS = "auto"
+    recalled = np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                        for a, b in zip(items_s, np.asarray(items_r))])
+    assert recall <= recalled < 1.0
+    exact = (u_table[users][:, None, :] * i_table[items_s]).sum(-1)
+    np.testing.assert_allclose(scores_s, exact, rtol=1e-5, atol=1e-5)
+    assert not (items_s[:, :, None] == clicked[users][:, None, :]).any()
     assert ((items_s > 0) & (items_s < N - 5)).all()
 
 

@@ -20,6 +20,7 @@ from rechorus_tpu.ops import metrics as jmetrics
 from rechorus_tpu.ops import pallas_kernels as PK
 from rechorus_tpu.ops import topk as JT
 from rechorus_tpu_torch.ops import cuda_kernels as CK
+from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import metrics as tmetrics
 from rechorus_tpu_torch.ops import topk as TT
 
@@ -118,12 +119,129 @@ def test_tiled_catalog_topk_matches_jax(with_bias, with_clicked, grouped, bucket
 
 
 def test_tiled_catalog_topk_rejects_approx_and_mismatched_grouped_table():
+    """A grouped copy of another partition is refused by the exact lane and
+    by the approx lane alike (the approx lane rescores through it too)."""
     u, t = torch.zeros(2, 4), torch.zeros(4100, 4)
-    with pytest.raises(NotImplementedError, match="approx"):
-        TT.tiled_catalog_topk(u, t, 5, approx=True)
-    with pytest.raises(ValueError, match="grouped_table"):
-        TT.tiled_catalog_topk(u, t, 5, bucket=16,
-                              grouped_table=TT.group_table_for_rescore(t, bucket=4))
+    for approx in (False, True):
+        with pytest.raises(ValueError, match="grouped_table"):
+            TT.tiled_catalog_topk(u, t, 5, bucket=16, approx=approx,
+                                  grouped_table=TT.group_table_for_rescore(t, bucket=4))
+
+
+# ------------------------------------------------------------ approx lane
+@pytest.mark.parametrize("n,k,recall,L", [
+    (62592, 132, 0.98, 7824),     # B2's G at 1M items, bucket 16: width 8
+    (65536, 132, 0.98, 8192),     # a power-of-two G: width 8
+    (100001, 132, 0.98, 12501),   # the dense route at 100k items: width 8
+    (100001, 132, 0.90, 1563),    # m = 1243: width 64
+    (62592, 132, 1.0, 62592),     # recall 1: no reduction
+    (5000, 132, 0.98, 5000),      # m = 6484 >= n: no reduction
+    (1000, 1, 0.95, 2),           # k = 1: m = k = 1, width 512
+])
+def test_approx_bins_follow_the_recall_model(n, k, recall, L):
+    """L >= (k - 1) / -ln(recall) (and >= k), the width n / L rounded down to
+    a power of two; computed by hand for each case."""
+    assert CT.approx_bins(n, k, recall) == L
+
+
+def test_plain_bin_max_equals_a_numpy_reference_with_ties():
+    rng = np.random.default_rng(21)
+    B, N, L = 5, 1003, 64
+    x = rng.integers(-3, 4, size=(B, N)).astype(np.float32)     # many ties
+    x[0, :] = -np.inf                                           # a row of -inf
+    x[1, rng.random(N) < 0.7] = -np.inf
+    vals, cols = CT.approx_bin_max_plain(torch.from_numpy(x), L)
+    assert vals.shape == cols.shape == (B, L) and cols.dtype == torch.int32
+    for b in range(B):
+        for l in range(L):
+            members = np.arange(l, N, L)
+            best = members[np.argmax(x[b, members])]           # numpy: the first maximum
+            assert cols[b, l] == best and vals[b, l] == x[b, best], (b, l)
+    assert (cols[0] == torch.arange(L, dtype=torch.int32)).all()   # -inf bins: first column
+
+
+@pytest.mark.parametrize("recall", [1.0, 0.95])
+def test_approx_max_k_without_reduction_equals_jax_id_for_id(recall):
+    """Where L = N (recall 1, or N below the bin count the model asks for)
+    the select is exact: ids and values equal `lax.approx_max_k`'s."""
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(7, 3000)).astype(np.float32)
+    k = 132
+    assert CT.approx_bins(3000, k, recall) == 3000
+    v_ref, i_ref = jax.lax.approx_max_k(jnp.asarray(x), k, recall_target=recall)
+    v, i = TT.approx_max_k(torch.from_numpy(x), k, recall)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+def _recall(ids, ref_ids):
+    return np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b) for a, b in zip(ids, ref_ids)])
+
+
+@pytest.mark.parametrize("recall", [0.9, 0.95, 0.98])
+def test_masked_topk_approx_recall_against_jax(recall):
+    """The dense approx lane reduces (L < N) and keeps its recall target
+    against JAX's approx lane, which is an exact top-k on the CPU; every
+    returned value is the score of its id, and no clicked id comes back."""
+    rng = np.random.default_rng(23)
+    B, N, M, k = 48, 40000, 8, 100
+    pred = rng.normal(size=(B, N)).astype(np.float32)
+    clicked = rng.integers(1, N, size=(B, M)).astype(np.int32)
+    clicked[:, 0] = np.argmax(pred[:, 1:], axis=1) + 1          # the best item is clicked
+    assert CT.approx_bins(N, k + M, recall) < N
+    v_ref, i_ref = jmetrics.masked_topk(jnp.asarray(pred), jnp.asarray(clicked), k, n_valid=N - 3,
+                                        approx=True, recall_target=recall)
+    v, i = tmetrics.masked_topk(torch.from_numpy(pred), torch.from_numpy(clicked), k, n_valid=N - 3,
+                                approx=True, recall_target=recall)
+    i, v = i.numpy(), v.numpy()
+    assert i.dtype == np.int32 and i.shape == (B, k)
+    assert _recall(i, np.asarray(i_ref)) >= recall
+    np.testing.assert_array_equal(v, np.take_along_axis(pred, i.astype(np.int64), 1))
+    assert not (i[:, :, None] == clicked[:, None, :]).any()
+    assert ((i > 0) & (i < N - 3)).all() and (np.diff(v, axis=1) <= 0).all()
+
+
+@pytest.mark.parametrize("recall", [0.9, 0.98])
+def test_tiled_catalog_topk_approx_recall_against_jax(recall):
+    """The tiled approx lane selects its buckets approximately (L < G) and
+    rescores their items exactly: recall against JAX's (exact on the CPU)
+    result at least the target, every value the exact score of its id."""
+    rng = np.random.default_rng(24)
+    B, D, N, k, M = 12, 8, 200000, 100, 4
+    u = rng.normal(size=(B, D)).astype(np.float32)
+    t = rng.normal(size=(N, D)).astype(np.float32)
+    clicked = rng.integers(1, N, size=(B, M)).astype(np.int32)
+    tt = torch.from_numpy(t)
+    G = -(-N // (16 * 128)) * 128
+    assert CT.approx_bins(G, k + M, recall) < G
+    v, i = TT.tiled_catalog_topk(torch.from_numpy(u), tt, k, clicked_rows=torch.from_numpy(clicked),
+                                 n_valid=N, approx=True, recall_target=recall,
+                                 grouped_table=TT.group_table_for_rescore(tt))
+    v_ref, i_ref = jmetrics.masked_topk(jnp.asarray(u @ t.T), jnp.asarray(clicked), k, n_valid=N,
+                                        approx=True, recall_target=recall)
+    i, v = i.numpy(), v.numpy()
+    assert _recall(i, np.asarray(i_ref)) >= recall
+    exact = (u[:, None, :] * t[i.astype(np.int64)]).sum(-1)
+    np.testing.assert_allclose(v, exact, rtol=1e-5, atol=1e-5)
+    assert not (i[:, :, None] == clicked[:, None, :]).any()
+
+
+def test_tiled_catalog_topk_approx_without_reduction_equals_jax():
+    """G below the bin count the model asks for: the approx lane's bucket
+    select is exact and equals the JAX package's approx lane."""
+    rng = np.random.default_rng(25)
+    B, D, N, k, M = 6, 8, 4100, 10, 4
+    u = rng.normal(size=(B, D)).astype(np.float32)
+    t = rng.normal(size=(N, D)).astype(np.float32)
+    clicked = rng.integers(1, N, size=(B, M)).astype(np.int32)
+    with jax_pallas_route():
+        v_ref, i_ref = jax.jit(lambda: JT.tiled_catalog_topk(
+            jnp.asarray(u), jnp.asarray(t), k, clicked_rows=jnp.asarray(clicked), n_valid=N,
+            approx=True, recall_target=0.98))()
+    v, i = TT.tiled_catalog_topk(torch.from_numpy(u), torch.from_numpy(t), k,
+                                 clicked_rows=torch.from_numpy(clicked), n_valid=N, approx=True,
+                                 recall_target=0.98)
+    assert_topk_match(v, i, v_ref, i_ref)
 
 
 @pytest.mark.parametrize("kind,with_bias", [("gauss", True), ("gauss", False), ("int", False)])
