@@ -22,7 +22,7 @@ shapes the main path gives it, and drives the port's main paths:
     SeqReader, SequentialBatcher and BaseRunner.fit in the dense and packed
     lanes, with its 1M-item ranks (B3) and top-100 (B2) held against dense
     exact references, then the same evaluation for FPMC's computed
-    [1M, 128] table;
+    [1M, 128] table and for TiSASRec (after 10 dense steps);
   * KDA through the CLI on Grocery with bench.py's kda lane flags (dense
     Adam, its s/train-epoch, `--test_all 1` by the dense route and, with
     the trained weights, by the candidate-tiled route, `--lazy_emb_adam
@@ -34,6 +34,12 @@ shapes the main path gives it, and drives the port's main paths:
     `--lazy_emb_adam 1` for the four with lazy tables), and LightGCN's
     propagated [1M, 64] table ranked (B3) and top-100'd (B2) at the 1M-item
     training shape;
+  * the rest of the sequential family through the CLI on Grocery with
+    docs/benchmark_commands.md's flags (TiSASRec, ComiRec, SLRCPlus, Chorus
+    stage 1 then 2, ContraRec, ContraKDA, TiMiRec pretrain then finetune:
+    dense Adam over a floor, the step profile, `--test_all 1`,
+    `--lazy_emb_adam 1` for the four with lazy tables; the second stages
+    must start from the first stages' files);
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
@@ -71,12 +77,13 @@ import pandas as pd
 
 from rechorus_tpu_torch import main as port_main
 from rechorus_tpu_torch.data import synthetic
-from rechorus_tpu_torch.data.batching import GeneralBatcher, SequentialBatcher
+from rechorus_tpu_torch.data.batching import GeneralBatcher, get_batcher
 from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
 from rechorus_tpu_torch.models.general.lightgcn import LightGCN, build_edges
 from rechorus_tpu_torch.models.sequential.fpmc import FPMC
 from rechorus_tpu_torch.models.sequential.sasrec import SASRec
+from rechorus_tpu_torch.models.sequential.tisasrec import TiSASRec
 from rechorus_tpu_torch.ops import _build
 from rechorus_tpu_torch.ops import cuda_kernels as CK
 from rechorus_tpu_torch.ops import cuda_scatter as CS
@@ -197,6 +204,47 @@ GENERAL_MODELS = {
               "--l2", "1e-8"], 2, 0.24, 0.25, 1),
 }
 POP_DEV_HR5 = 0.2667
+# The rest of the sequential family on Grocery with docs/benchmark_commands.md's
+# flags (:33-41, :114; D = 64, history 20), a run per stage of the two-stage
+# models, each stage after the one before it in the same directory: run ->
+# (model, flags, dense epochs, dev HR@5 floor or None, lazy commits per step
+# (None: no lazy run), a `--test_all 1` run). Floors by SEQ_MODELS' rule,
+# rounded down to 0.01, from the JAX package run on a CPU with the same
+# commands and epochs at --random_seed 0, 1, 2 (its CLI, --save_final_results
+# 0), dev HR@5 over the sampled candidates: 2 dense epochs of TiSASRec 0.2716,
+# 0.2685, 0.2707; ComiRec 0.2671, 0.2750, 0.2667; SLRCPlus 0.3956, 0.3986,
+# 0.3957; Chorus stage 2 after a 2-epoch stage 1 0.3135, 0.3107, 0.3123;
+# ContraKDA 0.4190, 0.4247, 0.4196; TiMiRec pretrain 0.2667, 0.2656, 0.2662,
+# then finetune 0.2690, 0.2722, 0.2741. ContraRec (lr 1e-4 at batch 4096, 30
+# steps an epoch) stands at 0.0912, 0.0847, 0.0922 after 2 epochs, where the
+# rule's floor would be chance (0.05): it runs CONTRA_EPOCHS epochs instead,
+# after which the JAX package's dev HR@5 is 0.1875, 0.1783, 0.1833. Chorus
+# stage 1 trains the KG only (dev HR@5 0.0491, 0.0503, 0.0459): its loss must
+# fall, and it has no floor.
+CONTRA_EPOCHS = 6
+_CHORUS = ["--emb_size", "64", "--margin", "1"]
+_TIMIREC = ["--emb_size", "64", "--lr", "1e-4", "--l2", "1e-6", "--history_max", "20", "--K", "6",
+            "--add_pos", "1", "--add_trm", "1"]
+SEQ2_MODELS = {
+    "TiSASRec": ("TiSASRec", ["--emb_size", "64", "--num_layers", "1", "--num_heads", "1", "--lr", "1e-4",
+                              "--l2", "1e-6", "--history_max", "20"], 2, 0.25, 1, True),
+    "ComiRec": ("ComiRec", ["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--attn_size", "8",
+                            "--K", "4", "--add_pos", "1", "--history_max", "20"], 2, 0.23, 1, True),
+    "SLRCPlus": ("SLRCPlus", ["--emb_size", "64", "--lr", "5e-4", "--l2", "1e-5"], 2, 0.38, 9, True),
+    "Chorus_stage1": ("Chorus", _CHORUS + ["--lr", "5e-4", "--l2", "1e-5", "--epoch", "50",
+                                           "--early_stop", "0", "--batch_size", "512", "--stage", "1"],
+                      2, None, None, False),
+    "Chorus_stage2": ("Chorus", _CHORUS + ["--lr_scale", "0.1", "--lr", "1e-3", "--l2", "0",
+                                           "--base_method", "BPR", "--stage", "2"], 2, 0.29, None, True),
+    "ContraRec": ("ContraRec", ["--emb_size", "64", "--lr", "1e-4", "--l2", "1e-6", "--history_max", "20",
+                                "--encoder", "BERT4Rec", "--gamma", "1", "--temp", "0.2",
+                                "--batch_size", "4096"], CONTRA_EPOCHS, 0.14, None, True),
+    "ContraKDA": ("ContraKDA", KDA_FLAGS + ["--contra_gamma", "0.3", "--ccc_temp", "1.0"],
+                  2, 0.39, 3, True),
+    "TiMiRec_pretrain": ("TiMiRec", _TIMIREC + ["--stage", "pretrain"], 2, 0.26, None, False),
+    "TiMiRec_finetune": ("TiMiRec", _TIMIREC + ["--stage", "finetune", "--temp", "1", "--n_layers", "1",
+                                                "--check_epoch", "10"], 2, 0.24, None, True),
+}
 # the approx lane: its recall targets, and the runner's dense route at
 # 100,000 items (ids 0..100,000: 4096 x 100,001 scores are under
 # DENSE_APPROX_MAX_ELEMS); the kernel is held bit-equal at the bins these
@@ -556,7 +604,9 @@ COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # pac
                 ("packed", 8714, EMB, torch.float32, 256 * SEQ_ROWS, 1e-6),       # Grocery SASRec
                 ("packed", 8771, EMB, torch.float32, KDA_ENTITY_ROWS, 1e-6),     # KDA's entity table
                 ("packed", 8714, 1, torch.float32, 2 * 256, 0.0),    # KDA's item_bias (D = 1)
-                ("packed", 14682, EMB, torch.float32, 256, 1e-6)]    # Grocery's user table
+                ("packed", 14682, EMB, torch.float32, 256, 1e-6),    # Grocery's user table
+                ("packed", 14682, 1, torch.float32, 256, 0.0),       # SLRCPlus's user_bias (D = 1)
+                ("packed", 8714, 3, torch.float32, 2 * 256, 1e-5)]   # SLRCPlus's Hawkes tables (D = R = 3)
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -1029,7 +1079,8 @@ def _seq_lane(corpus, model_cls, flags, **kw):
     runner = BaseRunner(_runner_args("--eval_batch_size", str(BATCH), *flags))
     model = model_cls(user_num=corpus.n_users, item_num=corpus.n_items, emb_size=EMB, num_neg=1,
                       test_all=1, history_max=SEQ_HISTORY, **kw)
-    train, dev = (SequentialBatcher(corpus, model, p, runner.args) for p in ("train", "dev"))
+    batcher_cls = get_batcher(model_cls.batcher)      # SequentialBatcher; TiSASRec's TiSASBatcher
+    train, dev = (batcher_cls(corpus, model, p, runner.args) for p in ("train", "dev"))
     state = runner.init_state(model, SEED)
     return runner, state, train, train.device_arrays(runner.device), dev, dev.device_arrays(runner.device)
 
@@ -1110,7 +1161,8 @@ def phase_train_1m_seq(totals):
     profiled steady step each; then the packed-trained model's 1M-item
     ranks and top-100 against dense references; then FPMC (packed lane,
     four tables, WARM_STEPS steps) and the same evaluation over its
-    computed [1M, 128] table."""
+    computed [1M, 128] table; then TiSASRec (its TiSASBatcher, dense,
+    WARM_STEPS steps) and the same evaluation of its catalog protocol."""
     t0 = time.perf_counter()
     corpus = seq_corpus_1m()
     build_s = time.perf_counter() - t0
@@ -1145,6 +1197,27 @@ def phase_train_1m_seq(totals):
           f"1M FPMC packed: loss {loss}, launches {c.launches}")
     out["fpmc_eval"] = _catalog_eval_vs_dense(totals, lane)
     check(out["fpmc_eval"]["table"] == [N_ITEMS, 2 * EMB], "FPMC scores against [iu | il]")
+    del lane, runner, state, batcher, arrays
+    torch.cuda.empty_cache()
+    # TiSASRec (Grocery's flags: 1 layer, 1 head, time_max 512): dense
+    # steps, then the catalog evaluation of its catalog protocol
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lane = _seq_lane(corpus, TiSASRec, [], num_layers=1, num_heads=1)
+    runner, state, batcher, arrays = lane[:4]
+    build_s = time.perf_counter() - t
+    check(int(arrays["user_min_intervals"].min()) == 60 == int(arrays["user_min_intervals"].max()),
+          "every 1M user's minimum gap is the corpus's 60 s")
+    warm = runner.fit(state, batcher, arrays, 1, max_steps=2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = runner.fit(state, batcher, arrays, 2, max_steps=WARM_STEPS)
+    secs = time.perf_counter() - t
+    check(np.isfinite(loss), f"1M TiSASRec dense: loss {warm} -> {loss}")
+    out["tisasrec"] = dict(steps=WARM_STEPS, ms_per_step=secs * 1e3 / WARM_STEPS,
+                           examples_per_s=WARM_STEPS * BATCH / secs, loss=loss, warm_loss=warm,
+                           lane_build_s=build_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    out["tisasrec_eval"] = _catalog_eval_vs_dense(totals, lane)
     corpus = out.pop("corpus")
     emit("train_1m_seq", n_users=N_USERS, n_items=N_ITEMS, per_user=SEQ_PER_USER, emb_size=EMB,
          history_max=SEQ_HISTORY, batch=BATCH, train_rows=len(batcher), steps=SEQ_TRAIN_STEPS,
@@ -1447,6 +1520,133 @@ def phase_train_grocery_general(totals):
     emit("train_grocery_general", flags={k: v[0] for k, v in GENERAL_MODELS.items()},
          floors={k: dict(dense=v[2] if v[2] is not None else POP_DEV_HR5, lazy=v[3])
                  for k, v in GENERAL_MODELS.items()},
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def _stage_file_loaded(argv, path) -> int:
+    """Builds the run of `argv` as the CLI does and checks that the model
+    starts from the earlier stage's file: every tensor of the file that the
+    model has equals it before the first step. Returns how many there are."""
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    init_seed(args.random_seed)
+    _, runner, model, _, _ = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    state = runner.init_state(model, args.random_seed)
+    saved = torch.load(path, map_location=runner.device)
+    own = state.model.state_dict()
+    shared = [k for k in saved if k in own]
+    check(shared and all(torch.equal(own[k], saved[k]) for k in shared),
+          f"{model_cls.__name__} starts from {path}: {len(shared)} tensors")
+    return len(shared)
+
+
+def phase_train_grocery_seq2(totals):
+    """TiSASRec, ComiRec, SLRCPlus, Chorus (stage 1, then stage 2),
+    ContraRec, ContraKDA and TiMiRec (pretrain, then finetune) through the
+    CLI on the card, on the committed Grocery corpus, with
+    docs/benchmark_commands.md's flags (SEQ2_MODELS): dense epochs (the loss
+    falls, dev HR@5 over its floor), the steady step's profile, a
+    `--test_all 1` run (B1 over the catalog: TiSASRec's catalog protocol,
+    the others' [256, 8714] forward) and, for the four models with lazy
+    tables, a `--lazy_emb_adam 1` run (the packed lane's Adam commit, one
+    launch per table per step). The second stages start from the first
+    stages' files (the log line, and the weights equal to the file's);
+    without the file Chorus stage 2 raises and TiMiRec's finetune trains
+    from scratch. Chorus stage 2 under --lazy_emb_adam 1 warns and trains
+    dense."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+        os.makedirs(os.path.join(tmp, "empty"))
+
+        def argv(run_name, tag, *extra, epochs, where=tmp):
+            name, flags = SEQ2_MODELS[run_name][:2]
+            return ["--model_name", name, *flags, "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
+                    "--model_path", os.path.join(where, tag + ".bin"), "--save_final_results", "0", *extra]
+
+        def run(run_name, tag, *extra, epochs, where=tmp):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with counted(totals) as c:
+                port_main.build_parser_and_run(argv(run_name, tag, *extra, epochs=epochs, where=where))
+            text = open(os.path.join(tmp, tag + ".log")).read()
+            seen = _epoch_lines(text)
+            check(len(seen) == epochs, f"{tag}: one log line per epoch")
+            check(all(np.isfinite(l) for l, _ in seen) and (epochs < 2 or seen[-1][0] < seen[0][0]),
+                  f"{tag}: finite loss, lower at the last epoch: {seen}")
+            return dict(seconds=time.perf_counter() - t, losses=[l for l, _ in seen],
+                        dev=_log_metrics(text, "Dev  After Training"),
+                        test=_log_metrics(text, "Test After Training"), launches=c.launches,
+                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                        epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
+                                                              text, re.M)]), text
+
+        n_rows = n_batch = None
+        for run_name, (name, flags, epochs, floor, commits, test_all) in SEQ2_MODELS.items():
+            res = out[run_name] = {}
+            if n_rows is None:
+                rargs, _, reader_cls, _ = port_main.parse_cli(argv(run_name, "reader", epochs=1))
+                corpus = port_main.build_corpus(rargs, reader_cls)
+                n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
+                n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
+                del corpus
+            if run_name == "Chorus_stage2":
+                # without the stage-1 file, stage 2 raises the JAX package's error
+                try:
+                    run(run_name, "chorus_no_stage1", epochs=1, where=os.path.join(tmp, "empty"))
+                except ValueError as e:
+                    check("stage 1" in str(e), f"Chorus stage 2 without stage 1: {e}")
+                else:
+                    check(False, "Chorus stage 2 without the stage-1 file raises")
+            if run_name == "TiMiRec_finetune":
+                # without the extractor file, finetune trains from scratch
+                _, text = run(run_name, "timirec_scratch", "--train", "0", epochs=0,
+                              where=os.path.join(tmp, "empty"))
+                check("Train from scratch!" in text, "TiMiRec finetune without the extractor file")
+            # 1. dense Adam, sampled evaluation
+            res["dense"], text = run(run_name, run_name, epochs=epochs)
+            hr5 = res["dense"]["dev"]["HR@5"]
+            if floor is not None:
+                check(hr5 > floor, f"{run_name} dev HR@5 {hr5} above {floor}")
+            if run_name == "Chorus_stage1":
+                stage1 = os.path.join(tmp, f"KG__{GROCERY}__emb_size=64__margin=1.0.bin")
+                check(os.path.exists(stage1), f"Chorus stage 1 saved {stage1}")
+            if run_name == "Chorus_stage2":
+                check("Load KG model from " + stage1 in text, "Chorus stage 2 loads the stage-1 file")
+                res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check", epochs=1), stage1)
+            if run_name == "TiMiRec_pretrain":
+                extractor = os.path.join(tmp, f"Extractor__{GROCERY}__{SEED}__emb_size=64__K=6__add_pos=1"
+                                              "__add_trm=1.bin")
+                check(os.path.exists(extractor), f"TiMiRec pretrain saved {extractor}")
+            if run_name == "TiMiRec_finetune":
+                check("Load extractor from " + extractor in text, "TiMiRec finetune loads the extractor")
+                res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check", epochs=1), extractor)
+            # 2. the steady step's profile
+            res["lane"] = _grocery_lane(name, argv(run_name, "profile", epochs=1), 0)
+            # 3. --test_all 1: every evaluation ranks over the catalog through B1
+            if test_all:
+                res["test_all"], _ = run(run_name, run_name + "_test_all", "--test_all", "1", epochs=1)
+                want = 2 * n_batch["test"] + 2 * n_batch["dev"]
+                check(res["test_all"]["launches"]["ge_count"] == want,
+                      f"ge_count launches of the {run_name} --test_all run: "
+                      f"{res['test_all']['launches']} != {want}")
+            # 4. --lazy_emb_adam 1: one commit per lazy table per step
+            if commits is not None:
+                res["lazy"], _ = run(run_name, run_name + "_lazy", "--lazy_emb_adam", "1", epochs=1)
+                check(res["lazy"]["launches"]["adam_commit"] == commits * n_batch["train"],
+                      f"adam_commit launches of the {run_name} lazy run: {res['lazy']['launches']} "
+                      f"!= {commits} x {n_batch['train']}")
+            if run_name == "Chorus_stage2":
+                res["lazy_refused"], text = run(run_name, "chorus_lazy", "--lazy_emb_adam", "1", epochs=1)
+                check("--lazy_emb_adam needs plain Adam without lr scales" in text
+                      and res["lazy_refused"]["launches"]["adam_commit"] == 0,
+                      f"Chorus stage 2 refuses the lazy lane: {res['lazy_refused']['launches']}")
+    emit("train_grocery_seq2", flags={k: v[1] for k, v in SEQ2_MODELS.items()},
+         floors={k: v[3] for k, v in SEQ2_MODELS.items()}, rows=n_rows,
          seconds=round(time.perf_counter() - t0, 3), **out)
     return out
 
@@ -1936,6 +2136,7 @@ def main() -> int:
     phase_train_grocery_kda(totals)
     phase_kda_tiled(totals)
     phase_train_grocery_general(totals)
+    phase_train_grocery_seq2(totals)
     phase_lightgcn_1m(totals, corpus_1m)
     del corpus_1m
     phase_train_windows()

@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-196, 307-381, 692-827 and 941-1056).
+rechorus_tpu/data/batching.py:26-38, 83-196, 307-381 and 692-1149).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -25,6 +25,7 @@ import torch
 
 from rechorus_tpu_torch.ops import kg as kg_ops
 from rechorus_tpu_torch.ops import sampling
+from rechorus_tpu_torch.runners.base import device_of_gpu_flag
 
 BATCHER_REGISTRY: Dict[str, type] = {}
 
@@ -293,6 +294,104 @@ class KDABatcher(SequentialBatcher):
         return self._common(super().eval_feed(arrays, idx, cands), arrays, idx)
 
 
+@register_batcher("tisas")
+class TiSASBatcher(SequentialBatcher):
+    """Sequential feeds + each row's user's minimum positive time gap
+    (reference TiSASRec.py:48-53 takes it over the user's whole
+    timeline), 0xFFFFFFFF for a user with none. One sort of all
+    interactions by (user, time) and one grouped minimum, where the JAX
+    package loops over the users."""
+
+    def build(self):
+        super().build()
+        u = self.corpus.all_df["user_id"].to_numpy(np.int64)
+        t = self.corpus.all_df["time"].to_numpy(np.int64)
+        order = np.lexsort((t, u))
+        u, t = u[order], t[order]
+        gap = np.diff(t)
+        ok = (u[1:] == u[:-1]) & (gap > 0)
+        mins = np.full(int(u.max(initial=0)) + 1, 0xFFFFFFFF, dtype=np.int64)
+        np.minimum.at(mins, u[1:][ok], gap[ok])
+        self.arrays["user_min_intervals"] = mins[self._df["user_id"].to_numpy(np.int64)]
+
+    def train_feed(self, arrays, idx, gen):
+        feed = super().train_feed(arrays, idx, gen)
+        feed["user_min_intervals"] = arrays["user_min_intervals"][idx]
+        return feed
+
+    def eval_feed(self, arrays, idx, cands=None):
+        feed = super().eval_feed(arrays, idx, cands)
+        feed["user_min_intervals"] = arrays["user_min_intervals"][idx]
+        return feed
+
+
+def beta_sample(gen: torch.Generator, a: float, b: float, n: int) -> torch.Tensor:
+    """[n] draws of Beta(a, b) from `gen`, as Ga / (Ga + Gb) of two
+    standard Gamma draws (torch.distributions.Beta samples from the global
+    generator only)."""
+    dev = gen.device
+    ga = torch._standard_gamma(torch.full((n,), float(a), device=dev), generator=gen)
+    gb = torch._standard_gamma(torch.full((n,), float(b), device=dev), generator=gen)
+    return ga / (ga + gb)
+
+
+def beta_augment(gen: torch.Generator, hist, lengths, a: float, b: float, mask_token: int):
+    """One augmented view of a padded history batch [B, H]: per row, with
+    probability 1/2 the mask op or the reorder op, each over the VALID
+    prefix with a Beta(a, b) ratio (reference ContraRec.Dataset,
+    ContraRec.py:106-140; JAX `_beta_augment`). The mask op replaces
+    floor(len * ratio) uniformly chosen valid items by `mask_token`; the
+    reorder op shuffles a random contiguous span of floor(len * ratio)
+    items. Every draw comes from `gen`."""
+    B, H = hist.shape
+    dev = hist.device
+    pos = torch.arange(H, device=dev)[None, :]
+    valid = pos < lengths[:, None]
+    ratio = beta_sample(gen, a, b, B)
+    k = torch.floor(lengths * ratio).long()                            # [B]
+    # mask op: the k valid positions of lowest random score
+    scores = torch.rand((B, H), generator=gen, device=dev) + (~valid) * 2.0
+    rank = torch.argsort(torch.argsort(scores, dim=-1), dim=-1)
+    masked = torch.where((rank < k[:, None]) & valid, mask_token, hist)
+    # reorder op: random sort keys inside [start, start + k), positions outside
+    start = torch.floor(torch.rand(B, generator=gen, device=dev)
+                        * (lengths - k + 1).float()).long()
+    in_span = (pos >= start[:, None]) & (pos < (start + k)[:, None]) & valid
+    rand_key = start[:, None] + torch.rand((B, H), generator=gen, device=dev) * k[:, None]
+    order = torch.argsort(torch.where(in_span, rand_key, pos.float()), dim=-1)
+    reordered = hist.gather(1, order)
+    choose_mask = torch.rand(B, generator=gen, device=dev) > 0.5
+    return torch.where(choose_mask[:, None], masked, reordered)
+
+
+def _two_views(batcher, feed, gen, mask_token: int):
+    """The two augmented history views of a train feed (ContraRec and
+    ContraKDA's context-context contrast)."""
+    a, b = float(batcher.model.beta_a), float(batcher.model.beta_b)
+    for key in ("history_items_a", "history_items_b"):
+        feed[key] = beta_augment(gen, feed["history_items"], feed["lengths"], a, b, mask_token)
+    return feed
+
+
+@register_batcher("contra")
+class ContraBatcher(SequentialBatcher):
+    """Sequential feeds + two augmented history views for ContraRec; the
+    mask token is item_num, one id past the catalog."""
+
+    def train_feed(self, arrays, idx, gen):
+        return _two_views(self, super().train_feed(arrays, idx, gen), gen, self.corpus.n_items)
+
+
+@register_batcher("contra_kda")
+class ContraKDABatcher(KDABatcher):
+    """KDA feeds + two augmented history views for ContraKDA. Masked
+    positions become pad id 0 (the entity table has no spare mask row):
+    item-dropout views."""
+
+    def train_feed(self, arrays, idx, gen):
+        return _two_views(self, super().train_feed(arrays, idx, gen), gen, 0)
+
+
 # ---------------------------------------------------------------------------
 # Knowledge-aware batchers
 # ---------------------------------------------------------------------------
@@ -404,4 +503,114 @@ class CFKGBatcher(Batcher):
         feed.update({"head_id": users[:, None].expand(tails.shape),
                      "tail_id": tails + self.corpus.n_users,
                      "relation_id": torch.zeros_like(tails), "batch_size": B})
+        return feed
+
+
+@register_batcher("slrc")
+class SLRCBatcher(SequentialBatcher):
+    """Sequential feeds + the [B, C, R] `relational_interval` of every
+    candidate (`kg.relational_intervals`; reference SLRCPlus.Dataset's
+    Python loops). The sampled eval candidates are fixed, so their
+    intervals are computed once at build; in training the target
+    column's are, and the sampled negatives' are computed per step. The
+    build computes on the runner's device (`--gpu`), 1024 rows at a time."""
+
+    include_repeat = True
+
+    def build(self):
+        super().build()
+        self.arrays["time"] = self._df["time"].to_numpy().astype(np.int64)
+        self.arrays["_triplet_keys"] = self.corpus.member_table()
+        if self.phase != "train" and not self.test_all:
+            items = np.concatenate([self.arrays["target_item"][:, None], self.arrays["neg_items"]],
+                                   axis=1)
+            self.arrays["relational_interval"] = self._precompute_intervals(items)
+        elif self.phase == "train":
+            self.arrays["_target_interval"] = self._precompute_intervals(
+                self.arrays["target_item"][:, None])
+
+    def _interval_fn(self, history, his_times, now, items, keys):
+        return kg_ops.relational_intervals(
+            history, his_times, now, items, keys, self.corpus.n_relations,
+            self.corpus.n_entities, float(self.model.time_scalar), self.include_repeat,
+            query_relations=self.model.relation_num)
+
+    def _precompute_intervals(self, items: np.ndarray, rows: int = 1024) -> np.ndarray:
+        dev = device_of_gpu_flag(getattr(self.args, "gpu", "0"))
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).long().to(dev)
+
+        keys = put(self.arrays["_triplet_keys"])
+        out = []
+        for s in range(0, self.n, rows):
+            e = min(s + rows, self.n)
+            out.append(self._interval_fn(
+                put(self.arrays["history_items"][s:e]), put(self.arrays["history_times"][s:e]),
+                put(self.arrays["time"][s:e]), put(items[s:e]), keys).cpu().numpy())
+        if not out:
+            return np.zeros((0, items.shape[1], self.model.relation_num), np.float32)
+        return np.concatenate(out, axis=0)
+
+    def _add_interval(self, feed, arrays, idx):
+        if "relational_interval" in arrays:
+            feed["relational_interval"] = arrays["relational_interval"][idx]
+        else:
+            feed["relational_interval"] = self._interval_fn(
+                feed["history_items"], feed["history_times"], arrays["time"][idx],
+                feed["item_id"], arrays["_triplet_keys"])
+        return feed
+
+    def train_feed(self, arrays, idx, gen):
+        feed = super().train_feed(arrays, idx, gen)
+        if "_target_interval" in arrays:
+            neg = self._interval_fn(feed["history_items"], feed["history_times"],
+                                    arrays["time"][idx], feed["item_id"][:, 1:],
+                                    arrays["_triplet_keys"])
+            feed["relational_interval"] = torch.cat([arrays["_target_interval"][idx], neg], dim=1)
+            return feed
+        return self._add_interval(feed, arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._add_interval(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+@register_batcher("chorus")
+class ChorusBatcher(SLRCBatcher):
+    """Stage 1 train: TransE corruption over the reversed relation
+    triplets (`_kg_corruption(swap_feed=True)`); otherwise SLRC+'s feeds
+    without the repeat relation, plus each candidate's category_id
+    (reference Chorus.Dataset)."""
+
+    include_repeat = False
+
+    def build(self):
+        self.kg_train = self.model.stage == 1 and self.phase == "train"
+        if self.kg_train:
+            rel = self.corpus.relation_df
+            self.arrays["kg_head"] = rel["head"].to_numpy().astype(np.int32)
+            self.arrays["kg_tail"] = rel["tail"].to_numpy().astype(np.int32)
+            self.arrays["kg_relation"] = rel["relation"].to_numpy().astype(np.int32)
+            self.arrays["_triplet_keys"] = self.corpus.member_table()
+            self.kg_neg_hi = self.corpus.n_items
+            self.n = len(rel)
+            return
+        super().build()
+        cate = np.zeros(self.corpus.n_items, dtype=np.int32)
+        col = self.model.category_col
+        if col:
+            meta = self.corpus.item_meta_df
+            cate[meta["item_id"].to_numpy()] = meta[col].to_numpy().astype(np.int32)
+        self.arrays["_item2cate"] = cate
+
+    def train_feed(self, arrays, idx, gen):
+        if self.kg_train:
+            return _kg_corruption(self, arrays, idx, gen, swap_feed=True)
+        feed = super().train_feed(arrays, idx, gen)
+        feed["category_id"] = arrays["_item2cate"][feed["item_id"]]
+        return feed
+
+    def eval_feed(self, arrays, idx, cands=None):
+        feed = super().eval_feed(arrays, idx, cands)
+        feed["category_id"] = arrays["_item2cate"][feed["item_id"]]
         return feed

@@ -13,6 +13,7 @@ step passes both, evaluation neither.
 from __future__ import annotations
 
 import inspect
+import os
 from typing import Any, ClassVar, Dict, List
 
 import torch
@@ -101,6 +102,24 @@ class BaseModel(nn.Module):
 
 def count_variables(params) -> int:
     return sum(p.numel() for p in params)
+
+
+def target_col(feed) -> torch.Tensor:
+    """[B] column of the true target among a train feed's candidates: the
+    feed's `_target_col` (where the runner's anti-leak permutation put
+    column 0), else 0."""
+    tcol = feed.get("_target_col")
+    if tcol is None:
+        tcol = torch.zeros(feed["item_id"].shape[0], dtype=torch.long, device=feed["item_id"].device)
+    return tcol
+
+
+def stage_path(args, default_dir: str, name: str) -> str:
+    """The file `name` of a two-stage model's first stage (Chorus's KG
+    pretrain, TiMiRec's extractor): in the directory of --model_path, else
+    in `default_dir` (reference Chorus.py:68-76, TiMiRec.py:76-84)."""
+    base_dir = os.path.dirname(getattr(args, "model_path", "") or "") or default_dir
+    return os.path.join(base_dir, name)
 
 
 class GeneralModel(BaseModel):

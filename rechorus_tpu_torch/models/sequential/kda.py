@@ -1,6 +1,5 @@
-"""KDA -- Knowledge-aware Dynamic Attention (port of
-rechorus_tpu/models/sequential/kda.py:33-235, `KDA` only; ContraKDA comes
-with ContraRec).
+"""KDA and ContraKDA -- Knowledge-aware Dynamic Attention (port of
+rechorus_tpu/models/sequential/kda.py).
 
 Reference behavior: src/models/sequential/KDA.py (Wang et al., TOIS'21):
 1) Relational dynamic history aggregation: per relation r, attention of
@@ -11,10 +10,13 @@ Reference behavior: src/models/sequential/KDA.py (Wang et al., TOIS'21):
 3) Pooling (average/max/attention) -> his_vector; prediction =
    (u + his_vector) . candidate entity emb + item bias (137-160).
 4) Joint loss = rec BPR + gamma * DistMult KG BPR (162-191).
-CMD example (bench.py's kda lane):
+CMD examples (bench.py's kda lane; ContraKDA's Grocery command):
   python -m rechorus_tpu_torch.main --model_name KDA --emb_size 64 --include_attr 1 \
       --freq_rand 0 --lr 1e-3 --l2 1e-6 --num_heads 4 --history_max 20 \
       --dataset Grocery_and_Gourmet_Food
+  python -m rechorus_tpu_torch.main --model_name ContraKDA --emb_size 64 --include_attr 1 \
+      --freq_rand 0 --lr 1e-3 --l2 1e-6 --num_heads 4 --history_max 20 --contra_gamma 0.3 \
+      --ccc_temp 1.0 --dataset Grocery_and_Gourmet_Food
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rechorus_tpu_torch.models.base import SequentialModel
+from rechorus_tpu_torch.models.base import SequentialModel, target_col
 from rechorus_tpu_torch.ops import losses
 from rechorus_tpu_torch.ops.layers import Dense, LayerNorm, MultiHeadAttention, dropout, embed
 from rechorus_tpu_torch.registry import register_model
@@ -178,6 +180,17 @@ class KDA(SequentialModel):
                                  feed["history_delta_t"], u_vectors, training, gen)
         i_bias = self.item_bias(i_ids)[..., 0]
         out = {"prediction": ((u_vectors[:, None, :] + his_vector) * i_vectors).sum(-1) + i_bias}
+        if training and "history_items_a" in feed:
+            # ContraKDA: the two augmented histories, each encoded by the
+            # same relational encoder conditioned on the true target
+            B, _, d = i_vectors.shape
+            tcol = target_col(feed)
+            tgt_i = i_vectors.gather(1, tcol[:, None, None].expand(B, 1, d))          # [B, 1, d]
+            tgt_v = v_vectors.gather(1, tcol[:, None, None, None].expand(B, 1, *v_vectors.shape[2:]))
+            views = [self.encode(tgt_i, tgt_v, feed[k], feed["history_delta_t"], u_vectors,
+                                 training, gen)[:, 0] for k in ("history_items_a", "history_items_b")]
+            out["features"] = losses.l2_normalize(torch.stack(views, dim=1))           # [B, 2, d]
+            out["labels"] = i_ids.gather(1, tcol[:, None])[:, 0]
         if "head_id" in feed:  # the joint KG batch (train)
             head_v = self.entity_embeddings(feed["head_id"])  # [B, 1 + N, d]
             tail_v = self.entity_embeddings(feed["tail_id"])
@@ -191,3 +204,44 @@ class KDA(SequentialModel):
         rec_loss = losses.bpr_multi_neg(out_dict["prediction"])
         kg_loss = losses.bpr_multi_neg(out_dict["kg_prediction"])
         return rec_loss + self.gamma * kg_loss
+
+
+@register_model("ContraKDA")
+class ContraKDA(KDA):
+    """KDA + ContraRec's context-context contrastive training (JAX
+    rechorus_tpu/models/sequential/kda.py:237-281; the reference lists
+    ContraKDA's result but ships no source, so the composition is the JAX
+    package's own): KDA scores the candidates as usual (+ the joint KG
+    BPR), and two augmented history views (Beta-ratio masking to pad id 0,
+    `ContraKDABatcher`) are encoded by the same relational encoder,
+    conditioned on the true target, and pulled together by `infonce`."""
+
+    batcher: ClassVar[str] = "contra_kda"
+    extra_log_args: ClassVar[list] = [
+        "num_layers", "num_heads", "gamma", "contra_gamma", "ccc_temp", "freq_rand"]
+
+    def __init__(self, *, contra_gamma: float = 0.3, ccc_temp: float = 1.0, beta_a: int = 3,
+                 beta_b: int = 3, **kwargs):
+        super().__init__(**kwargs)
+        self.contra_gamma, self.ccc_temp, self.beta_a, self.beta_b = contra_gamma, ccc_temp, beta_a, beta_b
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--contra_gamma", type=float, default=0.3,
+                            help="Coefficient of the context-context contrastive loss.")
+        parser.add_argument("--ccc_temp", type=float, default=1.0,
+                            help="Temperature of the contrastive loss.")
+        parser.add_argument("--beta_a", type=int, default=3,
+                            help="Beta-distribution parameter for view masking.")
+        parser.add_argument("--beta_b", type=int, default=3,
+                            help="Beta-distribution parameter for view masking.")
+        return KDA.parse_model_args(parser)
+
+    def loss(self, out_dict, feed):
+        loss = super().loss(out_dict, feed)
+        if "features" in out_dict:
+            labels = out_dict["labels"]
+            loss = loss + self.contra_gamma * self.ccc_temp * losses.infonce(
+                out_dict["features"], temperature=self.ccc_temp,
+                same_target_mask=labels[:, None] == labels[None, :])
+        return loss

@@ -1,6 +1,6 @@
-"""Knowledge-graph triplet membership (port of rechorus_tpu/ops/kg.py:19-51,
-:84-200 and :256-292: key packing, the two-choice cuckoo member table and
-the KG negative sampler; the relational intervals come with SLRC+/Chorus).
+"""Knowledge-graph triplet membership (port of rechorus_tpu/ops/kg.py:19-51
+and :84-292: key packing, the two-choice cuckoo member table, the
+relational intervals of SLRC+ and Chorus, and the KG negative sampler).
 
 Triplets (head, relation, tail) are stored as their two int32 key halves
 (hi = head, lo = relation * n_entities + tail) in a cuckoo hash table that
@@ -179,6 +179,45 @@ def is_member(member_table: torch.Tensor, h, r, t, n_relations: int, n_entities:
     hi = h.long()
     lo = r.long() * n_entities + t.long()
     return member_probe(member_table, hi, lo)
+
+
+def relational_intervals(history_items, history_times, now, item_ids, member_table,
+                         n_relations: int, n_entities: int, time_scalar: float,
+                         include_repeat: bool, query_relations: int | None = None):
+    """[B, C, R] float32 time since the MOST RECENT history interaction
+    related to each candidate under each relation, in units of
+    `time_scalar`; -1 where there is none. history_items / history_times
+    [B, H], now [B] (the row's time), item_ids [B, C].
+
+    Relation 0 is the re-consumption gap (history item == candidate) when
+    `include_repeat` (SLRC+, reference SLRCPlus.py:99-105); Chorus leaves
+    it at -1 (Chorus.py:231-239). Relations 1..R-1 probe the KG:
+    (history item, r, candidate) in the triplet set. R is
+    `query_relations` when given (SLRC+ and Chorus probe the item
+    relations only, though the key set may hold attribute relations too),
+    else `n_relations`. The gap is taken in int64, cast to float32 and
+    multiplied by the float32 reciprocal of `time_scalar`: what XLA makes
+    of the JAX package's division by a constant under jit, and what
+    PyTorch's CUDA division by a Python float computes, so that the CPU and
+    the card give the same bits."""
+    B, H = history_items.shape
+    C = item_ids.shape[1]
+    R = query_relations if query_relations is not None else n_relations
+    valid = history_items > 0                                          # [B, H]
+    r_range = torch.arange(1, R, device=history_items.device)
+    member = is_member(member_table, history_items[:, None, :, None], r_range[None, None, None, :],
+                       item_ids[:, :, None, None], n_relations, n_entities)   # [B, C, H, R-1]
+    member = member & valid[:, None, :, None]
+    if include_repeat:
+        rep = (history_items[:, None, :] == item_ids[:, :, None]) & valid[:, None, :]
+    else:
+        rep = torch.zeros((B, C, H), dtype=torch.bool, device=history_items.device)
+    member_all = torch.cat([rep[..., None], member], dim=-1)           # [B, C, H, R]
+    j = torch.arange(1, H + 1, device=history_items.device)
+    last = torch.where(member_all, j[None, None, :, None], 0).amax(dim=2) - 1   # [B, C, R]
+    t_at = history_times[:, None, :].expand(B, C, H).gather(2, last.clamp_min(0))
+    interval = (now[:, None, None] - t_at).to(torch.float32) * (1.0 / time_scalar)
+    return torch.where(last >= 0, interval, -1.0)
 
 
 def sample_kg_negatives(gen: torch.Generator, heads, relations, tails, member_table,

@@ -59,6 +59,12 @@ _MODULES = [
     "rechorus_tpu_torch.models.sequential.caser",
     "rechorus_tpu_torch.models.sequential.fpmc",
     "rechorus_tpu_torch.models.sequential.kda",
+    "rechorus_tpu_torch.models.sequential.tisasrec",
+    "rechorus_tpu_torch.models.sequential.comirec",
+    "rechorus_tpu_torch.models.sequential.slrcplus",
+    "rechorus_tpu_torch.models.sequential.chorus",
+    "rechorus_tpu_torch.models.sequential.contrarec",
+    "rechorus_tpu_torch.models.sequential.timirec",
 ]
 
 

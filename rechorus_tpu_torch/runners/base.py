@@ -82,16 +82,20 @@ class DenseOptimizer:
       adamw     Adam direction + decoupled l2 * p (masked), times lr
       adagrad   sum of squares from 0.1, g * rsqrt(sum + 1e-7)
       adadelta  rho 0.9, eps 1e-6, times lr
+
+    `lr_scales` ({key: scale}, the model's per-group lr, e.g. Chorus's
+    KG tables) multiplies each parameter's update after the optimizer, as
+    the JAX chain's last transform does: p -= (lr * step) * scale.
     """
 
     SLOTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "sgd": (),
              "adagrad": ("sum_of_squares",), "adadelta": ("e_g", "e_x")}
 
-    def __init__(self, name: str, lr: float, l2: float):
+    def __init__(self, name: str, lr: float, l2: float, lr_scales: Optional[Dict[str, float]] = None):
         self.name = name.lower()
         if self.name not in self.SLOTS:
             raise ValueError(f"Unknown optimizer: {name}")
-        self.lr, self.l2 = lr, l2
+        self.lr, self.l2, self.lr_scales = lr, l2, lr_scales
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
 
     def init(self, params: Params) -> DenseOptState:
@@ -113,29 +117,29 @@ class DenseOptimizer:
                 m, v = state.slots["mu"][k], state.slots["nu"][k]
                 m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
                 v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-                direction = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
+                step = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
                 if self.name == "adamw" and decay:
-                    direction.add_(p, alpha=decay)
-                p.sub_(direction, alpha=self.lr)
+                    step.add_(p, alpha=decay)
             elif self.name == "sgd":
-                p.sub_(g, alpha=self.lr)
+                step = g
             elif self.name == "adagrad":
                 acc = state.slots["sum_of_squares"][k]
                 acc.addcmul_(g, g)
-                p.sub_(g * torch.rsqrt(acc + 1e-7), alpha=self.lr)
+                step = g * torch.rsqrt(acc + 1e-7)
             else:  # adadelta
                 e_g, e_x = state.slots["e_g"][k], state.slots["e_x"][k]
                 e_g.mul_(0.9).addcmul_(g, g, value=0.1)
-                delta = torch.sqrt(e_x + 1e-6) / torch.sqrt(e_g + 1e-6) * g
-                e_x.mul_(0.9).addcmul_(delta, delta, value=0.1)
-                p.sub_(delta, alpha=self.lr)
+                step = torch.sqrt(e_x + 1e-6) / torch.sqrt(e_g + 1e-6) * g
+                e_x.mul_(0.9).addcmul_(step, step, value=0.1)
+            if self.lr_scales is None:
+                p.sub_(step, alpha=self.lr)
+            else:
+                p.sub_(step * self.lr * self.lr_scales[k])
         return state
 
 
 def build_optimizer(name: str, lr: float, l2: float, lr_scales=None) -> DenseOptimizer:
-    if lr_scales is not None:
-        raise NotImplementedError("per-group lr scales come with Chorus (ROADMAP A10)")
-    return DenseOptimizer(name, lr, l2)
+    return DenseOptimizer(name, lr, l2, lr_scales)
 
 
 def device_of_gpu_flag(gpu: str) -> torch.device:
@@ -315,11 +319,13 @@ class BaseRunner:
         N(0, 0.01) from a generator seeded by `seed`, pick the optimizer
         lane and zero its state."""
         model.to(self.device)
+        # per-group lr (Chorus stage 2): {state_dict key: scale} or None
+        scales = model.lr_scales() if hasattr(model, "lr_scales") else None
         lazy_specs = {}
         if self.lazy_emb_adam:
-            if self.optimizer_name.lower() != "adam":
-                logging.warning("--lazy_emb_adam needs plain Adam; falling back to the "
-                                "dense optimizer")
+            if self.optimizer_name.lower() != "adam" or scales is not None:
+                logging.warning("--lazy_emb_adam needs plain Adam without lr scales; falling "
+                                "back to the dense optimizer")
             else:
                 lazy_specs = getattr(model, "lazy_table_specs", dict)()
                 if not lazy_specs:
@@ -335,13 +341,15 @@ class BaseRunner:
             model.float()
         model.init_weights(self._generator(seed, 0))
         if hasattr(model, "post_init_state"):
-            # model-held state derived from the drawn parameters (BUIR's targets)
+            # model-held state derived from the drawn parameters (BUIR's
+            # targets) or loaded from an earlier stage's file (Chorus stage
+            # 2, TiMiRec finetune)
             model.post_init_state()
         params = dict(model.named_parameters())
         if lazy_specs:
             tx = LA.LazyAdamTx(self.learning_rate, self.l2, decay_mask=_decay_mask)
         else:
-            tx = build_optimizer(self.optimizer_name, self.learning_rate, self.l2)
+            tx = build_optimizer(self.optimizer_name, self.learning_rate, self.l2, scales)
         self._lazy_specs = lazy_specs
         self._tx = tx
         return TrainState(model=model, params=params, opt_state=tx.init(params), step=0)

@@ -49,7 +49,23 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
             "relation_embeddings": "param", "freq_(real|imag)": "param",
             r"attn_\d+/[qkv]": "dense", r"w[12]_\d+": "dense", "A": "dense", "A_out": "dense",
             r"ln_\d+": "layer_norm"},
+    "TiSASRec": {"i_embeddings": "embed", "[pt]_[kv]_embeddings": "embed",
+                 r"block_\d+/([qkv]|ff[12])": "dense", r"block_\d+/ln[12]": "layer_norm"},
+    "ComiRec": {"[ip]_embeddings": "embed", "W[12]": "dense"},
+    "SLRCPlus": {"global_alpha": "param", "(alphas|pis|mus|betas|sigmas)": "embed",
+                 "[ui]_embeddings": "embed", "(user|item)_bias": "embed"},
+    "Chorus": {"([uir]_embeddings|betas|mus|sigmas|prediction_w|(user|item)_bias)": "param"},
+    "ContraRec": {"i_embeddings": "embed", "encoder/p_embeddings": "embed",
+                  r"encoder/trm_\d+/(mha/[qkv]|ff[12])": "dense", r"encoder/trm_\d+/ln[12]": "layer_norm",
+                  rf"encoder/rnn/GRUCell_0/{_GRU}": "dense", "encoder/(out|fc)": "dense",
+                  r"encoder/conv_(v|h_\d+)": "conv"},
+    "TiMiRec": {"interest_(extractor|predictor)/[ip]_embeddings": "embed",
+                "interest_extractor/W[12]": "dense",
+                "interest_extractor/transformer/(mha/[qkv]|ff[12])": "dense",
+                "interest_extractor/transformer/ln[12]": "layer_norm",
+                rf"interest_predictor/rnn/GRUCell_0/{_GRU}": "dense", r"proj_(\d+|final)": "dense"},
 }
+FLAX_TO_TORCH["ContraKDA"] = FLAX_TO_TORCH["KDA"]
 # kind -> {flax leaf: (torch leaf, flax -> torch axes)}; None keeps the axes
 _LEAVES = {
     "embed": {"embedding": ("weight", None)},

@@ -299,8 +299,8 @@ def test_default_log_and_model_paths_lie_inside_the_working_directory(data_root,
 
 
 def test_unported_model_name_raises_a_key_error_that_names_it():
-    with pytest.raises(KeyError, match="TiSASRec"):
-        registry.get_model("TiSASRec")
+    with pytest.raises(KeyError, match="CLRec"):
+        registry.get_model("CLRec")
     with pytest.raises(KeyError, match="BPRMFImpression"):
         registry.get_model("BPRMF", "Impression")
     assert registry.get_model("BPRMF").registered_name == "BPRMF"

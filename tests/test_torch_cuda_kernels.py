@@ -403,6 +403,46 @@ def test_adam_commit_at_the_kda_item_bias_table(dev):
     assert int((scatter < N).sum()) > B                        # most of the 512 rows distinct
 
 
+@pytest.mark.parametrize("N,D,per_row,l2", [
+    (14682, 1, 1, 0.0),     # SLRCPlus's user_bias: the user ids of a batch, no L2 (a bias)
+    (8714, 3, 2, 1e-5),     # SLRCPlus's five Hawkes tables (D = R = 3): target + negative ids
+    (8771, 64, 35 + 40, 1e-6),   # ContraKDA's entity table: KDA's 35 ids a row + two 20-id views
+], ids=["slrc_user_bias", "slrc_hawkes", "contrakda_entity"])
+@pytest.mark.parametrize("layout", ["packed", "rows_f32"])
+def test_adam_commit_at_the_sequential_family_tables(dev, N, D, per_row, l2, layout):
+    """The lazy commits of the tables the rest of the sequential family
+    adds on Grocery at batch 256 (a fifth of the ids the pad id 0), against
+    the plain commit bit for bit, packed and three-table."""
+    B = 256
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(1, N, (B * per_row,), generator=gen, device=dev)
+    ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.2] = 0
+    rows, scatter, _ = LA.unique_rows_hashed(ids, N)
+    R = ids.shape[0]
+    p = torch.randn(N, D, generator=gen, device=dev) * 0.05
+    mu = torch.randn(N, D, generator=gen, device=dev) * 0.01
+    nu = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+    g = torch.randn(R, D, generator=gen, device=dev) * 0.1
+    tx = LA.LazyAdamTx(5e-4, l2)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 3)
+    before = LA.adam_commit.launches
+    if layout == "packed":
+        table = torch.cat([p, mu, nu], dim=1)
+        want = LA.adam_commit_plain(tx, bc1, bc2, l2, table.clone(), g, scatter, gathered=table[rows])
+        got = LA.adam_commit(tx, bc1, bc2, l2, table, g, scatter, gathered=table[rows].clone())
+        assert torch.equal(got, want)
+    else:
+        vals = p[rows]
+        want = [t.clone() for t in (p, mu, nu)]
+        LA.adam_commit_plain(tx, bc1, bc2, l2, want[0], g, scatter, vals=vals, rows=rows,
+                             mu=want[1], nu=want[2])
+        LA.adam_commit(tx, bc1, bc2, l2, p, g, scatter, vals=vals, rows=rows, mu=mu, nu=nu)
+        for name, a, b in zip(("p", "mu", "nu"), (p, mu, nu), want):
+            assert torch.equal(a, b), name
+    assert LA.adam_commit.launches == before + 1
+    assert int((scatter < N).sum()) == int(torch.unique(ids).numel())
+
+
 @pytest.mark.parametrize("B,N,L", [(1, 1, 1), (3, 4097, 513), (5, 62592, 7824), (2, 100001, 12501),
                                    (70000, 3, 2)])
 def test_approx_bin_max_kernel_equals_plain(dev, B, N, L):

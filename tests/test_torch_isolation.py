@@ -38,7 +38,13 @@ def test_importing_the_port_loads_no_jax_module():
     assert {"rechorus_tpu_torch.serve", "rechorus_tpu_torch.ops.cuda_topk",
             "rechorus_tpu_torch.weights", "rechorus_tpu_torch.main",
             "rechorus_tpu_torch.runners.base", "rechorus_tpu_torch.ops.lazy_adam",
-            "rechorus_tpu_torch.ops.cuda_scatter"} <= set(result["imported"])
+            "rechorus_tpu_torch.ops.cuda_scatter", "rechorus_tpu_torch.ops.kg",
+            "rechorus_tpu_torch.models.sequential.tisasrec",
+            "rechorus_tpu_torch.models.sequential.comirec",
+            "rechorus_tpu_torch.models.sequential.slrcplus",
+            "rechorus_tpu_torch.models.sequential.chorus",
+            "rechorus_tpu_torch.models.sequential.contrarec",
+            "rechorus_tpu_torch.models.sequential.timirec"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 
