@@ -40,6 +40,15 @@ shapes the main path gives it, and drives the port's main paths:
     dense Adam over a floor, the step profile, `--test_all 1`,
     `--lazy_emb_adam 1` for the four with lazy tables; the second stages
     must start from the first stages' files);
+  * the ten context models (FM, WideDeep, DeepFM, AFM, DCN, DCNv2,
+    xDeepFM, AutoInt, SAM, FinalMLP) through the CLI with
+    docs/benchmark_commands.md's ML-1M flags: the TopK modes on Grocery
+    (dense Adam over a floor, the step profile, `--test_all 1` by the dense
+    forward route; FMTopK's `--lazy_emb_adam 1` raises, as in the JAX
+    package) and the CTR modes on an ML-1M-shaped synthetic CTR corpus
+    (BCE over an AUC floor, the step profile; FMCTR's pCTR export equal to
+    CTRRunner.predict, DCNCTR's reload with its BatchNorm statistics,
+    FMCTR's `--lazy_emb_adam 1` dense);
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
@@ -93,6 +102,7 @@ from rechorus_tpu_torch.ops import topk as TT
 from rechorus_tpu_torch.ops.metrics import evaluate_topk_from_ranks, masked_topk
 from rechorus_tpu_torch.runners.base import BaseRunner
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
+from rechorus_tpu_torch.tools import context_bands as CB
 from rechorus_tpu_torch.tools import launch_path
 from rechorus_tpu_torch.utils.rng import init_seed
 
@@ -245,6 +255,37 @@ SEQ2_MODELS = {
     "TiMiRec_finetune": ("TiMiRec", _TIMIREC + ["--stage", "finetune", "--temp", "1", "--n_layers", "1",
                                                 "--check_epoch", "10"], 2, 0.24, None, True),
 }
+# The ten context models, two dense epochs each with docs/benchmark_commands.md's
+# ML-1M flags (rechorus_tpu_torch/tools/context_bands.py holds them): the
+# TopK modes (:42-51) on Grocery, FinalMLP gated by user_id / item_id, and
+# the CTR modes (:68-77) on make_ctr_dataset at ML-1M's 6,040 users, 3,706
+# items and 18 genres, 40 rows a user, FinalMLP gated by c_hour_c /
+# i_category_c. Floors by SEQ_MODELS' rule, rounded down to 0.01, from the
+# JAX package's CLI on a CPU with the same commands and epochs at
+# --random_seed 0, 1, 2 (python -m rechorus_tpu_torch.tools.context_bands
+# --suite topk_grocery|ctr_ml1m --package rechorus_tpu --cpu): dev HR@5 over
+# the sampled candidates of FMTopK 0.2865, 0.2874, 0.2811; WideDeepTopK
+# 0.2701, 0.2646, 0.2671; DeepFMTopK 0.2654, 0.2637, 0.2652; AFMTopK 0.3023,
+# 0.3021, 0.3054; DCNTopK 0.3050, 0.3071, 0.3109; xDeepFMTopK 0.2136,
+# 0.2124, 0.2129; AutoIntTopK 0.2618, 0.2700, 0.2799; DCNv2TopK 0.3139,
+# 0.3148, 0.3195; FinalMLPTopK 0.2848, 0.2830, 0.2915; SAMTopK 0.2667,
+# 0.2647, 0.2661; and dev AUC of FMCTR 0.5206, 0.5206, 0.5245; WideDeepCTR
+# 0.5225, 0.5336, 0.5346; DeepFMCTR 0.5441, 0.5487, 0.5328; AFMCTR 0.4983,
+# 0.4910, 0.5016; DCNCTR 0.5644, 0.5696, 0.5713; xDeepFMCTR 0.5569, 0.5512,
+# 0.5580; AutoIntCTR 0.4881, 0.4874, 0.4885; DCNv2CTR 0.5618, 0.5732,
+# 0.5657; FinalMLPCTR 0.5106, 0.4982, 0.5113; SAMCTR 0.4976, 0.5000,
+# 0.5000. The CTR corpus splits on the global timeline, so most dev and
+# test users have no training row, and these flags give the models no user
+# feature: two epochs leave the CTR modes near chance, and their floors
+# catch a broken path, not a weak model (PERF.md).
+CONTEXT_EPOCHS = CB.EPOCHS       # the epochs the floors' JAX runs took
+CONTEXT_EVAL_BATCH = 128        # the TopK flags' --eval_batch_size
+CONTEXT_TOPK_FLOORS = {"FM": 0.25, "WideDeep": 0.24, "DeepFM": 0.25, "AFM": 0.28, "DCN": 0.28,
+                       "xDeepFM": 0.20, "AutoInt": 0.23, "DCNv2": 0.29, "FinalMLP": 0.25, "SAM": 0.25}
+CONTEXT_CTR_FLOORS = {"FM": 0.50, "WideDeep": 0.49, "DeepFM": 0.50, "AFM": 0.46, "DCN": 0.53,
+                      "xDeepFM": 0.52, "AutoInt": 0.48, "DCNv2": 0.53, "FinalMLP": 0.46, "SAM": 0.48}
+JAX_LAZY_ERROR = ("--lazy_emb_adam: lazy_table_specs matched no param/feed keys for this model's "
+                  "train feed; remove the flag or fix the model's lazy_table_specs()")
 # the approx lane: its recall targets, and the runner's dense route at
 # 100,000 items (ids 0..100,000: 4096 x 100,001 scores are under
 # DENSE_APPROX_MAX_ELEMS); the kernel is held bit-equal at the bins these
@@ -1651,6 +1692,193 @@ def phase_train_grocery_seq2(totals):
     return out
 
 
+def _context_losses(text: str) -> list:
+    """The loss of each 'Epoch N loss=...' line."""
+    return [float(x) for x in re.findall(r"^Epoch \d+\s+loss=([0-9.naninf-]+) ", text, re.M)]
+
+
+def _context_run(totals, tmp, argv, tag):
+    """One CLI run of `argv` with its log at tmp/<tag>.log: (state, log
+    text, launches, seconds, peak device bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with counted(totals) as c:
+        state = port_main.build_parser_and_run(argv + ["--log_file", os.path.join(tmp, tag + ".log")])
+    return (state, open(os.path.join(tmp, tag + ".log")).read(), c.launches,
+            time.perf_counter() - t, torch.cuda.max_memory_allocated())
+
+
+def _context_checked(text, epochs, tag) -> list:
+    losses = _context_losses(text)
+    check(len(losses) == epochs, f"{tag}: one log line per epoch")
+    check(all(np.isfinite(losses)) and (epochs < 2 or losses[-1] < losses[0]),
+          f"{tag}: finite loss, lower at the last epoch: {losses}")
+    return losses
+
+
+def phase_train_grocery_context(totals):
+    """The ten context models' TopK modes through the CLI on the card, on
+    the committed Grocery corpus (its one item feature, i_category, has no
+    suffix and is a float feature), with docs/benchmark_commands.md's ML-1M
+    top-k flags (context_bands.TOPK_MODELS): CONTEXT_EPOCHS dense epochs
+    (the loss falls, dev HR@5 over its floor), the steady step's profile, a
+    `--test_all 1` run (B1 over each [128, 8714] forward: the runner's rule
+    takes the dense route, whose candidate feed is one id per candidate)
+    with its peak memory; then FMTopK with `--lazy_emb_adam 1`, which
+    enters the lazy lane, resolves no table (the model has GeneralModel's
+    specs and a fused feature table) and raises the JAX package's error at
+    the first step, before any commit."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+
+        def argv(name, tag, *extra, epochs):
+            return ["--model_name", name, "--model_mode", "TopK", *CB.TOPK_MODELS[name], *CB.TOPK_COMMON,
+                    "--dataset", GROCERY, "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--model_path", os.path.join(tmp, tag + ".bin"),
+                    "--save_final_results", "0", *extra]
+
+        args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
+            argv("FM", "route", "--test_all", "1", epochs=1))
+        init_seed(SEED)
+        corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls,
+                                                                      runner_cls)
+        rows = {k: len(corpus.data_df[k]) for k in ("train", "dev", "test")}
+        n_batch = {k: -(-n // CONTEXT_EVAL_BATCH) for k, n in rows.items()}
+        # the rule reads the feed, which the ten models share
+        tiled = runner._use_tiled_forward(model, batchers["test"], arrays["test"])
+        feed_bytes = runner._dense_feed_bytes(batchers["test"], arrays["test"])
+        check(not tiled, "Grocery's 8,714 items take the dense forward route")
+        del corpus, runner, model, batchers, arrays
+        for name, floor in CONTEXT_TOPK_FLOORS.items():
+            res = out[name] = {}
+            # 1. dense Adam, sampled evaluation
+            _, text, launches, secs, _ = _context_run(totals, tmp, argv(name, name, epochs=CONTEXT_EPOCHS),
+                                                      name)
+            dev = _log_metrics(text, "Dev  After Training")
+            res["dense"] = dict(seconds=secs, losses=_context_checked(text, CONTEXT_EPOCHS, name),
+                                dev=dev, test=_log_metrics(text, "Test After Training"),
+                                epoch_s=[float(x) for x in re.findall(
+                                    r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
+            check(dev["HR@5"] > floor, f"{name}TopK dev HR@5 {dev['HR@5']} above {floor}")
+            # 2. the steady step's profile
+            res["lane"] = _grocery_lane(name + "TopK", argv(name, "profile", epochs=1), 0)
+            # 3. --test_all 1: every evaluation ranks over the catalog through B1
+            _, text, launches, secs, peak = _context_run(
+                totals, tmp, argv(name, name + "_test_all", "--test_all", "1", epochs=1), name + "_test_all")
+            _context_checked(text, 1, name + "_test_all")
+            want = 2 * n_batch["test"] + 2 * n_batch["dev"]
+            check(launches["ge_count"] == want,
+                  f"ge_count launches of the {name}TopK --test_all run: {launches} != {want}")
+            res["test_all"] = dict(seconds=secs, launches=launches, peak_memory_bytes=peak, route="dense",
+                                   test=_log_metrics(text, "Test After Training"))
+        # 4. --lazy_emb_adam 1: FMTopK raises at its first step, no commit
+        with counted(totals) as c:
+            try:
+                port_main.build_parser_and_run(argv("FM", "lazy", "--lazy_emb_adam", "1", epochs=1)
+                                               + ["--log_file", os.path.join(tmp, "lazy.log")])
+            except ValueError as e:
+                raised = str(e)
+            else:
+                raised = None
+        check(raised == JAX_LAZY_ERROR, f"FMTopK --lazy_emb_adam 1 raises the JAX package's error: {raised}")
+        check(c.launches["adam_commit"] == 0, f"FMTopK --lazy_emb_adam 1 commits nothing: {c.launches}")
+        out["lazy_FMTopK"] = dict(raised=raised, launches=c.launches)
+    emit("train_grocery_context", flags={k: v for k, v in CB.TOPK_MODELS.items()}, common=CB.TOPK_COMMON,
+         floors=CONTEXT_TOPK_FLOORS, rows=rows, route=dict(tiled=tiled, dense_feed_bytes=feed_bytes),
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_train_ctr(totals):
+    """The ten context models' CTR modes through the CLI on the card, on
+    make_ctr_dataset at ML-1M's users, items and genres (context_bands.
+    CTR_ML1M: 241,600 rows, 193,280 for training), with docs/
+    benchmark_commands.md's ML-1M CTR flags (context_bands.CTR_MODELS):
+    CONTEXT_EPOCHS epochs of BCE (the loss falls, dev AUC over its floor,
+    AUC, LOG_LOSS, ACC and F1 finite), the steady step's profile; FMCTR's
+    export (user_id, item_id, pCTR, label; one row per test row, pCTR equal
+    to CTRRunner.predict's output); DCNCTR's reload, whose checkpoint
+    carries the best epoch's BatchNorm statistics (the loaded buffers equal
+    the saved ones, the test metrics come back); and FMCTR with
+    `--lazy_emb_adam 1`, which declares no lazy tables and trains dense."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data", "CTR_ML1M")
+        t = time.perf_counter()
+        synthetic.make_ctr_dataset(data, **CB.CTR_ML1M)
+        gen_s = time.perf_counter() - t
+        rows = {k: sum(1 for _ in open(os.path.join(data, k + ".csv"))) - 1 for k in ("train", "dev", "test")}
+
+        def argv(name, tag, *extra, epochs=CONTEXT_EPOCHS):
+            return ["--model_name", name, "--model_mode", "CTR", *CB.CTR_MODELS[name], *CB.CTR_COMMON,
+                    "--metric", "AUC,Log_loss,ACC,F1_SCORE", "--dataset", "CTR_ML1M",
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs), "--random_seed", str(SEED),
+                    "--model_path", os.path.join(tmp, tag + ".bin"), *extra]
+
+        for name, floor in CONTEXT_CTR_FLOORS.items():
+            res = out[name] = {}
+            export = ["--save_final_results", "1" if name == "FM" else "0"]
+            state, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name, *export), name)
+            dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
+            res["train"] = dict(seconds=secs, losses=_context_checked(text, CONTEXT_EPOCHS, name + "CTR"),
+                                dev=dev, test=test, launches=launches, peak_memory_bytes=peak,
+                                epoch_s=[float(x) for x in re.findall(
+                                    r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
+            check(set(test) == {"AUC", "LOG_LOSS", "ACC", "F1_SCORE"}
+                  and all(np.isfinite(v) for v in list(dev.values()) + list(test.values())),
+                  f"{name}CTR: finite AUC, LOG_LOSS, ACC, F1: {dev} {test}")
+            check(dev["AUC"] > floor, f"{name}CTR dev AUC {dev['AUC']} above {floor}")
+            res["lane"] = _grocery_lane(name + "CTR", argv(name, "profile", epochs=1), 0)
+            if name == "FM":
+                # the export equals the runner's predictions on the trained weights
+                args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv(name, name, *export))
+                runner = runner_cls(args)
+                corpus = port_main.build_corpus(args, reader_cls)
+                b = get_batcher(model_cls.batcher)(corpus, state.model, "test", args)
+                preds, labels = runner.predict(state, b, b.device_arrays(runner.device), "test")
+                exp = pd.read_csv(os.path.join(data, "rec-FMCTR-test.csv"), sep="\t")
+                check(list(exp.columns) == ["user_id", "item_id", "pCTR", "label"] and len(exp) == rows["test"],
+                      f"FMCTR export columns and rows: {list(exp.columns)} x {len(exp)}")
+                check(np.array_equal(exp["pCTR"].to_numpy().astype(np.float32), preds)
+                      and np.array_equal(exp["label"].to_numpy(), labels),
+                      "FMCTR export pCTR / label = CTRRunner.predict")
+                res["export"] = dict(rows=len(exp), pctr_equals_predict=True)
+                del runner, corpus, b
+            if name == "DCN":
+                # the best epoch's BatchNorm statistics travel with the checkpoint
+                saved = torch.load(os.path.join(tmp, "DCN.bin"), map_location=state.model.offsets_t.device)
+                stats = {k: v for k, v in saved.items() if k.endswith(("running_mean", "running_var"))}
+                check(stats and not any(torch.equal(v, torch.ones_like(v)) for k, v in stats.items()
+                                        if k.endswith("running_var")), "DCNCTR saved moved BatchNorm statistics")
+                state2, text2, _, secs2, _ = _context_run(
+                    totals, tmp, argv(name, name, "--load", "1", "--train", "0", "--save_final_results", "0"),
+                    "DCN_reload")
+                own = state2.model.state_dict()
+                check(all(torch.equal(own[k], v) for k, v in stats.items()),
+                      "DCNCTR reload: the running statistics equal the saved ones")
+                check(_log_metrics(text2, "Test Before Training") == test
+                      and _log_metrics(text2, "Test After Training") == test,
+                      "DCNCTR reload reproduces the test metrics")
+                res["reload"] = dict(seconds=secs2, batch_norm_buffers=len(stats))
+            del state
+        # FMCTR with --lazy_emb_adam 1: no lazy tables, the dense optimizer
+        _, text, launches, secs, _ = _context_run(
+            totals, tmp, argv("FM", "lazy", "--lazy_emb_adam", "1", "--save_final_results", "0", epochs=1),
+            "lazy")
+        check("--lazy_emb_adam: FMCTR declares no lazy tables; dense optimizer" in text
+              and launches["adam_commit"] == 0 and np.isfinite(_context_checked(text, 1, "FMCTR lazy")).all(),
+              f"FMCTR --lazy_emb_adam 1 trains dense: {launches}")
+        out["lazy_FMCTR"] = dict(seconds=secs, launches=launches, dev=_log_metrics(text, "Dev  After Training"))
+    emit("train_ctr", corpus=CB.CTR_ML1M, generator_s=round(gen_s, 3), rows=rows,
+         flags={k: v for k, v in CB.CTR_MODELS.items()}, common=CB.CTR_COMMON, floors=CONTEXT_CTR_FLOORS,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
 def phase_lightgcn_1m(totals, corpus):
     """LightGCN (D=64, 3 layers) over the 1M-item training shape of
     `seq_corpus_1m` (200,000 users x 1M items x 2M uniform interactions):
@@ -2137,6 +2365,8 @@ def main() -> int:
     phase_kda_tiled(totals)
     phase_train_grocery_general(totals)
     phase_train_grocery_seq2(totals)
+    phase_train_grocery_context(totals)
+    phase_train_ctr(totals)
     phase_lightgcn_1m(totals, corpus_1m)
     del corpus_1m
     phase_train_windows()

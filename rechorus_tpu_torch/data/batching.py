@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-196, 307-381 and 692-1149).
+rechorus_tpu/data/batching.py:26-38, 83-305, 307-381 and 692-1149).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -157,6 +157,83 @@ class GeneralBatcher(Batcher):
             feed = {"user_id": users, "item_id": item_ids}
         feed["batch_size"] = users.shape[0]
         return feed
+
+
+@register_batcher("ctr")
+class CTRBatcher(Batcher):
+    """Pointwise rows: item_id [B, 1], label [B]; no negative sampling.
+    Parity: reference CTRModel.Dataset (BaseModel.py:276-288)."""
+
+    def build(self):
+        df = self.corpus.data_df[self.phase]
+        self._df = df
+        self.n = len(df)
+        self.arrays["user_id"] = df["user_id"].to_numpy().astype(np.int32)
+        self.arrays["target_item"] = df["item_id"].to_numpy().astype(np.int32)
+        self.arrays["label"] = df["label"].to_numpy().astype(np.float32)
+
+    def _feed(self, arrays, idx):
+        users = arrays["user_id"][idx]
+        return {
+            "user_id": users,
+            "item_id": arrays["target_item"][idx][:, None],
+            "label": arrays["label"][idx],
+            "batch_size": users.shape[0],
+        }
+
+    def train_feed(self, arrays, idx, gen):
+        return self._feed(arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._feed(arrays, idx)
+
+
+def _add_situation(batcher, df):
+    """Pack per-row situation features into cat / float blocks."""
+    from rechorus_tpu_torch.data.context import is_categorical
+
+    situ = list(batcher.corpus.situation_feature_names)
+    cat_cols = [c for c in situ if is_categorical(c)]
+    flt_cols = [c for c in situ if not is_categorical(c)]
+    if cat_cols:
+        batcher.arrays["situ_cat"] = df[cat_cols].to_numpy().astype(np.int32)
+    if flt_cols:
+        batcher.arrays["situ_float"] = df[flt_cols].to_numpy().astype(np.float32)
+
+
+def _situ_feed(feed, arrays, idx):
+    for k in ("situ_cat", "situ_float"):
+        if k in arrays:
+            feed[k] = arrays[k][idx]
+    return feed
+
+
+@register_batcher("context")
+class ContextBatcher(GeneralBatcher):
+    """General top-k feeds + the situation blocks; the user/item feature
+    matrices are the model's buffers (see models/base._ContextFields)."""
+
+    def _extra_arrays(self, df) -> None:
+        _add_situation(self, df)
+
+    def train_feed(self, arrays, idx, gen):
+        return _situ_feed(super().train_feed(arrays, idx, gen), arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return _situ_feed(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+@register_batcher("context_ctr")
+class ContextCTRBatcher(CTRBatcher):
+    def build(self):
+        super().build()
+        _add_situation(self, self._df)
+
+    def train_feed(self, arrays, idx, gen):
+        return _situ_feed(super().train_feed(arrays, idx, gen), arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return _situ_feed(super().eval_feed(arrays, idx, cands), arrays, idx)
 
 
 @register_batcher("sequential")

@@ -1,6 +1,7 @@
-"""Top-k corpus readers (port of rechorus_tpu/data/readers.py:1-259,
-:333-381 and :681-936: `BaseReader` with its fixed-shape history arrays,
-`SeqReader`, and the knowledge-aware `KGReader` and `KDAReader`).
+"""Corpus readers (port of rechorus_tpu/data/readers.py:1-381 and
+:681-936: `BaseReader` with its fixed-shape history arrays, the context
+reader `ContextReader`, `SeqReader`, and the knowledge-aware `KGReader` and
+`KDAReader`).
 
 Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
@@ -183,6 +184,72 @@ class BaseReader:
             flat, offsets = train.flat, train.offsets
         max_len = max(1, int(np.diff(offsets).max()))
         return csr_fill_matrix(flat, offsets, max_len)
+
+
+@register_reader("ContextReader")
+class ContextReader(BaseReader):
+    """Context/CTR reader: item/user metadata + feature vocab sizes.
+
+    Parity: src/helpers/ContextReader.py -- feature name conventions
+    i_*/u_*/c_* with suffix _c categorical / _f float (data/README.md:
+    47-60); feature_max[f] = vocab size across splits. The metadata is kept
+    as id-indexed frames (`item_feature_df`, `user_feature_df`), which
+    `data.context.feature_matrices` turns into lookup matrices in one
+    assignment, where the JAX package keeps per-id dicts."""
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--include_item_features", type=int, default=0,
+                            help="Whether include item context features (0 or 1).")
+        parser.add_argument("--include_user_features", type=int, default=0,
+                            help="Whether include user context features (0 or 1).")
+        parser.add_argument("--include_situation_features", type=int, default=0,
+                            help="Whether include situation (i.e., dynamic context) features (0 or 1).")
+        return BaseReader.parse_data_args(parser)
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.include_item_features = args.include_item_features
+        self.include_user_features = args.include_user_features
+        self.include_situation_features = args.include_situation_features
+        self._load_ui_metadata()
+        self._collect_context()
+
+    def _load_ui_metadata(self):
+        self.item_meta_df, self.user_meta_df = None, None
+        item_meta_path = os.path.join(self.prefix, self.dataset, "item_meta.csv")
+        user_meta_path = os.path.join(self.prefix, self.dataset, "user_meta.csv")
+        self.item_feature_names, self.user_feature_names = [], []
+        if os.path.exists(item_meta_path) and self.include_item_features:
+            self.item_meta_df = pd.read_csv(item_meta_path, sep=self.sep)
+            self.item_feature_names = sorted(c for c in self.item_meta_df.columns if c[:2] == "i_")
+        if os.path.exists(user_meta_path) and self.include_user_features:
+            self.user_meta_df = pd.read_csv(user_meta_path, sep=self.sep)
+            self.user_feature_names = sorted(c for c in self.user_meta_df.columns if c[:2] == "u_")
+        self.situation_feature_names = sorted(
+            c for c in self.data_df["train"].columns if c[:2] == "c_") \
+            if self.include_situation_features else []
+
+    def _collect_context(self):
+        logging.info("Collect context features...")
+        self.item_feature_df, self.user_feature_df = None, None
+        self.feature_max = dict()
+        for key in ["train", "dev", "test"]:
+            df = self.data_df[key]
+            for f in ["user_id", "item_id"] + self.situation_feature_names:
+                self.feature_max[f] = max(self.feature_max.get(f, 0), int(df[f].max()) + 1)
+        for meta, names, id_col, attr, what in (
+                (self.item_meta_df, self.item_feature_names, "item_id", "item_feature_df", "Item"),
+                (self.user_meta_df, self.user_feature_names, "user_id", "user_feature_df", "User")):
+            if meta is None:
+                continue
+            frame = meta[[id_col] + names].set_index(id_col)
+            if not frame.index.is_unique:
+                raise ValueError(f"{what.lower()}_meta.csv: duplicate {id_col}")
+            setattr(self, attr, frame)
+            for f in names:
+                self.feature_max[f] = max(self.feature_max.get(f, 0), int(frame[f].max()) + 1)
+            logging.info("# %s Features: %d" % (what, frame.shape[1] + 1))
 
 
 @register_reader("SeqReader")

@@ -1,11 +1,12 @@
 """Synthetic datasets in the reference CSV contract (own copy of
-rechorus_tpu/data/synthetic.py:17-69 and :269-297: `make_topk_dataset` and
-`make_kg_dataset`, numpy and pandas only).
+rechorus_tpu/data/synthetic.py:17-147 and :269-297: `make_topk_dataset`,
+`make_ctr_dataset` and `make_kg_dataset`, numpy and pandas only).
 
-They write train/dev/test.csv (and item_meta.csv for the KG set) with the
-columns the readers expect (reference data/README.md:9-60), with learnable
-structure (a block preference matrix), for tests and `chip_smoke.py`.
-`make_topk_dataset` writes the JAX package's files byte for byte.
+They write train/dev/test.csv (and item_meta.csv / user_meta.csv for the
+KG and CTR sets) with the columns the readers expect (reference
+data/README.md:9-60), with learnable structure (a block preference
+matrix), for tests and `chip_smoke.py`. `make_topk_dataset` and
+`make_ctr_dataset` write the JAX package's files byte for byte.
 `make_kg_dataset` draws the same kind of relation lists (distinct
 same-group items, never the item itself) with one vectorised draw per
 group, where the JAX package's generator scans the catalog once per item
@@ -73,6 +74,84 @@ def make_topk_dataset(
     return {"n_users": n_users, "n_items": n_items}
 
 
+def make_ctr_dataset(
+    path: str,
+    n_users: int = 150,
+    n_items: int = 80,
+    n_per_user: int = 14,
+    n_groups: int = 4,
+    seed: int = 1,
+    expose_bias: float = 0.0,
+    topk: bool = False,
+):
+    """CTR rows with learnable labels: click iff user group ~ item category
+    (plus noise), item_meta with i_category_c, user_meta with u_group_c,
+    situation column c_hour_c. expose_bias > 0 skews each user's exposures
+    toward their own group so HISTORY becomes informative (for testing
+    sequential models that predict from history alone).
+
+    topk=True emits the reference's ML_1MTOPK contract instead (context
+    top-k protocol, data/README.md:9-33): positive rows only, no label
+    column, dev/test carry a sampled 99-negative ``neg_items`` column
+    (uniform, excluding the user's clicked items)."""
+    rng = np.random.default_rng(seed)
+    all_items = np.arange(1, n_items + 1)
+    rows = []
+    for u in range(1, n_users + 1):
+        g = u % n_groups
+        t0 = rng.integers(1e8, 2e8)
+        if expose_bias > 0:
+            group_items = all_items[all_items % n_groups == g]
+            n_own = min(int(n_per_user * expose_bias), len(group_items))
+            items = np.concatenate([
+                rng.choice(group_items, size=n_own, replace=False),
+                rng.choice(all_items, size=n_per_user - n_own, replace=False),
+            ])
+            rng.shuffle(items)
+        else:
+            items = rng.choice(all_items, size=n_per_user, replace=False)
+        for j, it in enumerate(items):
+            cat = int(it) % n_groups
+            p = 0.8 if cat == g else 0.15
+            label = int(rng.random() < p)
+            hour = int(rng.integers(0, 24))
+            rows.append((u, int(it), int(t0 + j * 86400), label, hour))
+    df = pd.DataFrame(rows, columns=["user_id", "item_id", "time", "label", "c_hour_c"])
+    df = df.sort_values(by=["time", "user_id"], kind="mergesort").reset_index(drop=True)
+    if topk:
+        df = df[df["label"] == 1].drop(columns=["label"]).reset_index(drop=True)
+    # global-time split 80/10/10 (reference CTR datasets use timeline split)
+    n = len(df)
+    train = df.iloc[: int(n * 0.8)]
+    dev = df.iloc[int(n * 0.8) : int(n * 0.9)]
+    test = df.iloc[int(n * 0.9) :]
+    if topk:
+        clicked = df.groupby("user_id")["item_id"].agg(set).to_dict()
+        def _negs(split):
+            out = []
+            for u in split["user_id"]:
+                pool = np.setdiff1d(all_items, np.array(sorted(clicked[u])))
+                out.append(str(list(map(int, rng.choice(pool, size=min(99, len(pool)),
+                                                        replace=False)))))
+            return out
+        dev = dev.assign(neg_items=_negs(dev))
+        test = test.assign(neg_items=_negs(test))
+    os.makedirs(path, exist_ok=True)
+    train.to_csv(os.path.join(path, "train.csv"), sep="\t", index=False)
+    dev.to_csv(os.path.join(path, "dev.csv"), sep="\t", index=False)
+    test.to_csv(os.path.join(path, "test.csv"), sep="\t", index=False)
+    item_meta = pd.DataFrame({
+        "item_id": np.arange(1, n_items + 1),
+        "i_category_c": [i % n_groups for i in range(1, n_items + 1)],
+        "i_quality_f": rng.uniform(0, 1, size=n_items).round(3),
+    })
+    item_meta.to_csv(os.path.join(path, "item_meta.csv"), sep="\t", index=False)
+    user_meta = pd.DataFrame({
+        "user_id": np.arange(1, n_users + 1),
+        "u_group_c": [u % n_groups for u in range(1, n_users + 1)],
+    })
+    user_meta.to_csv(os.path.join(path, "user_meta.csv"), sep="\t", index=False)
+    return {"n_users": n_users, "n_items": n_items}
 
 
 def make_kg_dataset(

@@ -83,24 +83,36 @@ def build_corpus(args, reader_cls):
 
 
 def save_rec_results(args, corpus, runner, state, batchers, arrays, topk: int = 100):
-    """Top-k prediction export (reference main.py:96-153): (user_id,
-    rec_items, rec_predictions) with the top-100 candidates, for the
-    top-k runners (BaseRunner, BUIRRunner). The CTR and impression exports
-    come with their runners."""
+    """Per-task prediction export (reference main.py:96-153): CTR ->
+    (user_id, item_id, pCTR, label), one row per test row; top-k ->
+    (user_id, rec_items, rec_predictions) with the top-100 candidates. The
+    impression export comes with its runner."""
     import pandas as pd
+
+    from rechorus_tpu_torch.runners.ctr import CTRRunner
 
     model = state.model
     result_path = os.path.join(args.path, args.dataset, "rec-{}-{}.csv".format(model.registered_name, "test"))
     utils.check_dir(result_path)
     batcher, arr = batchers["test"], arrays["test"]
-    logging.info("Saving top-{} recommendation results to: {}".format(topk, result_path))
-    items, scores = runner.predict_topk(state, batcher, arr, "test", k=topk)
     src = getattr(batcher, "_df", corpus.data_df["test"])
-    out = pd.DataFrame({
-        "user_id": src["user_id"].to_numpy(),
-        "rec_items": [list(map(int, r)) for r in items],
-        "rec_predictions": [list(np.round(r, 4)) for r in scores],
-    })
+    if isinstance(runner, CTRRunner):
+        logging.info("Saving CTR prediction results to: {}".format(result_path))
+        predictions, labels = runner.predict(state, batcher, arr, "test")
+        out = pd.DataFrame({
+            "user_id": src["user_id"].to_numpy(),
+            "item_id": src["item_id"].to_numpy(),
+            "pCTR": predictions,
+            "label": labels,
+        })
+    else:
+        logging.info("Saving top-{} recommendation results to: {}".format(topk, result_path))
+        items, scores = runner.predict_topk(state, batcher, arr, "test", k=topk)
+        out = pd.DataFrame({
+            "user_id": src["user_id"].to_numpy(),
+            "rec_items": [list(map(int, r)) for r in items],
+            "rec_predictions": [list(np.round(r, 4)) for r in scores],
+        })
     out.to_csv(result_path, sep=args.sep, index=False)
     logging.info("test Prediction results saved!")
 

@@ -1,11 +1,14 @@
-"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-168).
+"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-247 and
+:352-492; `_ContextFields.group_embeddings` of the context_seq models is
+not ported yet).
 
 A model is an `nn.Module` whose keyword arguments are hyperparameters,
 filled from CLI args + corpus statistics by `from_args`. It declares
 which reader / runner / batcher it needs as class attributes, implements
 `forward(feed, training=False, gen=None) -> out_dict` with
 out_dict["prediction"] of shape [B, n_candidates], and
-`loss(out_dict, feed) -> scalar` on plain tensors, which autograd
+`loss(out_dict, feed) -> scalar` on plain tensors (CTR models: a [B]
+prediction and the feed's labels), which autograd
 differentiates. `training` and the step's generator `gen` are what the
 flax models get as `training` and the 'dropout' rng: the runner's train
 step passes both, evaluation neither.
@@ -203,3 +206,216 @@ class SequentialModel(GeneralModel):
         # row is 0)
         specs["i_embeddings.weight"] = ("item_id", "history_items")
         return specs
+
+
+class CTRModel(BaseModel):
+    """Pointwise CTR base: BCE/MSE on sigmoid outputs
+    (reference BaseModel.py:247-288)."""
+
+    reader: ClassVar[str] = "BaseReader"
+    runner: ClassVar[str] = "CTRRunner"
+    batcher: ClassVar[str] = "ctr"
+
+    def __init__(self, *, user_num: int = 0, item_num: int = 0, dropout: float = 0.0,
+                 loss_n: str = "BCE"):
+        super().__init__()
+        self.user_num, self.item_num = user_num, item_num
+        self.dropout, self.loss_n = dropout, loss_n
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--dropout", type=float, default=0,
+                            help="Dropout probability for each deep layer")
+        parser.add_argument("--loss_n", type=str, default="BCE", help="Type of loss functions.")
+        parser.add_argument("--num_neg", type=int, default=0,
+                            help="CLI parity with the reference (its CTR scripts pass "
+                                 "--num_neg 0); CTR training is pointwise, no sampling.")
+        return BaseModel.parse_model_args(parser)
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        return {"user_num": corpus.n_users, "item_num": corpus.n_items}
+
+    def loss(self, out_dict, feed):
+        if self.loss_n == "BCE":
+            return losses.bce(out_dict["prediction"], feed["label"])
+        elif self.loss_n == "MSE":
+            return losses.mse(out_dict["prediction"], feed["label"])
+        raise ValueError(f"Undefined loss function: {self.loss_n}")
+
+
+# the schema keywords `_ContextFields.schema_kwargs` fills from the corpus
+SCHEMA_KEYS = ("feature_names", "feature_kinds", "feature_offsets", "total_vocab",
+               "n_situ_cat", "n_situ_float", "source_names", "feature_consts")
+
+
+class _ContextFields:
+    """Schema fields + feed assembly shared by the context families
+    (filled by corpus_kwargs from data/context.build_schema).
+
+    The user/item feature matrices are buffers on the model's device
+    (`user_cat`, `user_float`, `item_cat`, `item_float`), derived from the
+    corpus and kept out of the `state_dict`; the model gathers each
+    candidate's features by id, so feeds stay small and the runner's
+    anti-leak candidate permutation is safe (features follow item_id).
+    """
+
+    @classmethod
+    def schema_kwargs(cls, corpus):
+        from rechorus_tpu_torch.data.context import build_schema, feature_matrices, is_categorical
+
+        schema = build_schema(corpus)
+        mats = feature_matrices(corpus)
+        consts = {}
+        for side, names in (("user", schema.user_names), ("item", schema.item_names)):
+            if side in mats:
+                cat_cols = [i for i, n in enumerate(names) if is_categorical(n)]
+                flt_cols = [i for i, n in enumerate(names) if not is_categorical(n)]
+                consts[side + "_cat"] = mats[side][:, cat_cols].astype("int32")
+                consts[side + "_float"] = mats[side][:, flt_cols].astype("float32")
+        return {
+            "feature_names": schema.names,
+            "feature_kinds": schema.kinds,
+            "feature_offsets": tuple(schema.offsets[i] for i in schema.cat_positions),
+            "total_vocab": schema.total_vocab,
+            "n_situ_cat": len([n for n in schema.situ_names if is_categorical(n)]),
+            "n_situ_float": len([n for n in schema.situ_names if not is_categorical(n)]),
+            "source_names": (schema.user_names, schema.item_names, schema.situ_names),
+            "feature_consts": consts,
+        }
+
+    def init_context(self, feature_names=(), feature_kinds=(), feature_offsets=(), total_vocab=0,
+                     n_situ_cat=0, n_situ_float=0, source_names=((), (), ()), feature_consts=None):
+        self.feature_names, self.feature_kinds = tuple(feature_names), tuple(feature_kinds)
+        self.feature_offsets, self.total_vocab = tuple(feature_offsets), total_vocab
+        self.n_situ_cat, self.n_situ_float = n_situ_cat, n_situ_float
+        self.source_names = tuple(tuple(n) for n in source_names)
+        for k, v in (feature_consts or {}).items():
+            t = torch.from_numpy(v)
+            self.register_buffer(k, t.long() if not t.is_floating_point() else t, persistent=False)
+        self.register_buffer("offsets_t", torch.tensor(self.feature_offsets, dtype=torch.long),
+                             persistent=False)
+
+    def _const(self, key):
+        """The feature matrix buffer `key` (e.g. 'item_cat'), or None."""
+        return getattr(self, key, None)
+
+    @staticmethod
+    def _items(feed):
+        items = feed["item_id"]
+        return items[:, None] if items.dim() == 1 else items
+
+    def feature_value(self, feed, name):
+        """Raw value of a named context feature, shaped [B, C]. Used by
+        models that condition on specific features (FinalMLP's feature
+        selection)."""
+        from rechorus_tpu_torch.data.context import is_categorical
+
+        users, items = feed["user_id"], self._items(feed)
+        B, C = items.shape
+        if name == "user_id":
+            return users[:, None].expand(B, C)
+        if name == "item_id":
+            return items
+        user_names, item_names, situ_names = self.source_names
+        cat = is_categorical(name)
+        kind = "cat" if cat else "float"
+        if name in user_names:
+            col = [n for n in user_names if is_categorical(n) == cat].index(name)
+            return self._const("user_" + kind)[users][:, None, col].expand(B, C)
+        if name in item_names:
+            col = [n for n in item_names if is_categorical(n) == cat].index(name)
+            return self._const("item_" + kind)[items][..., col]
+        if name in situ_names:
+            col = [n for n in situ_names if is_categorical(n) == cat].index(name)
+            return feed["situ_" + kind][:, None, col].expand(B, C)
+        raise ValueError(f"Unknown context feature: {name}")
+
+    def context_inputs(self, feed):
+        """(cat_ids [B, C, F_cat] offset-applied, float_vals [B, C, F_float])
+        in canonical order: user + item + situation + ids."""
+        users, items = feed["user_id"], self._items(feed)
+        B, C = items.shape
+        cat_parts, float_parts = [], []
+        for key, dest in (("user_cat", cat_parts), ("user_float", float_parts)):
+            m = self._const(key)
+            if m is not None and m.shape[1] > 0:
+                dest.append(m[users][:, None, :].expand(B, C, m.shape[1]))
+        for key, dest in (("item_cat", cat_parts), ("item_float", float_parts)):
+            m = self._const(key)
+            if m is not None and m.shape[1] > 0:
+                dest.append(m[items])
+        if self.n_situ_cat > 0:
+            cat_parts.append(feed["situ_cat"].long()[:, None, :].expand(B, C, self.n_situ_cat))
+        if self.n_situ_float > 0:
+            float_parts.append(feed["situ_float"][:, None, :].expand(B, C, self.n_situ_float))
+        cat_parts.append(users.long()[:, None, None].expand(B, C, 1))
+        cat_parts.append(items.long()[:, :, None])
+        cat_ids = torch.cat(cat_parts, dim=-1) + self.offsets_t
+        if float_parts:
+            float_vals = torch.cat(float_parts, dim=-1).float()
+        else:
+            float_vals = torch.zeros((B, C, 0), device=items.device)
+        return cat_ids, float_vals
+
+
+def _pop_schema(kwargs) -> dict:
+    return {k: kwargs.pop(k) for k in SCHEMA_KEYS if k in kwargs}
+
+
+class ContextModel(GeneralModel, _ContextFields):
+    """Context-aware top-k model base (reference BaseContextModel.py:30-71):
+    BPR loss (inherited) or multi-negative BCE. Its lazy tables are
+    GeneralModel's, which its parameters lack: `--lazy_emb_adam 1` resolves
+    no table and the first step raises, as in the JAX package."""
+
+    reader: ClassVar[str] = "ContextReader"
+    runner: ClassVar[str] = "BaseRunner"
+    batcher: ClassVar[str] = "context"
+
+    def __init__(self, *, loss_n: str = "BPR", **kwargs):
+        schema = _pop_schema(kwargs)
+        super().__init__(**kwargs)
+        self.loss_n = loss_n
+        self.init_context(**schema)
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--loss_n", type=str, default="BPR", help="Type of loss functions.")
+        return GeneralModel.parse_model_args(parser)
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        kw = super().corpus_kwargs(args, corpus)
+        kw.update(cls.schema_kwargs(corpus))
+        return kw
+
+    def loss(self, out_dict, feed):
+        if self.loss_n == "BPR":
+            return losses.bpr_multi_neg(out_dict["prediction"])
+        elif self.loss_n == "BCE":
+            # multi-negative BCE (reference BaseContextModel.py:52-56)
+            predictions = torch.sigmoid(out_dict["prediction"])
+            pos_pred, neg_pred = predictions[:, 0], predictions[:, 1:]
+            return -(torch.log(pos_pred.clamp_min(1e-12))
+                     + torch.log((1 - neg_pred).clamp_min(1e-12)).sum(dim=1)).mean()
+        raise ValueError(f"Undefined loss function: {self.loss_n}")
+
+
+class ContextCTRModel(CTRModel, _ContextFields):
+    """Context-aware CTR base (reference BaseContextModel.py:74-87)."""
+
+    reader: ClassVar[str] = "ContextReader"
+    runner: ClassVar[str] = "CTRRunner"
+    batcher: ClassVar[str] = "context_ctr"
+
+    def __init__(self, **kwargs):
+        schema = _pop_schema(kwargs)
+        super().__init__(**kwargs)
+        self.init_context(**schema)
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        kw = super().corpus_kwargs(args, corpus)
+        kw.update(cls.schema_kwargs(corpus))
+        return kw

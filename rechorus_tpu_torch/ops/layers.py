@@ -1,7 +1,8 @@
-"""Shared torch blocks (port of rechorus_tpu/ops/layers.py:38-145,
-:237-253, :320-359 and :422-444: `dense` and its init scheme, `TableEmbed`,
+"""Shared torch blocks (port of rechorus_tpu/ops/layers.py:38-187,
+:206-253, :320-359 and :422-444: `dense` and its init scheme, `TableEmbed`,
 `embed`, the table dtype and the sparse-lookup context, dropout,
-`MaskedGRU`, `MultiHeadAttention` and `TransformerLayer`).
+`MLPBlock` with flax's `BatchNorm` and `LayerNorm`, `apply_activation`,
+`AttLayer`, `MaskedGRU`, `MultiHeadAttention` and `TransformerLayer`).
 
 Init convention of the reference BaseModel.init_weights
 (src/models/BaseModel.py:29-35): N(0, 0.01) for embedding tables and
@@ -72,6 +73,19 @@ def _glorot_normal(shape, gen):
 def _unit_normal(shape, gen):
     """flax normal(1.0): N(0, 1)."""
     return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _xavier_normal_heads(shape, gen):
+    """flax xavier_normal of an [H, X, Y] weight: fan_in H * X, fan_out
+    H * Y (the leading axis is the receptive field), truncated at two std."""
+    h, x, y = shape
+    return _truncated_normal(shape, gen, 2.0 / (h * x + h * y))
+
+
+def _constant(value: float):
+    def init(shape, gen):
+        return torch.full(shape, value, device=gen.device)
+    return init
 
 
 def _orthogonal(shape, gen):
@@ -145,6 +159,119 @@ def dropout(x: torch.Tensor, rate: float, training: bool, gen: Optional[torch.Ge
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=eps)` over the last axis of
+    an input of any rank, which `torch.nn.BatchNorm1d` is not: it reduces
+    over every other axis (B and the candidate axis C of a [B, C, d]
+    input), the variance is flax's fast one, max(0, E[x^2] - E[x]^2), and
+    the running variance moves by that biased batch variance. In training
+    the batch statistics normalise and the running ones move
+    (r = momentum * r + (1 - momentum) * batch); otherwise the running
+    ones normalise. `weight` / `bias` are flax's `scale` / `bias`, the
+    buffers `running_mean` / `running_var` its `batch_stats` `mean` /
+    `var`: they are part of the `state_dict`, so the best epoch's
+    checkpoint carries them."""
+
+    PARAM_INITS = {"weight": _ones, "bias": _zeros}
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean.detach(), alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var.detach(), alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def apply_activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The JAX package's activation by name (flax's gelu is the tanh one)."""
+    name_l = name.lower()
+    if name_l == "relu":
+        return torch.relu(x)
+    if name_l == "sigmoid":
+        return torch.sigmoid(x)
+    if name_l == "tanh":
+        return torch.tanh(x)
+    if name_l == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name_l == "softplus":
+        return F.softplus(x)
+    if name_l in ("none", "linear", "identity"):
+        return x
+    raise ValueError(f"Unknown activation: {name}")
+
+
+class MLPBlock(nn.Module):
+    """Configurable MLP tower (reference src/utils/layers.py:201-243; JAX
+    `MLPBlock`): per hidden layer `dense_i`, then `bn_i` (flax BatchNorm,
+    above) or `ln_i` when `norm` asks for one, the activation, and dropout
+    when `dropout_rate` > 0; a linear `head` when `output_dim` is set.
+    `hidden_activations` is one name or one per layer. Dice (the DIN
+    family's activation) comes with the context_seq models."""
+
+    def __init__(self, in_dim: int, hidden_units, hidden_activations="ReLU",
+                 output_dim: Optional[int] = None, dropout_rate: float = 0.0,
+                 use_bias: bool = True, norm: Optional[str] = None):
+        super().__init__()
+        acts = hidden_activations
+        self.acts = [acts] * len(hidden_units) if isinstance(acts, str) else list(acts)
+        if any(a.lower() == "dice" for a in self.acts):
+            raise NotImplementedError("MLPBlock: the Dice activation comes with the "
+                                      "context_seq models (ROADMAP A10.5)")
+        self.dropout_rate, self.norm = dropout_rate, norm
+        self.n_hidden = len(hidden_units)
+        d = in_dim
+        for i, h in enumerate(hidden_units):
+            self.add_module(f"dense_{i}", Dense(d, h, use_bias))
+            if norm == "batch_norm":
+                self.add_module(f"bn_{i}", BatchNorm(h))
+            elif norm == "layer_norm":
+                self.add_module(f"ln_{i}", LayerNorm(h))
+            d = h
+        self.head = Dense(d, output_dim, use_bias) if output_dim is not None else None
+        self.out_dim = output_dim if output_dim is not None else d
+
+    def forward(self, x, training: bool = False, gen=None):
+        for i in range(self.n_hidden):
+            x = getattr(self, f"dense_{i}")(x)
+            if self.norm == "batch_norm":
+                x = getattr(self, f"bn_{i}")(x, training)
+            elif self.norm == "layer_norm":
+                x = getattr(self, f"ln_{i}")(x)
+            x = apply_activation(x, self.acts[i])
+            if self.dropout_rate > 0:
+                x = dropout(x, self.dropout_rate, training, gen)
+        return self.head(x) if self.head is not None else x
+
+
+class AttLayer(nn.Module):
+    """Attention weights over the second-to-last axis (reference
+    layers.py:65-90, RecBole-derived): softmax(sum(relu(w x) * h))."""
+
+    PARAM_INITS = {"h": _unit_normal}
+
+    def __init__(self, in_dim: int, att_dim: int):
+        super().__init__()
+        self.w = Dense(in_dim, att_dim, use_bias=False)
+        self.h = nn.Parameter(torch.empty(att_dim))
+
+    def forward(self, x):
+        return torch.softmax((torch.relu(self.w(x)) * self.h).sum(-1), dim=-1)
+
 
 # process-global table storage dtype: --bf16_emb sets bfloat16 so tables
 # cost half the memory. Gathered rows are cast back to f32 AFTER the
@@ -307,19 +434,26 @@ class MultiHeadAttention(nn.Module):
     """Scaled dot-product attention with the reference's -inf mask and
     NaN-to-0 guard (src/utils/layers.py:9-63): two products, a mask,
     softmax and `nan_to_num`, written out (a fused library attention has
-    no NaN guard and would hide the map from `check()`)."""
+    no NaN guard and would hide the map from `check()`). The projections
+    map d_model to `attention_d` (d_model when not positive, reference
+    :17-20), and `out_proj` adds a torch-style output projection."""
 
-    def __init__(self, d_model: int, n_heads: int, kq_same: bool = False, use_bias: bool = True):
+    def __init__(self, d_model: int, n_heads: int, kq_same: bool = False, use_bias: bool = True,
+                 attention_d: int = -1, out_proj: bool = False):
         super().__init__()
+        self.att_d = attention_d if attention_d > 0 else d_model
         self.d_model, self.n_heads, self.kq_same = d_model, n_heads, kq_same
-        self.k = Dense(d_model, d_model, use_bias)
+        self.k = Dense(d_model, self.att_d, use_bias)
         if not kq_same:
-            self.q = Dense(d_model, d_model, use_bias)
-        self.v = Dense(d_model, d_model, use_bias)
+            self.q = Dense(d_model, self.att_d, use_bias)
+        self.v = Dense(d_model, self.att_d, use_bias)
+        if out_proj:
+            self.out_proj = Dense(self.att_d, self.att_d, use_bias)
+        self.has_out_proj = out_proj
         self.intermediates = None
 
     def forward(self, q, k, v, mask=None):
-        d_k = self.d_model // self.n_heads
+        d_k = self.att_d // self.n_heads
 
         def heads(x):
             return x.reshape(x.shape[:-1] + (self.n_heads, d_k)).transpose(-2, -3)
@@ -332,7 +466,8 @@ class MultiHeadAttention(nn.Module):
         attn = torch.nan_to_num(torch.softmax(scores, dim=-1))   # fully masked rows -> 0
         self.intermediates = {"attention": attn.detach()} if _RECORD else None
         out = torch.matmul(attn, vh).transpose(-2, -3)
-        return out.reshape(out.shape[:-2] + (self.d_model,))
+        out = out.reshape(out.shape[:-2] + (self.att_d,))
+        return self.out_proj(out) if self.has_out_proj else out
 
 
 class TransformerLayer(nn.Module):

@@ -1,7 +1,8 @@
-"""Training losses (port of rechorus_tpu/ops/losses.py:20-46 and :196-251:
-`masked_softmax`, `bpr_multi_neg`, ContraRec's `infonce`, DirectAU's
-`alignment_loss` and `uniformity_loss`, and `margin_rank_loss`; the other
-losses come with their runners and models).
+"""Training losses (port of rechorus_tpu/ops/losses.py:20-59 and :196-251:
+`masked_softmax`, `bpr_multi_neg`, the pointwise CTR losses `bce` and
+`mse`, ContraRec's `infonce`, DirectAU's `alignment_loss` and
+`uniformity_loss`, and `margin_rank_loss`; the listwise impression losses
+come with their runner).
 """
 from __future__ import annotations
 
@@ -31,6 +32,18 @@ def bpr_multi_neg(predictions: torch.Tensor) -> torch.Tensor:
     neg_softmax = torch.softmax(neg_pred, dim=1)
     agg = (torch.sigmoid(pos_pred[:, None] - neg_pred) * neg_softmax).sum(dim=1)
     return -torch.log(agg.clamp(1e-8, 1 - 1e-8)).mean()
+
+
+def bce(predictions: torch.Tensor, labels: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Binary cross entropy on probabilities (post-sigmoid), clipped to
+    [eps, 1 - eps] (reference BaseModel.py:262-274)."""
+    p = predictions.clamp(eps, 1 - eps)
+    y = labels.to(p.dtype)
+    return -(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean()
+
+
+def mse(predictions: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return ((predictions - labels.to(predictions.dtype)) ** 2).mean()
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Evaluation metric kernels (port of rechorus_tpu/ops/metrics.py:31-83,
+"""Evaluation metric kernels (port of rechorus_tpu/ops/metrics.py:31-150,
 251-280).
 
 Ranks count ties AGAINST the ground truth: gt_rank = (predictions >=
-predictions[:, 0]).sum(-1), reference src/helpers/BaseRunner.py:63.
+predictions[:, 0]).sum(-1), reference src/helpers/BaseRunner.py:63. The
+CTR metrics (AUC, log loss, accuracy, F1; reference
+src/helpers/CTRRunner.py:22-43) are numpy on the host, over the
+predictions and labels the runner collected.
 """
 from __future__ import annotations
 
@@ -40,6 +43,71 @@ def evaluate_topk_from_ranks(gt_ranks: np.ndarray, topk: List[int], metrics: Lis
                 evaluations[key] = (hit / np.log2(gt_ranks + 1)).mean()
             else:
                 raise ValueError("Undefined evaluation metric: {}.".format(metric))
+    return evaluations
+
+
+def auc_score(labels: np.ndarray, predictions: np.ndarray) -> float:
+    """Tie-aware ROC AUC (Mann-Whitney with average ranks).
+
+    Matches sklearn.metrics.roc_auc_score, which the reference calls
+    (src/helpers/CTRRunner.py:35), without the sklearn dependency at
+    runtime (tests assert parity against sklearn).
+    """
+    labels = np.asarray(labels).astype(np.int64)
+    predictions = np.asarray(predictions, dtype=np.float64)
+    n_pos = int(labels.sum())
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        raise ValueError("AUC undefined with a single class")
+    order = np.argsort(predictions, kind="mergesort")
+    sorted_pred = predictions[order]
+    # average ranks over tie groups (1-indexed)
+    ranks = np.empty(len(predictions), dtype=np.float64)
+    base = np.arange(1, len(predictions) + 1, dtype=np.float64)
+    # vectorized tie-group averaging
+    _, inverse, counts = np.unique(sorted_pred, return_inverse=True, return_counts=True)
+    group_sums = np.bincount(inverse, weights=base)
+    avg_rank_per_group = group_sums / counts
+    ranks[order] = avg_rank_per_group[inverse]
+    pos_rank_sum = ranks[labels == 1].sum()
+    return float((pos_rank_sum - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def log_loss(labels: np.ndarray, predictions: np.ndarray, eps: float = 1e-7) -> float:
+    """BCE with clipping, parity with reference CTRRunner.py:38-40."""
+    p = np.clip(np.asarray(predictions, dtype=np.float64), eps, 1 - eps)
+    y = np.asarray(labels, dtype=np.float64)
+    return float(-(y * np.log(p) + (1 - y) * np.log(1 - p)).mean())
+
+
+def accuracy(labels: np.ndarray, predictions: np.ndarray) -> float:
+    return float(((np.asarray(predictions) > 0.5).astype(int) == np.asarray(labels)).mean())
+
+
+def f1_score(labels: np.ndarray, predictions: np.ndarray) -> float:
+    pred = (np.asarray(predictions) > 0.5).astype(int)
+    y = np.asarray(labels).astype(int)
+    tp = int(((pred == 1) & (y == 1)).sum())
+    fp = int(((pred == 1) & (y == 0)).sum())
+    fn = int(((pred == 0) & (y == 1)).sum())
+    denom = 2 * tp + fp + fn
+    return float(2 * tp / denom) if denom > 0 else 0.0
+
+
+def evaluate_ctr(predictions: np.ndarray, labels: np.ndarray, metrics: List[str]) -> Dict[str, float]:
+    """CTR metric dispatch, parity with reference CTRRunner.py:22-43."""
+    evaluations = dict()
+    for metric in metrics:
+        if metric == "ACC":
+            evaluations[metric] = accuracy(labels, predictions)
+        elif metric == "AUC":
+            evaluations[metric] = auc_score(labels, predictions)
+        elif metric == "F1_SCORE":
+            evaluations[metric] = f1_score(labels, predictions)
+        elif metric == "LOG_LOSS":
+            evaluations[metric] = log_loss(labels, predictions)
+        else:
+            raise ValueError("Undefined evaluation metric: {}.".format(metric))
     return evaluations
 
 

@@ -46,6 +46,7 @@ _MODULES = [
     "rechorus_tpu_torch.data.readers",
     "rechorus_tpu_torch.runners.base",
     "rechorus_tpu_torch.runners.buir",
+    "rechorus_tpu_torch.runners.ctr",
     "rechorus_tpu_torch.models.general.bprmf",
     "rechorus_tpu_torch.models.general.pop",
     "rechorus_tpu_torch.models.general.neumf",
@@ -65,6 +66,16 @@ _MODULES = [
     "rechorus_tpu_torch.models.sequential.chorus",
     "rechorus_tpu_torch.models.sequential.contrarec",
     "rechorus_tpu_torch.models.sequential.timirec",
+    "rechorus_tpu_torch.models.context.fm",
+    "rechorus_tpu_torch.models.context.widedeep",
+    "rechorus_tpu_torch.models.context.deepfm",
+    "rechorus_tpu_torch.models.context.afm",
+    "rechorus_tpu_torch.models.context.dcn",
+    "rechorus_tpu_torch.models.context.dcnv2",
+    "rechorus_tpu_torch.models.context.xdeepfm",
+    "rechorus_tpu_torch.models.context.autoint",
+    "rechorus_tpu_torch.models.context.sam",
+    "rechorus_tpu_torch.models.context.finalmlp",
 ]
 
 

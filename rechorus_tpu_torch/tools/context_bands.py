@@ -1,0 +1,231 @@
+"""Seed bands of the context models' published commands, through a CLI.
+
+    python -m rechorus_tpu_torch.tools.context_bands --suite topk_grocery --seeds 0,1,2
+    python -m rechorus_tpu_torch.tools.context_bands --suite ctr_ml1m --cpu --jobs 2
+    python -m rechorus_tpu_torch.tools.context_bands --suite fm_parity --seeds 0,1,2
+
+Each run is `python -m <package>.main --model_name <M> --model_mode <mode>
+<flags> ...` in a subprocess, on a corpus written under `--work` (each run
+in a directory of its own, the CSVs linked, so that parallel runs never
+share a corpus cache). `--package` names the CLI: this package's by
+default (on CUDA device 0, or on the CPU with `--cpu`); any other package
+with the same command-line grammar can be named, and the environment
+passes through to its processes unchanged. Every run prints one JSON line
+with its dev and test metrics and its wall time; the last line holds the
+per-seed lists of each model.
+
+Suites (the flags are docs/benchmark_commands.md's, D = 64):
+  topk_grocery  two epochs of the ten TopK modes (:42-51, ML-1M top-k
+                flags) on the committed Grocery corpus, FinalMLP's
+                feature-selection contexts user_id and item_id (Grocery has
+                no situation columns, and its i_category is a float
+                feature);
+  ctr_ml1m      two epochs of the ten CTR modes (:68-77, ML-1M CTR flags)
+                on `make_ctr_dataset` at ML-1M's users, items and 18
+                genres, 40 rows a user; FinalMLP's contexts c_hour_c and
+                i_category_c;
+  fm_parity     FMCTR on SynthCTRBig and FMTopK on SynthTOPK with the
+                cross-framework parity flags (emb 32, 30 epochs, early stop
+                5, user, item and situation features).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+from rechorus_tpu_torch.data import synthetic
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+GROCERY = "Grocery_and_Gourmet_Food"
+EPOCHS = 2          # of the topk_grocery and ctr_ml1m suites
+
+TOPK_COMMON = ["--num_neg", "1", "--batch_size", "256", "--eval_batch_size", "128",
+               "--metric", "NDCG,HR", "--topk", "3,5,10,20",
+               "--include_item_features", "1", "--include_situation_features", "1"]
+TOPK_MODELS = {  # docs/benchmark_commands.md:42-51 (ML-1M top-k)
+    "FM": ["--lr", "1e-3", "--l2", "0"],
+    "WideDeep": ["--lr", "1e-3", "--l2", "0", "--dropout", "0.5", "--layers", "[64,64,64]"],
+    "DeepFM": ["--lr", "5e-4", "--l2", "1e-6", "--dropout", "0.5", "--layers", "[512,128]"],
+    "AFM": ["--lr", "5e-3", "--l2", "0", "--dropout", "0.5", "--attention_size", "64",
+            "--reg_weight", "2.0"],
+    "DCN": ["--lr", "5e-4", "--l2", "1e-4", "--layers", "[64,64,64]", "--cross_layer_num", "2",
+            "--reg_weight", "0.5"],
+    "xDeepFM": ["--lr", "5e-4", "--l2", "0", "--dropout", "0.8", "--layers", "[512,512,512]",
+                "--cin_layers", "[8,8]", "--direct", "0", "--reg_weight", "1.0"],
+    "AutoInt": ["--lr", "2e-3", "--l2", "0", "--dropout", "0", "--attention_size", "64",
+                "--num_heads", "2", "--num_layers", "2", "--layers", "[256]"],
+    "DCNv2": ["--dropout", "0", "--lr", "1e-3", "--l2", "1e-4", "--layers", "[256,64]",
+              "--cross_layer_num", "2", "--mixed", "0", "--structure", "stacked", "--low_rank", "64",
+              "--expert_num", "2", "--reg_weight", "2.0"],
+    "FinalMLP": ["--mlp1_hidden_units", "[64]", "--mlp2_hidden_units", "[64,64,64]",
+                 "--mlp1_dropout", "0.5", "--mlp2_dropout", "0.2", "--use_fs", "1",
+                 "--mlp1_batch_norm", "0", "--mlp2_batch_norm", "0", "--lr", "1e-3", "--l2", "0",
+                 "--fs1_context", "user_id", "--fs2_context", "item_id"],
+    "SAM": ["--lr", "1e-3", "--l2", "1e-4", "--interaction_type", "SAM3A",
+            "--aggregation", "mean_pooling", "--num_layers", "1", "--use_residual", "1",
+            "--dropout", "0.2"],
+}
+CTR_COMMON = ["--num_neg", "0", "--batch_size", "1024", "--metric", "AUC,Log_loss",
+              "--include_item_features", "1", "--include_situation_features", "1",
+              "--loss_n", "BCE"]
+CTR_MODELS = {  # docs/benchmark_commands.md:68-77 (ML-1M CTR)
+    "FM": ["--lr", "1e-3", "--l2", "1e-4"],
+    "WideDeep": ["--lr", "5e-3", "--l2", "0", "--dropout", "0.5", "--layers", "[64,64,64]"],
+    "DeepFM": ["--lr", "1e-3", "--l2", "1e-4", "--dropout", "0.2", "--layers", "[512,128]"],
+    "AFM": ["--lr", "5e-4", "--l2", "1e-4", "--dropout", "0.8", "--attention_size", "128",
+            "--reg_weight", "0.5"],
+    "DCN": ["--lr", "5e-4", "--l2", "1e-4", "--layers", "[512,128]", "--cross_layer_num", "1",
+            "--reg_weight", "0.5"],
+    "xDeepFM": ["--lr", "1e-3", "--l2", "1e-4", "--layers", "[512,512,512]", "--cin_layers", "[8,8]",
+                "--direct", "0", "--reg_weight", "0"],
+    "AutoInt": ["--lr", "2e-3", "--l2", "1e-6", "--dropout", "0.2", "--attention_size", "64",
+                "--num_heads", "2", "--num_layers", "2", "--layers", "[64,64,64]"],
+    "DCNv2": ["--lr", "1e-3", "--l2", "1e-4", "--layers", "[256,256,256]", "--cross_layer_num", "3",
+              "--mixed", "0", "--structure", "parallel", "--low_rank", "64", "--expert_num", "1",
+              "--reg_weight", "2.0"],
+    "FinalMLP": ["--mlp1_dropout", "0.2", "--mlp2_dropout", "0.5", "--mlp1_batch_norm", "1",
+                 "--mlp2_batch_norm", "1", "--use_fs", "1", "--lr", "5e-3", "--l2", "1e-6",
+                 "--fs1_context", "c_hour_c", "--fs2_context", "i_category_c",
+                 "--mlp1_hidden_units", "[64]", "--mlp2_hidden_units", "[64,64]",
+                 "--fs_hidden_units", "[256,64]"],
+    "SAM": ["--lr", "1e-3", "--l2", "1e-4", "--interaction_type", "SAM3A",
+            "--aggregation", "mean_pooling", "--num_layers", "1", "--use_residual", "0",
+            "--dropout", "0.5"],
+}
+# the CTR corpus at ML-1M's users, items and genres; 40 rows a user where
+# ML-1M averages 165 (a cut of depth)
+CTR_ML1M = dict(n_users=6040, n_items=3706, n_per_user=40, n_groups=18, expose_bias=0.6)
+# scripts/cross_parity.py's generator settings (:128-133) and flags (FM CTR
+# :46-47, FM TopK :78-80, COMMON :114-117 without its --gpu '')
+PARITY_DATA = dict(n_users=400, n_items=120, n_per_user=20, expose_bias=0.6)
+PARITY_COMMON = ["--epoch", "30", "--early_stop", "5", "--num_workers", "0",
+                 "--include_item_features", "1", "--include_user_features", "1",
+                 "--include_situation_features", "1", "--save_final_results", "0"]
+PARITY_RUNS = {  # (model, mode): (flags, dataset)
+    ("FM", "CTR"): (["--emb_size", "32", "--lr", "5e-3", "--l2", "1e-6", "--loss_n", "BCE",
+                     "--metric", "AUC,LOG_LOSS"], "SynthCTRBig"),
+    ("FM", "TopK"): (["--emb_size", "32", "--lr", "5e-3", "--l2", "1e-6", "--num_neg", "1",
+                      "--metric", "NDCG,HR", "--topk", "1,3,5", "--main_metric", "NDCG@3"],
+                     "SynthTOPK"),
+}
+
+
+def make_corpus(data_root: str, dataset: str) -> None:
+    """Write (or link) `dataset` under `data_root` if it is not there."""
+    path = os.path.join(data_root, dataset)
+    if os.path.exists(path):
+        return
+    if dataset == GROCERY:
+        os.makedirs(path)
+        for name in ("train.csv", "dev.csv", "test.csv", "item_meta.csv"):
+            os.symlink(os.path.join(ROOT, "data", GROCERY, name), os.path.join(path, name))
+    elif dataset == "CTR_ML1M":
+        synthetic.make_ctr_dataset(path, **CTR_ML1M)
+    elif dataset == "SynthCTRBig":
+        synthetic.make_ctr_dataset(path, **PARITY_DATA)
+    elif dataset == "SynthTOPK":
+        synthetic.make_ctr_dataset(path, **PARITY_DATA, topk=True)
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
+
+
+def suite_runs(suite: str):
+    """[(model, mode, flags, dataset)] of a suite."""
+    if suite == "topk_grocery":
+        return [(m, "TopK", f + TOPK_COMMON + ["--epoch", str(EPOCHS)], GROCERY)
+                for m, f in TOPK_MODELS.items()]
+    if suite == "ctr_ml1m":
+        return [(m, "CTR", f + CTR_COMMON + ["--epoch", str(EPOCHS)], "CTR_ML1M")
+                for m, f in CTR_MODELS.items()]
+    if suite == "fm_parity":
+        return [(m, mode, flags + PARITY_COMMON, ds) for (m, mode), (flags, ds) in PARITY_RUNS.items()]
+    raise ValueError(f"unknown suite {suite!r}")
+
+
+def metrics_of(text: str, prefix: str) -> dict:
+    """{'HR@5': 0.31, ...} of the last log line that starts with `prefix`."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        return {}
+    body = lines[-1][lines[-1].index("(") + 1: lines[-1].rindex(")")]
+    return {k: float(v) for k, v in (kv.split(":") for kv in body.split(","))}
+
+
+def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str, seed: int,
+            cpu: bool) -> dict:
+    """One CLI run in a directory of its own under `work`."""
+    tag = f"{model}{mode}_{dataset}_{seed}"
+    run_dir = os.path.join(work, tag)
+    data_root = os.path.join(run_dir, "data")
+    os.makedirs(data_root, exist_ok=True)
+    shared = os.path.join(work, "_corpora", dataset)
+    target = os.path.join(data_root, dataset)
+    if not os.path.exists(target):
+        os.makedirs(target)
+        for name in os.listdir(shared):
+            if name.endswith(".csv"):
+                os.symlink(os.path.realpath(os.path.join(shared, name)), os.path.join(target, name))
+    log = os.path.join(run_dir, "run.log")
+    argv = [sys.executable, "-m", f"{package}.main", "--model_name", model, "--model_mode", mode,
+            *flags, "--dataset", dataset, "--path", data_root, "--random_seed", str(seed),
+            "--log_file", log, "--model_path", os.path.join(run_dir, "model.bin")]
+    if "--save_final_results" not in flags:
+        argv += ["--save_final_results", "0"]
+    if cpu:
+        argv += ["--gpu", ""]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([ROOT] + [p for p in [env.get("PYTHONPATH", "")] if p])
+    t = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=run_dir, env=env)
+    seconds = time.perf_counter() - t
+    text = open(log).read() if os.path.exists(log) else ""
+    out = dict(model=model + mode, dataset=dataset, seed=seed, rc=proc.returncode,
+               seconds=round(seconds, 3), dev=metrics_of(text, "Dev  After Training"),
+               test=metrics_of(text, "Test After Training"),
+               epochs=len(re.findall(r"^Epoch \d+ ", text, re.M)))
+    if proc.returncode:
+        out["stderr_tail"] = proc.stderr[-2000:]
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--suite", required=True, choices=["topk_grocery", "ctr_ml1m", "fm_parity"])
+    parser.add_argument("--seeds", default="0,1,2")
+    parser.add_argument("--package", default="rechorus_tpu_torch", help="package whose main.py runs")
+    parser.add_argument("--cpu", action="store_true", help="pass --gpu '' (the CPU)")
+    parser.add_argument("--jobs", type=int, default=1, help="runs at a time")
+    parser.add_argument("--work", default="", help="work directory (default: a temporary one)")
+    opts = parser.parse_args(argv)
+    seeds = [int(s) for s in opts.seeds.split(",")]
+    runs = suite_runs(opts.suite)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.abspath(opts.work or tmp)
+        for ds in {r[3] for r in runs}:
+            make_corpus(os.path.join(work, "_corpora"), ds)
+        jobs = [(r, s) for r in runs for s in seeds]
+        results = []
+        with ThreadPoolExecutor(max_workers=max(1, opts.jobs)) as pool:
+            for res in pool.map(lambda j: run_one(opts.package, work, *j[0], j[1], opts.cpu), jobs):
+                print(json.dumps(res), flush=True)
+                results.append(res)
+    summary = {}
+    for res in results:
+        row = summary.setdefault(res["model"], {"seeds": [], "dev": {}, "test": {}})
+        row["seeds"].append(res["seed"])
+        for split in ("dev", "test"):
+            for k, v in res[split].items():
+                row[split].setdefault(k, []).append(v)
+    print(json.dumps({"suite": opts.suite, "package": opts.package, "summary": summary}), flush=True)
+    return int(any(r["rc"] for r in results))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,9 +10,13 @@ the kind of each module, which fixes how its leaves cross:
   embed       `embedding` -> `weight`
   dense       `kernel` [in, out] -> `weight` [out, in] (transposed), `bias`
   layer_norm  `scale` -> `weight`, `bias`
+  batch_norm  `scale` -> `weight`, `bias`, and from the flax `batch_stats`
+              collection `mean` -> `running_mean`, `var` -> `running_var`
   conv        `kernel` HWIO -> `weight` OIHW, `bias`
-  param       a raw top-level parameter (flax `self.param`), the same
-              name and axes on both sides
+  embed_or_dense  a module that is an embed or a dense by the data (FinalMLP's
+              feature-selection embeddings): its flax leaf says which
+  param       raw parameters (flax `self.param`), the same name and axes on
+              both sides: a top-level one, or every leaf of the module
 
 The torch module path is the flax one with '/' -> '.' and flax's
 `GRUCell_0` -> `cell`. Every transform is a permutation of axes, so a
@@ -66,13 +70,44 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
                 rf"interest_predictor/rnn/GRUCell_0/{_GRU}": "dense", r"proj_(\d+|final)": "dense"},
 }
 FLAX_TO_TORCH["ContraKDA"] = FLAX_TO_TORCH["KDA"]
+_BANK = {"bank/(fused_table|fused_linear)": "embed", r"bank/float_(emb|lin)_\d+": "dense"}
+
+
+def _mlp(prefix: str) -> dict:
+    return {rf"{prefix}/(dense_\d+|head)": "dense", rf"{prefix}/bn_\d+": "batch_norm"}
+
+
+_CONTEXT = {
+    "FM": {**_BANK, "overall_bias": "param"},
+    "WideDeep": {**_BANK, "overall_bias": "param", **_mlp("deep_layers")},
+    "AFM": {**_BANK, "(overall_bias|p|attlayer)": "param", "attlayer/w": "dense"},
+    "DCN": {**_BANK, r"cross_[wb]_\d+": "param", **_mlp("deep_layers"), "predict_layer": "dense"},
+    "DCNv2": {**_BANK, r"cross_(w2|b|u|v|c)_\d+": "param", r"gating_\d+": "dense",
+              **_mlp("deep_layers"), "predict_layer": "dense"},
+    "xDeepFM": {**_BANK, "overall_bias": "param", **_mlp("deep_layers"), r"cin_[wb]_\d+": "param",
+                "cin_linear": "dense"},
+    "AutoInt": {**_BANK, "overall_bias": "param", r"att_\d+/([qkv]|out_proj)": "dense",
+                r"residual_\d+": "dense", **_mlp("deep_layers")},
+    "SAM": {**_BANK, "block": "param", r"block/[KQ]_\d+": "dense", "output_layer": "dense"},
+    "FinalMLP": {**_BANK, r"(fs[12]_ctx_bias|w_xy)": "param", r"fs[12]_emb_\d+": "embed_or_dense",
+                 **_mlp(r"(mlp[12]|fs[12]_gate)"), "w_[xy]": "dense"},
+}
+_CONTEXT["DeepFM"] = _CONTEXT["WideDeep"]
+for _name, _mapping in _CONTEXT.items():
+    FLAX_TO_TORCH[_name + "CTR"] = FLAX_TO_TORCH[_name + "TopK"] = _mapping
 # kind -> {flax leaf: (torch leaf, flax -> torch axes)}; None keeps the axes
 _LEAVES = {
     "embed": {"embedding": ("weight", None)},
     "dense": {"kernel": ("weight", (1, 0)), "bias": ("bias", None)},
     "layer_norm": {"scale": ("weight", None), "bias": ("bias", None)},
     "conv": {"kernel": ("weight", (3, 2, 0, 1)), "bias": ("bias", None)},
+    "batch_norm": {"scale": ("weight", None), "bias": ("bias", None),
+                   "mean": ("running_mean", None), "var": ("running_var", None)},
+    "embed_or_dense": {"embedding": ("weight", None), "kernel": ("weight", (1, 0)),
+                       "bias": ("bias", None)},
 }
+# flax leaves of the `batch_stats` collection; every other leaf is a param
+_BATCH_STATS = {"mean", "var"}
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -97,7 +132,10 @@ def _torch_leaf(model: str, path) -> tuple:
             raise KeyError(f"{model}: unmapped flax leaf {path[0]!r}")
         return path[0], None
     module = "/".join(path[:-1])
-    leaves = _LEAVES[_kind(model, module)]
+    kind = _kind(model, module)
+    if kind == "param":  # a raw parameter of a submodule
+        return ".".join(path), None
+    leaves = _LEAVES[kind]
     if path[-1] not in leaves:
         raise KeyError(f"{model}: unmapped flax leaf {'/'.join(path)!r}")
     name, axes = leaves[path[-1]]
@@ -114,29 +152,40 @@ def _to_torch(tree: Mapping, model: str) -> Dict[str, torch.Tensor]:
 
 
 def from_flax_params(params: Mapping, model: str = "BPRMF") -> Dict[str, torch.Tensor]:
-    """torch `state_dict` (float32) for `model` from its flax param tree.
+    """torch `state_dict` entries (float32) for `model` from its flax param
+    tree, or from its `batch_stats` tree (the BatchNorm running buffers).
     A module or leaf that `FLAX_TO_TORCH[model]` does not know raises."""
     return _to_torch(params, model)
 
 
-def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF") -> dict:
-    """The inverse of `from_flax_params`: the nested flax param tree (numpy
-    float32 leaves) of a torch `state_dict`, so a model trained here can
-    be scored by the JAX package."""
+def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
+                   collection: str = "params") -> dict:
+    """The inverse of `from_flax_params`: the nested flax tree (numpy
+    float32 leaves) of the `collection` ('params' or 'batch_stats') that a
+    torch `state_dict` holds, so a model trained here can be scored by the
+    JAX package. Entries of the other collection are left out."""
     tree: dict = {}
     for key, value in state_dict.items():
         parts = key.split(".")
         if len(parts) == 1:  # a raw top-level parameter
             if _kind(model, key) != "param":
                 raise KeyError(f"{model}: unmapped torch parameter {key!r}")
-            tree[key] = value.detach().float().cpu().numpy().copy()
+            if collection == "params":
+                tree[key] = value.detach().float().cpu().numpy().copy()
             continue
         path = ["GRUCell_0" if p == "cell" else p for p in parts[:-1]]
-        leaves = _LEAVES[_kind(model, "/".join(path))]
-        match = [(f, axes) for f, (t, axes) in leaves.items() if t == parts[-1]]
+        kind = _kind(model, "/".join(path))
+        if kind == "param":
+            match = [(parts[-1], None)]
+        else:
+            match = [(f, axes) for f, (t, axes) in _LEAVES[kind].items() if t == parts[-1]]
+        if len(match) > 1:  # embed_or_dense: a Dense(1 -> d) weight is [d, 1]
+            match = [m for m in match if (m[0] == "kernel") == (value.shape[-1] == 1)]
         if not match:
             raise KeyError(f"{model}: unmapped torch parameter {key!r}")
         flax_leaf, axes = match[0]
+        if (flax_leaf in _BATCH_STATS) != (collection == "batch_stats"):
+            continue
         arr = value.detach().float().cpu().numpy()
         node = tree
         for part in path:

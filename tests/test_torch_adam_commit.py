@@ -23,6 +23,17 @@ N, D, N_IDS, LR, COUNT = 60, 8, 48, 1e-2, 3
 PATH = ("emb",)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed: int, dtype: str):
     """p [N, D] (rounded to `dtype`), mu, nu [N, D] f32, the step's ids
     with duplicates, and their dedup: rows, scatter (losers at N) with two

@@ -44,7 +44,15 @@ def test_importing_the_port_loads_no_jax_module():
             "rechorus_tpu_torch.models.sequential.slrcplus",
             "rechorus_tpu_torch.models.sequential.chorus",
             "rechorus_tpu_torch.models.sequential.contrarec",
-            "rechorus_tpu_torch.models.sequential.timirec"} <= set(result["imported"])
+            "rechorus_tpu_torch.models.sequential.timirec",
+            "rechorus_tpu_torch.data.context", "rechorus_tpu_torch.ops.feature_bank",
+            "rechorus_tpu_torch.runners.ctr", "rechorus_tpu_torch.models.context._modes",
+            "rechorus_tpu_torch.models.context.fm", "rechorus_tpu_torch.models.context.widedeep",
+            "rechorus_tpu_torch.models.context.deepfm", "rechorus_tpu_torch.models.context.afm",
+            "rechorus_tpu_torch.models.context.dcn", "rechorus_tpu_torch.models.context.dcnv2",
+            "rechorus_tpu_torch.models.context.xdeepfm", "rechorus_tpu_torch.models.context.autoint",
+            "rechorus_tpu_torch.models.context.sam", "rechorus_tpu_torch.models.context.finalmlp",
+            "rechorus_tpu_torch.tools.context_bands"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 

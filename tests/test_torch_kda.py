@@ -54,6 +54,17 @@ MODEL = dict(emb_size=16, num_layers=1, num_heads=2, history_max=5, gamma=-1.0, 
              test_all=0, host_shard_input=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reader_args(root, dataset, **kw):
     """KDAReader's flags; Grocery at bench.py's --n_dft default."""
     return argparse.Namespace(path=str(root), dataset=dataset, sep="\t", include_attr=1,

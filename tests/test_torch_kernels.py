@@ -25,6 +25,17 @@ from test_torch_cuda_kernels import SHAPES
 NEAR_TIE_RTOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, kind, *shape):
     if kind == "int":
         return rng.integers(-8, 9, size=shape).astype(np.float32)

@@ -22,6 +22,17 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 GROCERY = "Grocery_and_Gourmet_Food"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _seeded_triplets(seed=0, n=20_000, n_rel=4, n_ent=5_000):
     rng = np.random.default_rng(seed)
     return (rng.integers(1, n_ent, n), rng.integers(1, n_rel, n), rng.integers(1, n_ent, n),

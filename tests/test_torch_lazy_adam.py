@@ -39,6 +39,17 @@ LANES = {  # name: runner flags
 U, I = "u_embeddings.weight", "i_embeddings.weight"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_lazy")

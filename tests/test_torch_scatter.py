@@ -13,6 +13,17 @@ from rechorus_tpu.ops.pallas_scatter import scatter_rows as jax_scatter_rows
 from rechorus_tpu_torch.ops.cuda_scatter import scatter_rows, scatter_rows_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(N, D, R, seed, drop=(3, 11)):
     rng = np.random.default_rng(seed)
     table = rng.normal(size=(N, D)).astype(np.float32)

@@ -22,6 +22,17 @@ from rechorus_tpu_torch.data.readers import SeqReader
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tied_root(tmp_path_factory):
     """150 users x 80 items; times coarsened to 3-day buckets, so most

@@ -73,6 +73,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reader_args(root, dataset):
     return argparse.Namespace(path=str(root), dataset=dataset, sep="\t", include_attr=1,
                               t_scalar=60, n_dft=64 if dataset == GROCERY else 32, freq_rand=0,

@@ -37,6 +37,17 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 EMB = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _args(**kw):
     return argparse.Namespace(path=DATA, dataset="Grocery_and_Gourmet_Food", sep="\t",
                               emb_size=EMB, num_neg=1, dropout=0.0, test_all=1, **kw)

@@ -25,6 +25,17 @@ from rechorus_tpu_torch.ops import metrics as tmetrics
 from rechorus_tpu_torch.ops import topk as TT
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def jax_pallas_route():
     JT.PALLAS = "on"

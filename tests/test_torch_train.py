@@ -31,6 +31,17 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 EMB = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's default of one per core oversubscribes
+    the CPUs when test processes run side by side, and these small ops
+    gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _args(**kw):
     ns = tbase.BaseRunner.parse_runner_args(argparse.ArgumentParser()).parse_args([])
     ns.__dict__.update(path=DATA, dataset="Grocery_and_Gourmet_Food", sep="\t", emb_size=EMB,
