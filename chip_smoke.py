@@ -49,6 +49,20 @@ shapes the main path gives it, and drives the port's main paths:
     (BCE over an AUC floor, the step profile; FMCTR's pCTR export equal to
     CTRRunner.predict, DCNCTR's reload with its BatchNorm statistics,
     FMCTR's `--lazy_emb_adam 1` dense);
+  * the impression task through the CLI on an ML-1M-sized synthetic
+    impression corpus (6,040 users, 3,706 items, 10 requests a user):
+    BPRMFImpression under the BPR, listnet, softmaxCE and attention_rank
+    losses, LightGCNImpression, SASRecImpression and GRU4RecImpression
+    (over dev NDCG@3 floors from the JAX package's bands, the step
+    profile), BPRMFImpression's logged export against
+    ImpressionRunner.predict and its reload, a `--test_all 1` run (the
+    catalog as the negative block, the top-100 export) and a
+    `--lazy_emb_adam 1` run (the Adam commit, then the plain commit, which
+    must end bit-equal); then the re-rankers PRM, SetRank and MIR in
+    General mode over the BPRMFImpression checkpoint and in Sequential
+    mode over the SASRecImpression one (the log names the loaded ranker;
+    floors; the step profile), the frozen ranker bit-equal over training
+    steps, `--tuneranker 1` moving it, and the `--test_all` error;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
@@ -302,6 +316,34 @@ KDA_TRAINED_CHUNK = 2048
 # a KDA step's entity rows at batch 256: item_id [256, 2], history_items
 # [256, 20], item_val [256, 2, 4], head_id and tail_id [256, 2], value_id [256]
 KDA_ENTITY_ROWS = 256 * (2 + SEQ_HISTORY + 2 * 4 + 2 + 2 + 1)
+# The impression cell: make_impression_dataset at ML-1M's 6,040 users and
+# 3,706 items, 10 requests a user at noise 0.3 (context_bands.IMP_ML1M), the
+# impression models (context_bands.IMP_MODELS) for IMP_EPOCHS epochs and the
+# re-rankers (context_bands.RERANKERS) for RERANK_EPOCHS over the first
+# stage's BPRMFImpression (General) and SASRecImpression (Sequential)
+# checkpoints. Floors on dev NDCG@3: the minimum of the JAX package's band
+# less 0.02, from its CLI on a CPU with the same commands at --random_seed
+# 0, 1, 2 (python -m rechorus_tpu_torch.tools.context_bands --suite
+# impression_ml1m|rerank_ml1m --package rechorus_tpu --cpu): BPRMFImpression
+# 0.4277, 0.4328, 0.4299; with listnet 0.4128, 0.4142, 0.4116; softmaxCE
+# 0.4247, 0.4309, 0.4259; attention_rank 0.4297, 0.4330, 0.4318;
+# LightGCNImpression 0.6055, 0.6134, 0.6101; SASRecImpression 0.4276,
+# 0.4343, 0.4379; GRU4RecImpression 0.4140, 0.4110, 0.4149; BPRMFImpression
+# --lazy_emb_adam 1 0.4032, 0.4123, 0.4202; one re-rank epoch: PRMGeneral
+# 0.4237, 0.4292, 0.4270; SetRankGeneral 0.4277, 0.4259, 0.4299; MIRGeneral
+# 0.4841, 0.4916, 0.4819; PRMSequential 0.4283, 0.4348, 0.4367;
+# SetRankSequential 0.4283, 0.4352, 0.4374; MIRSequential 0.4087, 0.4178,
+# 0.4161.
+IMP_FLOORS = {"BPRMF": 0.4077, "BPRMF_listnet": 0.3916, "BPRMF_softmaxCE": 0.4047,
+              "BPRMF_attention_rank": 0.4097, "LightGCN": 0.5855, "SASRec": 0.4076, "GRU4Rec": 0.3910,
+              "BPRMF_lazy": 0.3832}
+RERANK_FLOORS = {"PRMGeneral": 0.4037, "SetRankGeneral": 0.4059, "MIRGeneral": 0.4619,
+                 "PRMSequential": 0.4083, "SetRankSequential": 0.4083, "MIRSequential": 0.3887}
+IMP_DATASET = "Imp_ML1M"
+# a BPRMFImpression step's item ids at batch 256: up to 9 valid ones a
+# request (1-3 positives, 3-6 negatives); the other slots of the caps'
+# 40 are the pad id 0, one row
+IMP_ITEM_ROWS = 256 * 9
 
 
 def emit(phase: str, **fields) -> None:
@@ -647,7 +689,9 @@ COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # pac
                 ("packed", 8714, 1, torch.float32, 2 * 256, 0.0),    # KDA's item_bias (D = 1)
                 ("packed", 14682, EMB, torch.float32, 256, 1e-6),    # Grocery's user table
                 ("packed", 14682, 1, torch.float32, 256, 0.0),       # SLRCPlus's user_bias (D = 1)
-                ("packed", 8714, 3, torch.float32, 2 * 256, 1e-5)]   # SLRCPlus's Hawkes tables (D = R = 3)
+                ("packed", 8714, 3, torch.float32, 2 * 256, 1e-5),   # SLRCPlus's Hawkes tables (D = R = 3)
+                ("packed", 3707, EMB, torch.float32, IMP_ITEM_ROWS, 1e-6),  # BPRMFImpression's item table
+                ("packed", 6041, EMB, torch.float32, 256, 1e-6)]            # ... and its user table
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -1879,6 +1923,221 @@ def phase_train_ctr(totals):
     return out
 
 
+def _imp_argv(tmp, run, tag, *extra, epochs=None):
+    """The CLI command of impression run `run` (context_bands.IMP_MODELS) on
+    the impression cell, its log and checkpoint at tmp/<tag>."""
+    model, flags = CB.IMP_MODELS[run]
+    return ["--model_name", model, "--model_mode", "Impression", *flags, *CB.IMP_COMMON,
+            "--dataset", IMP_DATASET, "--path", os.path.join(tmp, "data"),
+            "--epoch", str(CB.IMP_EPOCHS if epochs is None else epochs), "--random_seed", str(SEED),
+            "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
+
+
+def _export_values(cell: str) -> list:
+    """The numbers of an exported list cell ('[np.float32(1.5), ...]' or
+    '[1.5, ...]')."""
+    return [float(x) for x in re.findall(r"-?\d+(?:\.\d+)?(?:e-?\d+)?(?=\)|,|\])", cell)]
+
+
+def phase_train_impression(totals, tmp):
+    """The impression task through the CLI on the card, on the impression
+    cell (make_impression_dataset at ML-1M's users and items, written under
+    `tmp`): each run of context_bands.IMP_MODELS for CB.IMP_EPOCHS epochs
+    (the loss falls, dev NDCG@3 over its floor, the steady step's profile);
+    BPRMFImpression's logged export against ImpressionRunner.predict on the
+    trained weights and its reload (`--load 1 --train 0` reproduces the
+    test metrics); a `--test_all 1` run (neg_num = n_items - 1 - #clicked on
+    every row, as many valid catalog columns, the export's 100 rec_items
+    outside the clicked set); the `--lazy_emb_adam 1` run (two Adam commits
+    a step, the B4 kernel), then the same run with the plain commit, which
+    must end bit-equal. The BPR and SASRec runs' checkpoints are the
+    re-rank phase's first stages."""
+    from rechorus_tpu_torch.runners.impression import ImpressionRunner
+
+    t0 = time.perf_counter()
+    out = {}
+    data = os.path.join(tmp, "data", IMP_DATASET)
+    t = time.perf_counter()
+    synthetic.make_impression_dataset(data, **CB.IMP_ML1M)
+    gen_s = time.perf_counter() - t
+    rargs, _, reader_cls, _ = port_main.parse_cli(_imp_argv(tmp, "BPRMF", "reader"))
+    t = time.perf_counter()
+    corpus = port_main.build_corpus(rargs, reader_cls)
+    reader_s = time.perf_counter() - t
+    rows = {k: len(corpus.data_df[k]) for k in ("train", "dev", "test")}
+    steps = -(-rows["train"] // 256)
+    clicked = (corpus.pos_clicked_matrix() > 0).sum(1)
+    n_items = corpus.n_items
+    del corpus
+    for run, floor in IMP_FLOORS.items():
+        if run == "BPRMF_lazy":
+            continue
+        res = out[run] = {}
+        export = ["--save_final_results", "1"] if run == "BPRMF" else []
+        state, text, launches, secs, peak = _context_run(totals, tmp, _imp_argv(tmp, run, run, *export), run)
+        dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
+        res["train"] = dict(seconds=secs, losses=_context_checked(text, CB.IMP_EPOCHS, run), dev=dev, test=test,
+                            launches=launches, peak_memory_bytes=peak,
+                            epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
+                                                                  text, re.M)])
+        check(set(test) == {f"{m}@{k}" for m in ("NDCG", "HR", "MAP") for k in (1, 3, 5)}
+              and all(np.isfinite(v) for v in test.values()), f"{run}: finite NDCG, HR, MAP @1,3,5")
+        check(dev["NDCG@3"] > floor, f"{run} dev NDCG@3 {dev['NDCG@3']} above {floor}")
+        res["lane"] = _grocery_lane(run, _imp_argv(tmp, run, "profile", epochs=1), 0)
+        if run == "BPRMF":
+            # the logged export equals the runner's predictions on the trained weights
+            args, model_cls, reader_cls, runner_cls = port_main.parse_cli(_imp_argv(tmp, run, run))
+            runner = runner_cls(args)
+            b = get_batcher(model_cls.batcher)(port_main.build_corpus(args, reader_cls), state.model, "test", args)
+            preds, pos_num, neg_num = runner.predict(state, b, b.device_arrays(runner.device), "test")
+            exp = pd.read_csv(os.path.join(data, "rec-BPRMFImpression-test.csv"), sep="\t")
+            check(list(exp.columns) == ["user_id", "pos_items", "pos_predictions", "neg_items", "neg_predictions"]
+                  and len(exp) == rows["test"], f"BPRMFImpression export: {list(exp.columns)} x {len(exp)}")
+            P = b.pos_len
+            check(all(np.array_equal(np.asarray(_export_values(c), np.float32), np.round(r[:n], 4))
+                      for col, block, num in (("neg_predictions", preds[:, P:], neg_num),
+                                              ("pos_predictions", preds[:, :P], pos_num))
+                      for c, r, n in zip(exp[col], block, num)),
+                  "BPRMFImpression export = ImpressionRunner.predict, rounded to 4 places")
+            _, text2, _, secs2, _ = _context_run(totals, tmp, _imp_argv(tmp, run, run, "--load", "1", "--train", "0"),
+                                                 "BPRMF_reload")
+            check(_log_metrics(text2, "Test Before Training") == test
+                  and _log_metrics(text2, "Test After Training") == test,
+                  "BPRMFImpression reload reproduces the test metrics")
+            res["export"] = dict(rows=len(exp), equals_predict=True)
+            res["reload"] = dict(seconds=secs2)
+            del runner, b
+        del state
+    # --test_all 1: the negative block is the catalog
+    state, text, launches, secs, peak = _context_run(
+        totals, tmp, _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", "--save_final_results", "1", epochs=1),
+        "test_all")
+    _context_checked(text, 1, "test_all")
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
+        _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", epochs=1))
+    runner = runner_cls(args)
+    b = get_batcher(model_cls.batcher)(port_main.build_corpus(args, reader_cls), state.model, "test", args)
+    preds, pos_num, neg_num = runner.predict(state, b, b.device_arrays(runner.device), "test")
+    users = b.arrays["user_id"]
+    check(preds.shape[1] == b.pos_len + n_items and np.array_equal(neg_num, n_items - 1 - clicked[users])
+          and np.array_equal(np.isfinite(preds[:, b.pos_len:]).sum(1), neg_num),
+          "--test_all: neg_num = n_items - 1 - #clicked, as many valid catalog columns, on every row")
+    exp = pd.read_csv(os.path.join(data, "rec-BPRMFImpression-test.csv"), sep="\t")
+    rec = [ast.literal_eval(r) for r in exp["rec_items"]]
+    pos_clicked = b.corpus.pos_clicked_matrix()
+    check(list(exp.columns) == ["user_id", "pos_items", "pos_predictions", "rec_items", "rec_predictions"]
+          and all(len(r) == 100 and 0 not in r for r in rec)
+          and not any(set(r) & set(pos_clicked[u][pos_clicked[u] > 0].tolist()) for r, u in zip(rec, users)),
+          "--test_all export: 100 rec_items a row, none clicked, no id 0")
+    out["test_all"] = dict(seconds=secs, launches=launches, peak_memory_bytes=peak, width=int(preds.shape[1]),
+                           test=_log_metrics(text, "Test After Training"), export_rows=len(exp))
+    del state, runner, b, preds
+    # --lazy_emb_adam 1: two commits a step; the plain commit ends bit-equal
+    state, text, launches, secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy"), "lazy")
+    dev = _log_metrics(text, "Dev  After Training")
+    check(launches["adam_commit"] == 2 * steps * CB.IMP_EPOCHS,
+          f"BPRMFImpression lazy: adam_commit launches {launches} != 2 x {steps} x {CB.IMP_EPOCHS}")
+    check(dev["NDCG@3"] > IMP_FLOORS["BPRMF_lazy"],
+          f"BPRMF_lazy dev NDCG@3 {dev['NDCG@3']} above {IMP_FLOORS['BPRMF_lazy']}")
+    kernel_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    del state
+    kernel_commit, LA.adam_commit = LA.adam_commit, LA.adam_commit_plain
+    try:
+        state, _, plain_launches, plain_secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy_plain"),
+                                                               "lazy_plain")
+    finally:
+        LA.adam_commit = kernel_commit
+    check(plain_launches["adam_commit"] == 0, "the plain-commit run launched no kernel")
+    check(all(torch.equal(v, kernel_sd[k]) for k, v in state.model.state_dict().items()),
+          "BPRMFImpression lazy: kernel commit and plain commit end bit-equal")
+    out["lazy"] = dict(seconds=secs, launches=launches, dev=dev, plain_seconds=plain_secs,
+                       kernel_commit_equals_plain_commit=True,
+                       losses=_context_checked(text, CB.IMP_EPOCHS, "lazy"))
+    del state, kernel_sd
+    emit("train_impression", corpus=CB.IMP_ML1M, generator_s=round(gen_s, 3), reader_s=round(reader_s, 3),
+         rows=rows, flags={k: v[1] for k, v in CB.IMP_MODELS.items()}, common=CB.IMP_COMMON, floors=IMP_FLOORS,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_train_rerank(totals, tmp):
+    """The re-rankers through the CLI on the card over the first stages of
+    phase_train_impression (under `tmp`): PRM, SetRank (IMSAB) and MIR in
+    General mode over the BPRMFImpression checkpoint and in Sequential mode
+    over the SASRecImpression one, each with a YAML config of its
+    backbone's model flags (context_bands.RERANKERS, RERANK_COMMON; the
+    log names the loaded ranker, dev NDCG@3 over its floor, the steady
+    step's profile); PRMGeneral's frozen lane (the batcher's ranker
+    bit-equal to the checkpoint after training steps) and its --tuneranker
+    1 lane (the model's ranker_module starts equal to the checkpoint and
+    moves); and the --test_all 1 ValueError."""
+    from rechorus_tpu_torch.data.batching import RERANK_TEST_ALL_ERROR
+
+    t0 = time.perf_counter()
+    out = {}
+    backbones = {"General": "BPRMF", "Sequential": "SASRec"}
+    for b in backbones.values():
+        with open(os.path.join(tmp, b + ".yaml"), "w") as f:
+            f.write(CB.ranker_config(CB.IMP_MODELS[b][1] + CB.IMP_COMMON))
+
+    def argv(name, mode, tag, *extra, epochs=CB.RERANK_EPOCHS):
+        b = backbones[mode]
+        return ["--model_name", name, "--model_mode", mode, *CB.RERANKERS[name], *CB.RERANK_COMMON,
+                "--dataset", IMP_DATASET, "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                "--random_seed", str(SEED), "--model_path", os.path.join(tmp, tag + ".bin"),
+                "--save_final_results", "0", "--ranker_name", b,
+                "--ranker_config_file", os.path.join(tmp, b + ".yaml"),
+                "--ranker_model_file", os.path.join(tmp, b + ".bin"), *extra]
+
+    for run, floor in RERANK_FLOORS.items():
+        mode = "General" if run.endswith("General") else "Sequential"
+        name = run[: -len(mode)]
+        res = out[run] = {}
+        _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, mode, run), run)
+        dev = _log_metrics(text, "Dev  After Training")
+        ckpt = os.path.join(tmp, backbones[mode] + ".bin")
+        check(f"Loaded frozen ranker from {ckpt}" in text, f"{run}: the log names the loaded ranker")
+        res["train"] = dict(seconds=secs, losses=_context_checked(text, CB.RERANK_EPOCHS, run), dev=dev,
+                            test=_log_metrics(text, "Test After Training"), launches=launches,
+                            peak_memory_bytes=peak)
+        check(dev["NDCG@3"] > floor, f"{run} dev NDCG@3 {dev['NDCG@3']} above {floor}")
+        res["lane"] = _grocery_lane(run, argv(name, mode, "profile", epochs=1), 0)
+    # the frozen and the tuned lane of PRMGeneral, a few steps each
+    want = torch.load(os.path.join(tmp, "BPRMF.bin"), map_location="cuda")
+    lanes = {}
+    for tune in (0, 1):
+        args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
+            argv("PRM", "General", f"tune{tune}", "--tuneranker", str(tune)))
+        init_seed(SEED)
+        _, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+        state = runner.init_state(model, SEED, batchers["train"])
+        if tune:
+            check(all(torch.equal(v, want[k]) for k, v in model.ranker_module.state_dict().items()),
+                  "--tuneranker 1: ranker_module starts at the checkpoint")
+        loss = runner.fit(state, batchers["train"], arrays["train"], 1, max_steps=WARM_STEPS)
+        ranker = model.ranker_module if tune else batchers["train"].ranker
+        moved = sum(not torch.equal(v, want[k]) for k, v in ranker.state_dict().items())
+        check(moved > 0 if tune else moved == 0,
+              f"tuneranker {tune}: {moved} ranker tensors moved over {WARM_STEPS} steps")
+        lanes[f"tuneranker_{tune}"] = dict(loss=loss, ranker_tensors_moved=moved,
+                                           ranker_params_trained=sum(k.startswith("ranker_module.")
+                                                                     for k in state.params))
+        del state, runner, model, batchers, arrays
+    out["lanes"] = lanes
+    try:
+        port_main.build_parser_and_run(argv("PRM", "General", "test_all", "--test_all", "1")
+                                       + ["--log_file", os.path.join(tmp, "rr_test_all.log")])
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raised = None
+    check(raised == RERANK_TEST_ALL_ERROR, f"PRMGeneral --test_all 1 raises the JAX package's error: {raised}")
+    out["test_all_error"] = raised
+    emit("train_rerank", flags=CB.RERANKERS, common=CB.RERANK_COMMON, floors=RERANK_FLOORS,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
 def phase_lightgcn_1m(totals, corpus):
     """LightGCN (D=64, 3 layers) over the 1M-item training shape of
     `seq_corpus_1m` (200,000 users x 1M items x 2M uniform interactions):
@@ -2336,15 +2595,84 @@ def phase_launch_path():
     emit("launch_path", **got, seconds=round(time.perf_counter() - t0, 3))
 
 
+def _impression_phases(totals):
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_impression(totals, tmp)
+        phase_train_rerank(totals, tmp)
+
+
+# Phases whose results bound no device time or rate (their floors, counts
+# and checks hold whatever runs beside them) run in worker processes beside
+# the main one, which meanwhile drives the Grocery CLI phases of BPRMF, the
+# sequential models and KDA; the phases whose device times are bounds (the
+# 1M lanes, the windows, serving, the kernels' times) then run alone. Each
+# worker counts its own launches and reports them in its last line.
+WORKERS = {
+    "seq2": (phase_train_grocery_seq2,),
+    "context": (phase_train_grocery_context, phase_train_ctr),
+    "general_impression": (phase_train_grocery_general, _impression_phases),
+}
+
+
+def run_worker(name: str) -> int:
+    """The phases of WORKERS[name] in this process (`--worker NAME`); the
+    library is the one the main process built."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    # four processes share the host's cores: a worker's torch CPU ops take a quarter
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    _build.load()
+    totals = {}
+    for phase in WORKERS[name]:
+        phase(totals)
+    emit("worker_done", worker=name, launches=totals, seconds=round(time.perf_counter() - t0, 3))
+    return 0
+
+
+def start_workers(out_dir: str) -> dict:
+    """{name: (process, stdout path, stderr path)}, one process per worker."""
+    procs = {}
+    for name in WORKERS:
+        out, err = (os.path.join(out_dir, f"{name}.{ext}") for ext in ("out", "err"))
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs[name] = (subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", name],
+                                            stdout=fo, stderr=fe, cwd=ROOT), out, err)
+    return procs
+
+
+def join_workers(procs: dict, totals: dict) -> dict:
+    """Waits for every worker, prints its phase lines, adds its launches to
+    `totals`; raises if one failed. Returns {name: seconds}."""
+    seconds = {}
+    for name, (proc, out, err) in procs.items():
+        rc = proc.wait()
+        lines = open(out).read().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        done = [json.loads(ln) for ln in lines if ln.startswith('{"phase": "worker_done"')]
+        if rc or not done:
+            raise RuntimeError(f"worker {name} failed (rc {rc}):\n" + open(err).read()[-4000:])
+        for k, n in done[-1]["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        seconds[name] = done[-1]["seconds"]
+    return seconds
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train_windows", type=int, default=0, metavar="ROUNDS",
                         help="run only the interleaved timing windows of the training lanes, "
                              "ROUNDS rounds, and print their line (to compare two trees in turn)")
+    parser.add_argument("--worker", choices=sorted(WORKERS), default="",
+                        help="(internal) run one worker's phases; the main process starts them")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if opts.worker:
+        return run_worker(opts.worker)
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -2357,16 +2685,22 @@ def main() -> int:
     # the main paths: each is driven with every count at 0 just before it
     # and read just after; `totals` adds them up
     totals = {}
-    g_model = phase_train_grocery(totals)
+    with tempfile.TemporaryDirectory() as work_dir:
+        workers = start_workers(work_dir)
+        try:
+            g_model = phase_train_grocery(totals)
+            phase_train_grocery_seq(totals)
+            phase_train_grocery_kda(totals)
+            phase_kda_tiled(totals)
+            worker_s = join_workers(workers, totals)
+        finally:
+            for proc, _, _ in workers.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    emit("workers", seconds=worker_s, beside_s=round(time.perf_counter() - t_start, 3))
     phase_train_1m(totals)
-    phase_train_grocery_seq(totals)
     corpus_1m = phase_train_1m_seq(totals)
-    phase_train_grocery_kda(totals)
-    phase_kda_tiled(totals)
-    phase_train_grocery_general(totals)
-    phase_train_grocery_seq2(totals)
-    phase_train_grocery_context(totals)
-    phase_train_ctr(totals)
     phase_lightgcn_1m(totals, corpus_1m)
     del corpus_1m
     phase_train_windows()

@@ -1,5 +1,6 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-305, 307-381 and 692-1149).
+rechorus_tpu/data/batching.py:26-38, 83-305, 307-381, 446-684 and
+692-1149).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -186,6 +187,203 @@ class CTRBatcher(Batcher):
 
     def eval_feed(self, arrays, idx, cands=None):
         return self._feed(arrays, idx)
+
+
+def pad_lists(lists, width: int) -> np.ndarray:
+    """[n, width] int32 of the 1-D arrays `lists`, each cut to `width` and
+    left-aligned, pad 0; one flat scatter, no per-row loop."""
+    n = len(lists)
+    lens = np.fromiter((len(x) for x in lists), dtype=np.int64, count=n)
+    out = np.zeros((n, width), dtype=np.int32)
+    if lens.sum():
+        flat = np.concatenate([np.asarray(x, dtype=np.int64) for x in lists])
+        rows = np.repeat(np.arange(n), lens)
+        cols = np.arange(len(flat)) - np.repeat(np.cumsum(lens) - lens, lens)
+        keep = cols < width
+        out[rows[keep], cols[keep]] = flat[keep]
+    return out
+
+
+@register_batcher("impression")
+class ImpressionBatcher(Batcher):
+    """Logged pos/neg lists padded to the phase's caps (port of
+    rechorus_tpu/data/batching.py:446-541); item_id = [pos_pad | neg_pad],
+    target = +1 valid positive / 0 valid negative / -1 pad (reference
+    ImpressionModel.Dataset, BaseImpressionModel.py:154-211, and
+    ImpressionRunner.fit's labels, :187-190).
+
+    --test_all (evaluation): the negative block is the WHOLE catalog,
+    item_id = [pos_pad | 0..n_items-1] (catalog column j is item j), with
+    the user's positively clicked items of every split, id 0 and the pad
+    positives at target -1; neg_num is the row's count of valid catalog
+    candidates, n_items - 1 - #clicked. This is the masking the reference
+    intends at ImpressionRunner.py:141-149 (its own path returns {})."""
+
+    def _source_df(self):
+        return self.corpus.data_df[self.phase]
+
+    def build(self):
+        df = self._source_df()
+        self._df = df
+        self.n = len(df)
+        self.test_all = bool(getattr(self.model, "test_all", 0)) and self.phase != "train"
+        if self.phase == "train":
+            self.pos_len = self.model.train_max_pos_item
+            self.neg_len = self.model.train_max_neg_item
+        else:
+            self.pos_len = self.model.test_max_pos_item
+            self.neg_len = self.model.test_max_neg_item
+        self.arrays["user_id"] = df["user_id"].to_numpy().astype(np.int32)
+        self.arrays["pos_items"] = pad_lists(df["pos_items"].to_list(), self.pos_len)
+        self.arrays["pos_num"] = np.minimum(df["pos_num"].to_numpy(), self.pos_len).astype(np.int32)
+        if self.test_all:
+            self.neg_len = self.corpus.n_items
+            clicked = self.corpus.pos_clicked_matrix()
+            self.arrays["_clicked_rows"] = clicked
+            # each clicked id (unique per user) masks one catalog column
+            cnt = (clicked > 0).sum(axis=1).astype(np.int64)
+            self.arrays["neg_num"] = (self.corpus.n_items - 1 - cnt[self.arrays["user_id"]]).astype(np.int32)
+        else:
+            self.arrays["neg_items"] = pad_lists(df["neg_items"].to_list(), self.neg_len)
+            self.arrays["neg_num"] = np.minimum(df["neg_num"].to_numpy(), self.neg_len).astype(np.int32)
+
+    def _feed(self, arrays, idx):
+        users = arrays["user_id"][idx]
+        pos = arrays["pos_items"][idx]
+        pos_num, neg_num = arrays["pos_num"][idx], arrays["neg_num"][idx]
+        dev = users.device
+        pos_valid = torch.arange(self.pos_len, device=dev)[None, :] < pos_num[:, None]
+        B = users.shape[0]
+        if self.test_all:
+            N = self.corpus.n_items
+            catalog = torch.arange(N, device=dev)[None, :].expand(B, N)
+            clicked = arrays["_clicked_rows"][users]                       # [B, M]
+            cl = torch.zeros((B, N), dtype=torch.bool, device=dev)
+            cl[torch.arange(B, device=dev)[:, None], clicked] = True
+            cat_valid = (torch.arange(N, device=dev)[None, :] > 0) & ~cl
+            item_ids = torch.cat([pos, catalog], dim=1)
+            neg_valid = cat_valid
+        else:
+            item_ids = torch.cat([pos, arrays["neg_items"][idx]], dim=1)
+            neg_valid = torch.arange(self.neg_len, device=dev)[None, :] < neg_num[:, None]
+        target = torch.cat([torch.where(pos_valid, 1.0, -1.0), torch.where(neg_valid, 0.0, -1.0)], dim=1)
+        return {"user_id": users, "item_id": item_ids, "target": target,
+                "pos_num": pos_num, "neg_num": neg_num, "batch_size": B}
+
+    def train_feed(self, arrays, idx, gen):
+        return self._feed(arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._feed(arrays, idx)
+
+
+@register_batcher("impression_seq")
+class ImpressionSeqBatcher(ImpressionBatcher):
+    """+ the dual positive / negative history arrays (port of
+    rechorus_tpu/data/batching.py:544-573; reference
+    BaseImpressionModel.py:237-253); keeps the requests with position > 0,
+    as SequentialModel does."""
+
+    HISTORY_KEYS = ("history_items", "history_times", "lengths",
+                    "neg_history_items", "neg_history_times", "neg_lengths")
+
+    def _source_df(self):
+        df = self.corpus.data_df[self.phase]
+        return df[df["position"].to_numpy() > 0].reset_index(drop=True)
+
+    def build(self):
+        super().build()
+        his = self.corpus.dual_history_arrays(self._df, self.model.history_max)
+        self.arrays.update(zip(self.HISTORY_KEYS, his))
+
+    def _feed(self, arrays, idx):
+        feed = super()._feed(arrays, idx)
+        for k in self.HISTORY_KEYS:
+            feed[k] = arrays[k][idx]
+        return feed
+
+
+RERANK_TEST_ALL_ERROR = "--test_all is not defined for re-ranking models; drop the flag"
+
+
+def ranker_features(ranker, feed, his_v: bool) -> dict:
+    """The first stage's keys of a re-rank feed from `ranker` (an
+    `<X>Impression` model) on `feed`: 'scores' (the pads at -inf),
+    'position' (each candidate's rank by score, ties in column order: both
+    sorts are stable, as jnp.argsort is), 'padding_mask', 'u_v', 'i_v' and,
+    with `his_v`, the ranker's item vectors of the positive history (the
+    history ids scored as candidates)."""
+    out = ranker(feed, training=False)
+    valid = feed["target"] != -1
+    scores = torch.where(valid, out["prediction"], float("-inf"))
+    order = torch.argsort(-scores, dim=1, stable=True)
+    keys = {"scores": scores, "position": torch.argsort(order, dim=1, stable=True),
+            "padding_mask": ~valid, "u_v": out["u_v"], "i_v": out["i_v"]}
+    if his_v:
+        keys["his_v"] = ranker({**feed, "item_id": feed["history_items"]}, training=False)["i_v"]
+    return keys
+
+
+class _RerankFeeds:
+    """The re-rank batchers' first stage (port of rechorus_tpu/data/
+    batching.py:576-684): the frozen ranker, `<ranker_name>Impression`
+    loaded by `models/reranker/_loader.load_ranker` on the runner's device,
+    runs in eval mode under no_grad inside every feed (the reference runs
+    it in its DataLoader's collate, BaseRerankerModel.py:70-84). Under
+    --tuneranker 1 the model runs the ranker itself (RerankModel.
+    rerank_feed) and the feeds carry the plain impression keys."""
+
+    his_v = False
+
+    def build(self):
+        if getattr(self.model, "test_all", 0):
+            # re-rankers score a LOGGED candidate list (position embeddings
+            # sized by the caps); a full-catalog candidate axis has no
+            # meaning here
+            raise ValueError(RERANK_TEST_ALL_ERROR)
+        super().build()
+        from rechorus_tpu_torch.models.reranker._loader import load_ranker
+
+        self.tuneranker = bool(getattr(self.model, "tuneranker", 0))
+        self.ranker = load_ranker(self.args, self.corpus,
+                                  device_of_gpu_flag(getattr(self.args, "gpu", "0")))
+
+    def post_init_state(self, state):
+        """--tuneranker 1: the model's `ranker_module`, just drawn at random
+        by init_state, takes the loaded ranker's parameters and buffers (the
+        reference un-freezes the loaded ranker in place,
+        BaseRerankerModel.py:58-66). Called by BaseRunner.init_state."""
+        if not self.tuneranker:
+            return state
+        module = state.model.ranker_module
+        loaded = self.ranker.state_dict()
+        if module.state_dict().keys() != loaded.keys():
+            raise ValueError("--tuneranker: loaded ranker params do not match the "
+                             "ranker_module subtree (config drift between the ranker "
+                             "checkpoint and --ranker_config_file?)")
+        module.load_state_dict(loaded)
+        return state
+
+    def _feed(self, arrays, idx):
+        feed = super()._feed(arrays, idx)
+        if self.tuneranker:
+            return feed
+        with torch.no_grad():
+            feed.update(ranker_features(self.ranker.eval(), feed, self.his_v))
+        return feed
+
+
+@register_batcher("rerank")
+class RerankBatcher(_RerankFeeds, ImpressionBatcher):
+    """Impression feeds + the frozen ranker's outputs."""
+
+
+@register_batcher("rerank_seq")
+class RerankSeqBatcher(_RerankFeeds, ImpressionSeqBatcher):
+    """Impression-with-history feeds + the frozen ranker's outputs and its
+    item vectors of the positive history ('his_v')."""
+
+    his_v = True
 
 
 def _add_situation(batcher, df):

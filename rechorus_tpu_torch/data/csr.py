@@ -1,5 +1,5 @@
 """Compact CSR-backed corpus structures (copy of rechorus_tpu/data/csr.py:
-19-137, the parts the BaseReader uses).
+19-137, the parts the readers use).
 
 Per-user corpus state lives in two numpy arrays (flat values + [n_users+1]
 offsets) built by vectorized sort/unique passes; `CSRRows` wraps them in
@@ -46,6 +46,36 @@ class CSRRows(Mapping):
 
     def __len__(self) -> int:
         return int((np.diff(self.offsets) > 0).sum())
+
+
+class DualCSRRows(Mapping):
+    """{user -> {"pos": [L, 2] view, "neg": [L, 2] view}} over two CSRs of
+    (item, time) rows: the dual histories of ImpressionSeqReader."""
+
+    __slots__ = ("pos", "neg")
+
+    def __init__(self, pos: CSRRows, neg: CSRRows):
+        self.pos = pos
+        self.neg = neg
+
+    def __getitem__(self, u):
+        return {"pos": self.pos[u], "neg": self.neg[u]}
+
+    def __contains__(self, u) -> bool:
+        return u in self.pos or u in self.neg
+
+    def __iter__(self) -> Iterator[int]:
+        both = np.nonzero((np.diff(self.pos.offsets) > 0) | (np.diff(self.neg.offsets) > 0))[0]
+        return iter(both.tolist())
+
+    def __len__(self) -> int:
+        return int(((np.diff(self.pos.offsets) > 0) | (np.diff(self.neg.offsets) > 0)).sum())
+
+    def __getstate__(self):
+        return (self.pos, self.neg)
+
+    def __setstate__(self, state):
+        self.pos, self.neg = state
 
 
 def pairs_to_csr(users: np.ndarray, values: np.ndarray, n_users: int,

@@ -1,7 +1,8 @@
 """Corpus readers (port of rechorus_tpu/data/readers.py:1-381 and
-:681-936: `BaseReader` with its fixed-shape history arrays, the context
-reader `ContextReader`, `SeqReader`, and the knowledge-aware `KGReader` and
-`KDAReader`).
+:462-972: `BaseReader` with its fixed-shape history arrays, the context
+reader `ContextReader`, `SeqReader`, the impression readers
+`ImpressionReader`, `ImpressionSeqReader` and `ImpressionContextReader`,
+and the knowledge-aware `KGReader` and `KDAReader`).
 
 Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
@@ -21,7 +22,7 @@ import warnings
 import numpy as np
 import pandas as pd
 
-from rechorus_tpu_torch.data.csr import CSRRows, csr_fill_matrix, pairs_to_csr
+from rechorus_tpu_torch.data.csr import CSRRows, DualCSRRows, csr_fill_matrix, pairs_to_csr
 from rechorus_tpu_torch.ops import kg as kg_ops
 from rechorus_tpu_torch.registry import register_reader
 
@@ -65,6 +66,32 @@ def eval_list_columns(df: pd.DataFrame) -> pd.DataFrame:
                 except (ValueError, TypeError):
                     df[col] = df[col].apply(lambda x: np.array(ast.literal_eval(x)))
     return df
+
+
+def csr_history(his: CSRRows, users, positions, history_max: int, chunk: int = 1 << 20):
+    """([n, H] int32 items, [n, H] int64 times, [n] int32 lengths): row r
+    takes his[users[r]][:positions[r]][-H:] of a CSR of [item, time] rows,
+    left-aligned and zero-padded; a row with position <= 0 is empty.
+    Gathered from the CSR offsets in row chunks of `chunk`, with no per-row
+    loop."""
+    users = np.asarray(users).astype(np.int64)
+    positions = np.asarray(positions).astype(np.int64)
+    flat, offsets = his.flat, his.offsets
+    n, H = len(users), history_max
+    his_items = np.zeros((n, H), dtype=np.int32)
+    his_times = np.zeros((n, H), dtype=np.int64)
+    lengths = np.clip(positions, 0, H).astype(np.int32)
+    cols = np.arange(H, dtype=np.int64)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        length = lengths[lo:hi].astype(np.int64)
+        start = offsets[users[lo:hi]] + positions[lo:hi] - length
+        valid = cols[None, :] < length[:, None]
+        src = np.where(valid, start[:, None] + cols[None, :], 0)
+        if len(flat):
+            his_items[lo:hi] = np.where(valid, flat[src, 0], 0)
+            his_times[lo:hi] = np.where(valid, flat[src, 1], 0)
+    return his_items, his_times, lengths
 
 
 @register_reader("BaseReader")
@@ -145,27 +172,9 @@ class BaseReader:
         int64 times, [n] int32 lengths) of the rows of `df`: row r's
         history is user_his[u][:position][-history_max:], left-aligned and
         zero-padded (reference BaseModel.py:236-245). Needs `user_his` (a
-        CSR of [item, time] rows in time order, from SeqReader). Gathered
-        from the CSR offsets in row chunks of `chunk`, with no per-row
-        loop."""
-        users = df["user_id"].to_numpy().astype(np.int64)
-        positions = df["position"].to_numpy().astype(np.int64)
-        flat, offsets = self.user_his.flat, self.user_his.offsets
-        n, H = len(users), history_max
-        his_items = np.zeros((n, H), dtype=np.int32)
-        his_times = np.zeros((n, H), dtype=np.int64)
-        lengths = np.clip(positions, 0, H).astype(np.int32)
-        cols = np.arange(H, dtype=np.int64)
-        for lo in range(0, n, chunk):
-            hi = min(n, lo + chunk)
-            length = lengths[lo:hi].astype(np.int64)
-            start = offsets[users[lo:hi]] + positions[lo:hi] - length
-            valid = cols[None, :] < length[:, None]
-            src = np.where(valid, start[:, None] + cols[None, :], 0)
-            if len(flat):
-                his_items[lo:hi] = np.where(valid, flat[src, 0], 0)
-                his_times[lo:hi] = np.where(valid, flat[src, 1], 0)
-        return his_items, his_times, lengths
+        CSR of [item, time] rows in time order, from SeqReader)."""
+        return csr_history(self.user_his, df["user_id"].to_numpy(), df["position"].to_numpy(),
+                           history_max, chunk)
 
     def clicked_matrix(self, include_residual: bool = False) -> np.ndarray:
         """Padded per-user clicked-item matrix [n_users, max_clicked]
@@ -295,6 +304,181 @@ class SeqReader(BaseReader):
             lo += L
 
 
+@register_reader("ImpressionReader")
+class ImpressionReader(BaseReader):
+    """Impression reader (port of rechorus_tpu/data/readers.py:462-575):
+    consecutive rows of a user with equal --impression_idkey form one
+    request with its pos_items / neg_items sets.
+
+    Parity: src/helpers/ImpressionReader.py -- requires a label column;
+    requests without positives are dropped, then those without negatives;
+    the merged sets (sorted, unique) attach to the last row of each group.
+    As in the JAX package, item id 0 entries are filtered out directly (the
+    reference truncates each list at its first 0)."""
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--impression_idkey", type=str, default="time",
+                            help="The key for impression identification, [time, impression_id]")
+        return BaseReader.parse_data_args(parser)
+
+    def __init__(self, args):
+        self.impression_idkey = args.impression_idkey
+        super().__init__(args)
+        self._append_impression_info()
+
+    def _read_data(self):
+        logging.info('Reading data from "{}", dataset = "{}" '.format(self.prefix, self.dataset))
+        self.data_df = dict()
+        for key in ["train", "dev", "test"]:
+            path = os.path.join(self.prefix, self.dataset, key + ".csv")
+            self.data_df[key] = (
+                self._read_csv(path).reset_index(drop=True)
+                .sort_values(by=["user_id", self.impression_idkey], kind="mergesort")
+            )
+            self.data_df[key] = eval_list_columns(self.data_df[key])
+        if "label" not in self.data_df["train"].columns:
+            raise KeyError("Impression data must have binary labels")
+        key_columns = ["user_id", "item_id", "time", "label"]
+        if self.impression_idkey != "time":
+            key_columns.insert(3, self.impression_idkey)
+        self.all_df = pd.concat([self.data_df[k][key_columns] for k in ["train", "dev", "test"]])
+        self.n_users = int(self.all_df["user_id"].max()) + 1
+        self.n_items = int(self.all_df["item_id"].max()) + 1
+        logging.info('Update impression data -- "# user": {}, "# item": {}, "# entry": {}'.format(
+            self.n_users - 1, self.n_items - 1, len(self.all_df)))
+
+    def _append_impression_info(self):
+        """Consecutive (user, idkey) rows form one request; its sorted
+        unique positive (label != 0) and negative item sets attach to the
+        group's last row; requests missing either side are dropped. One
+        unique pass per split."""
+        logging.info("Merging positive items by timestamp/impression_idkey...")
+        for key in ["train", "dev", "test"]:
+            df = self.data_df[key]
+            n = len(df)
+            if n == 0:
+                df = df.copy()
+                df["pos_items"], df["neg_items"] = [], []
+                df["pos_num"], df["neg_num"] = [], []
+                self.data_df[key] = df
+                continue
+            uid = df["user_id"].to_numpy()
+            idk = df[self.impression_idkey].to_numpy()
+            change = np.ones(n, dtype=bool)
+            change[1:] = (uid[1:] != uid[:-1]) | (idk[1:] != idk[:-1])
+            gid = np.cumsum(change) - 1
+            n_groups = int(gid[-1]) + 1
+            last = np.nonzero(np.concatenate([change[1:], [True]]))[0]
+            items = df["item_id"].to_numpy(np.int64)
+            labels = df["label"].to_numpy()
+            nz = items != 0
+            pos_flat, pos_off = pairs_to_csr(gid[nz & (labels != 0)], items[nz & (labels != 0)],
+                                             n_groups, unique=True)
+            neg_flat, neg_off = pairs_to_csr(gid[nz & (labels == 0)], items[nz & (labels == 0)],
+                                             n_groups, unique=True)
+            pos_num, neg_num = np.diff(pos_off), np.diff(neg_off)
+            keep_g = np.nonzero((pos_num > 0) & (neg_num > 0))[0]
+            out = df.iloc[last[keep_g]].copy().reset_index(drop=True)
+            pos_lists = np.split(pos_flat, pos_off[1:-1])
+            neg_lists = np.split(neg_flat, neg_off[1:-1])
+            out["pos_items"] = [pos_lists[g] for g in keep_g]
+            out["neg_items"] = [neg_lists[g] for g in keep_g]
+            out["pos_num"] = pos_num[keep_g]
+            out["neg_num"] = neg_num[keep_g]
+            self.data_df[key] = out
+        logging.info("train, dev, test request num: %d %d %d"
+                     % tuple(len(self.data_df[k]) for k in ["train", "dev", "test"]))
+
+    def pos_clicked_matrix(self) -> np.ndarray:
+        """[n_users, max_clicked] int32 of each user's POSITIVELY clicked
+        items over all splits, pad 0: the exclusions of the --test_all
+        catalog (the reference masks `corpus.user_his`, positives of all
+        time, ImpressionRunner.py:141-149; label-0 rows are exposures, not
+        clicks)."""
+        pos = self.all_df[self.all_df["label"] != 0]
+        flat, offsets = pairs_to_csr(pos["user_id"].to_numpy(), pos["item_id"].to_numpy(),
+                                     self.n_users, unique=True)
+        max_len = max(1, int(np.diff(offsets).max()))
+        return csr_fill_matrix(flat.astype(np.int32), offsets, max_len)
+
+
+def _flat_lists(lists, count: int) -> tuple:
+    """(flat values, [count + 1] offsets) of a sequence of 1-D arrays."""
+    lens = np.fromiter((len(x) for x in lists), dtype=np.int64, count=count)
+    offsets = np.zeros(count + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    flat = np.concatenate([np.asarray(x, dtype=np.int64) for x in lists]) if offsets[-1] \
+        else np.empty(0, np.int64)
+    return flat, offsets
+
+
+@register_reader("ImpressionSeqReader")
+class ImpressionSeqReader(ImpressionReader):
+    """Impression + sequential (port of rechorus_tpu/data/readers.py:577-
+    679): dual per-user positive and negative histories, with each
+    request's `position` / `neg_position` (src/helpers/ImpressionSeqReader.py)."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self._append_his_info()
+
+    def _append_his_info(self):
+        """Requests sorted per user by (idkey,) time; `position` /
+        `neg_position` = the exclusive cumsum of the user's earlier
+        positive / negative set sizes; each user's (item, time) pairs form
+        one CSR block per side. Positions go by row identity, as in the JAX
+        package (request keys are unique after grouping, reference
+        ImpressionSeqReader.py:18-56). The flat item arrays are gathered in
+        the sorted order by index arithmetic, with no per-request loop."""
+        logging.info("Appending history info with corresponding impressions...")
+        keys = ["train", "dev", "test"]
+        u = np.concatenate([self.data_df[k]["user_id"].to_numpy(np.int64) for k in keys])
+        t = np.concatenate([self.data_df[k]["time"].to_numpy(np.int64) for k in keys])
+        if self.impression_idkey != "time":
+            idk = np.concatenate([self.data_df[k][self.impression_idkey].to_numpy() for k in keys])
+            order = np.lexsort((t, idk, u))
+        else:
+            order = np.lexsort((t, u))
+        n = len(u)
+        us = u[order]
+        counts_req = np.bincount(us, minlength=self.n_users)
+        offsets_req = np.zeros(self.n_users + 1, dtype=np.int64)
+        np.cumsum(counts_req, out=offsets_req[1:])
+        cols = {}
+        for tag, items_col, pos_col in [("pos", "pos_items", "position"),
+                                        ("neg", "neg_items", "neg_position")]:
+            lists = [x for k in keys for x in self.data_df[k][items_col].to_list()]
+            flat, offs = _flat_lists(lists, n)
+            cnt = np.diff(offs)
+            cs = cnt[order]
+            excl = np.cumsum(cs) - cs       # exclusive cumsum over the sorted requests
+            base = excl[offsets_req[:-1].clip(max=max(n - 1, 0))]
+            position = np.empty(n, dtype=np.int64)
+            position[order] = excl - np.repeat(base, counts_req)
+            cols[pos_col] = position
+            # the items of the sorted requests, one after another
+            src = np.repeat(offs[order] - excl, cs) + np.arange(int(cs.sum()), dtype=np.int64)
+            his_off = np.zeros(self.n_users + 1, dtype=np.int64)
+            np.cumsum(np.bincount(us, weights=cs, minlength=self.n_users).astype(np.int64),
+                      out=his_off[1:])
+            cols[tag] = CSRRows(np.stack([flat[src], np.repeat(t[order], cs)], axis=1), his_off)
+        self.user_his = DualCSRRows(cols["pos"], cols["neg"])
+        lo = 0
+        for key in keys:
+            L = len(self.data_df[key])
+            self.data_df[key]["position"] = cols["position"][lo: lo + L]
+            self.data_df[key]["neg_position"] = cols["neg_position"][lo: lo + L]
+            lo += L
+
+    def dual_history_arrays(self, df: pd.DataFrame, history_max: int):
+        """Fixed-shape positive and negative histories of the requests of
+        `df`: (his, his_t, len, neg_his, neg_his_t, neg_len)."""
+        users = df["user_id"].to_numpy()
+        return (csr_history(self.user_his.pos, users, df["position"].to_numpy(), history_max)
+                + csr_history(self.user_his.neg, users, df["neg_position"].to_numpy(), history_max))
+
+
 @register_reader("KGReader")
 class KGReader(SeqReader):
     """Knowledge-aware reader (port of rechorus_tpu/data/readers.py:681-758):
@@ -380,6 +564,43 @@ class KGReader(SeqReader):
                 self.relation_df["tail"].to_numpy(),
                 self.n_relations, self.n_entities)
         return self._member_table
+
+
+@register_reader("ImpressionContextReader")
+class ImpressionContextReader(ImpressionReader, ContextReader):
+    """Impression data + context metadata (port of rechorus_tpu/data/
+    readers.py:938-972; reference src/helpers/ImpressionContextReader.py:
+    14-52). The reference's --include_context_features flag maps onto the
+    situation features."""
+
+    @staticmethod
+    def parse_data_args(parser):
+        parser.add_argument("--include_item_features", type=int, default=0,
+                            help="Whether include item context features.")
+        parser.add_argument("--include_user_features", type=int, default=0,
+                            help="Whether include user context features.")
+        parser.add_argument("--include_context_features", type=int, default=0,
+                            help="Whether include dynamic context features.")
+        parser.add_argument("--impression_idkey", type=str, default="time",
+                            help="The key for impression identification, [time, impression_id]")
+        return BaseReader.parse_data_args(parser)
+
+    def __init__(self, args):
+        self.impression_idkey = args.impression_idkey
+        # BaseReader's steps with ImpressionReader's _read_data, then the
+        # context metadata, then the request grouping
+        self.sep = args.sep
+        self.prefix = args.path
+        self.dataset = args.dataset
+        self.csv_chunksize = int(getattr(args, "csv_chunksize", 0) or 0)
+        self._read_data()
+        self._build_clicked_sets()
+        self.include_item_features = args.include_item_features
+        self.include_user_features = args.include_user_features
+        self.include_situation_features = args.include_context_features
+        self._load_ui_metadata()
+        self._collect_context()
+        self._append_impression_info()
 
 
 @register_reader("KDAReader")

@@ -1,12 +1,14 @@
 """Synthetic datasets in the reference CSV contract (own copy of
-rechorus_tpu/data/synthetic.py:17-147 and :269-297: `make_topk_dataset`,
-`make_ctr_dataset` and `make_kg_dataset`, numpy and pandas only).
+rechorus_tpu/data/synthetic.py:17-147 and :217-297: `make_topk_dataset`,
+`make_ctr_dataset`, `make_impression_dataset` and `make_kg_dataset`, numpy
+and pandas only).
 
 They write train/dev/test.csv (and item_meta.csv / user_meta.csv for the
 KG and CTR sets) with the columns the readers expect (reference
 data/README.md:9-60), with learnable structure (a block preference
-matrix), for tests and `chip_smoke.py`. `make_topk_dataset` and
-`make_ctr_dataset` write the JAX package's files byte for byte.
+matrix), for tests and `chip_smoke.py`. `make_topk_dataset`,
+`make_ctr_dataset` and `make_impression_dataset` write the JAX package's
+files byte for byte.
 `make_kg_dataset` draws the same kind of relation lists (distinct
 same-group items, never the item itself) with one vectorised draw per
 group, where the JAX package's generator scans the catalog once per item
@@ -151,6 +153,51 @@ def make_ctr_dataset(
         "u_group_c": [u % n_groups for u in range(1, n_users + 1)],
     })
     user_meta.to_csv(os.path.join(path, "user_meta.csv"), sep="\t", index=False)
+    return {"n_users": n_users, "n_items": n_items}
+
+
+def make_impression_dataset(path: str, n_users: int = 120, n_items: int = 80,
+                            n_impressions: int = 8, n_groups: int = 4, seed: int = 2,
+                            noise: float = 0.0):
+    """Impression rows (user_id, item_id, time, label): n_impressions
+    requests a user, each 1-3 positives and 3-6 negatives sharing one time;
+    positives come from the user's group (u % n_groups), negatives from the
+    other groups, so ranking positives above negatives is learnable. The
+    last request of a user goes to test, the one before it to dev.
+
+    noise > 0 makes the task mid-SNR: each positive or negative is drawn from
+    the WRONG pool with that probability, so metrics land well below 1.0.
+    The draws are the JAX package's, one by one, so the files are equal."""
+    rng = np.random.default_rng(seed)
+    all_items = np.arange(1, n_items + 1)
+    rows = []
+    for u in range(1, n_users + 1):
+        g = u % n_groups
+        group_items = all_items[all_items % n_groups == g]
+        other_items = all_items[all_items % n_groups != g]
+        t0 = int(rng.integers(1e8, 2e8))
+        for imp in range(n_impressions):
+            t = t0 + imp * 86400
+            n_pos = int(rng.integers(1, 4))
+            n_neg = int(rng.integers(3, 7))
+            pos = [int(rng.choice(other_items if rng.random() < noise else group_items))
+                   for _ in range(n_pos)]
+            neg = [int(rng.choice(group_items if rng.random() < noise else other_items))
+                   for _ in range(n_neg)]
+            rows.extend((u, it, t, 1) for it in pos)
+            rows.extend((u, it, t, 0) for it in neg)
+    df = pd.DataFrame(rows, columns=["user_id", "item_id", "time", "label"])
+    df = df.sort_values(by=["user_id", "time"], kind="mergesort").reset_index(drop=True)
+    t_per_user = df.groupby("user_id")["time"].transform("max")
+    test = df[df["time"] == t_per_user]
+    rest = df[df["time"] < t_per_user]
+    t2 = rest.groupby("user_id")["time"].transform("max")
+    dev = rest[rest["time"] == t2]
+    train = rest[rest["time"] < t2]
+    os.makedirs(path, exist_ok=True)
+    train.to_csv(os.path.join(path, "train.csv"), sep="\t", index=False)
+    dev.to_csv(os.path.join(path, "dev.csv"), sep="\t", index=False)
+    test.to_csv(os.path.join(path, "test.csv"), sep="\t", index=False)
     return {"n_users": n_users, "n_items": n_items}
 
 

@@ -84,12 +84,18 @@ def build_corpus(args, reader_cls):
 
 def save_rec_results(args, corpus, runner, state, batchers, arrays, topk: int = 100):
     """Per-task prediction export (reference main.py:96-153): CTR ->
-    (user_id, item_id, pCTR, label), one row per test row; top-k ->
-    (user_id, rec_items, rec_predictions) with the top-100 candidates. The
-    impression export comes with its runner."""
+    (user_id, item_id, pCTR, label), one row per test row; impression and
+    re-rank -> (user_id, pos_items, pos_predictions, neg_items,
+    neg_predictions) of the logged lists, or under --test_all 1 (user_id,
+    pos_items, pos_predictions, rec_items, rec_predictions) with the
+    top-`topk` of the catalog block; top-k -> (user_id, rec_items,
+    rec_predictions) with the top-100 candidates. As in the JAX package,
+    neg_predictions come from the negative block [P : P + neg_len] (the
+    reference's slice takes the FIRST neg_len columns, main.py:141)."""
     import pandas as pd
 
     from rechorus_tpu_torch.runners.ctr import CTRRunner
+    from rechorus_tpu_torch.runners.impression import ImpressionRunner
 
     model = state.model
     result_path = os.path.join(args.path, args.dataset, "rec-{}-{}.csv".format(model.registered_name, "test"))
@@ -105,6 +111,29 @@ def save_rec_results(args, corpus, runner, state, batchers, arrays, topk: int = 
             "pCTR": predictions,
             "label": labels,
         })
+    elif isinstance(runner, ImpressionRunner):
+        logging.info("Saving all recommendation results to: {}".format(result_path))
+        preds, pos_num, neg_num = runner.predict(state, batcher, arr, "test")
+        P = batcher.pos_len
+        out = pd.DataFrame({
+            "user_id": src["user_id"].to_numpy(),
+            "pos_items": [list(map(int, r)) for r in src["pos_items"]],
+            "pos_predictions": [list(np.round(r[:n], 4)) for r, n in zip(preds[:, :P], pos_num)],
+        })
+        if getattr(batcher, "test_all", False):
+            # the block after the positives is the whole catalog (clicked
+            # items and id 0 at -inf): its top-k, not the logged negatives
+            cat = preds[:, P:]
+            kk = min(topk, cat.shape[1])
+            part = np.argpartition(-cat, kk - 1, axis=1)[:, :kk]
+            order = np.argsort(-np.take_along_axis(cat, part, axis=1), axis=1, kind="stable")
+            top_items = np.take_along_axis(part, order, axis=1)
+            out["rec_items"] = [list(map(int, r)) for r in top_items]
+            out["rec_predictions"] = [list(np.round(r, 4))
+                                      for r in np.take_along_axis(cat, top_items, axis=1)]
+        else:
+            out["neg_items"] = [list(map(int, r)) for r in src["neg_items"]]
+            out["neg_predictions"] = [list(np.round(r[:n], 4)) for r, n in zip(preds[:, P:], neg_num)]
     else:
         logging.info("Saving top-{} recommendation results to: {}".format(topk, result_path))
         items, scores = runner.predict_topk(state, batcher, arr, "test", k=topk)
@@ -139,7 +168,7 @@ def train_and_eval(args, corpus, runner, model, batchers, arrays, seed: int):
     init_seed(seed)
     runner.random_seed = seed
     t0 = _now()
-    state = runner.init_state(model, seed)
+    state = runner.init_state(model, seed, batchers["train"])
     logging.info("#params: {}".format(count_variables(model.parameters())))
 
     if args.load > 0:

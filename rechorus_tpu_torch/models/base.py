@@ -1,6 +1,7 @@
-"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-247 and
-:352-492; `_ContextFields.group_embeddings` of the context_seq models is
-not ported yet).
+"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-247,
+:352-492 and :529-677, the impression and re-rank bases;
+`_ContextFields.group_embeddings` of the context_seq models is not ported
+yet).
 
 A model is an `nn.Module` whose keyword arguments are hyperparameters,
 filled from CLI args + corpus statistics by `from_args`. It declares
@@ -419,3 +420,143 @@ class ContextCTRModel(CTRModel, _ContextFields):
         kw = super().corpus_kwargs(args, corpus)
         kw.update(cls.schema_kwargs(corpus))
         return kw
+
+
+class ImpressionModel(GeneralModel):
+    """Listwise impression model base (port of rechorus_tpu/models/base.py:
+    529-563; reference BaseImpressionModel.py:10-211): the logged pos/neg
+    lists padded to fixed caps, the four listwise loss families, no
+    train-time sampling and no anti-leak permutation (the pos | neg column
+    layout is the structure the loss reads)."""
+
+    reader: ClassVar[str] = "ImpressionReader"
+    runner: ClassVar[str] = "ImpressionRunner"
+    batcher: ClassVar[str] = "impression"
+    permute_candidates: ClassVar[bool] = False
+
+    def __init__(self, *, loss_n: str = "BPR", train_max_pos_item: int = 20,
+                 train_max_neg_item: int = 20, test_max_pos_item: int = 20,
+                 test_max_neg_item: int = 20, **kwargs):
+        super().__init__(**kwargs)
+        self.loss_n = loss_n
+        self.train_max_pos_item, self.train_max_neg_item = train_max_pos_item, train_max_neg_item
+        self.test_max_pos_item, self.test_max_neg_item = test_max_pos_item, test_max_neg_item
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--loss_n", type=str, default="BPR",
+                            help="BPR(+after/before/simple/hard) | listnet | softmaxCE | attention_rank")
+        parser.add_argument("--train_max_pos_item", type=int, default=20,
+                            help="Max number of positive items per impression in training.")
+        parser.add_argument("--train_max_neg_item", type=int, default=20,
+                            help="Max number of negative items per impression in training.")
+        parser.add_argument("--test_max_pos_item", type=int, default=20,
+                            help="Max number of positive items per impression in testing.")
+        parser.add_argument("--test_max_neg_item", type=int, default=20,
+                            help="Max number of negative items per impression in testing.")
+        return GeneralModel.parse_model_args(parser)
+
+    def loss(self, out_dict, feed):
+        return losses.impression_loss(out_dict["prediction"], feed["target"],
+                                      self.train_max_pos_item, self.loss_n)
+
+
+class ImpressionSeqModel(ImpressionModel):
+    """+ the dual positive / negative history feeds (port of
+    rechorus_tpu/models/base.py:566-578; reference BaseImpressionModel.py:
+    213-277). Its lazy tables are ImpressionModel's: the history ids are
+    not listed, so under --lazy_emb_adam their rows of the item table are
+    read without gradient, as in the JAX package."""
+
+    reader: ClassVar[str] = "ImpressionSeqReader"
+    batcher: ClassVar[str] = "impression_seq"
+
+    def __init__(self, *, history_max: int = 20, **kwargs):
+        super().__init__(**kwargs)
+        self.history_max = history_max
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--history_max", type=int, default=20, help="Maximum length of history.")
+        return ImpressionModel.parse_model_args(parser)
+
+
+class RerankModel(ImpressionModel):
+    """Listwise re-ranker over a pre-trained base ranker (port of
+    rechorus_tpu/models/base.py:581-662; reference BaseRerankerModel.py:
+    15-84). The feeds gain the ranker's 'scores' (pads at -inf), 'position'
+    (rank order of the scores), 'padding_mask', 'u_v' and 'i_v'.
+
+    --tuneranker 0 (default): the ranker is frozen; the batcher runs it
+    (data/batching._RerankFeeds), and it is not part of this module.
+    --tuneranker 1: the ranker is a trainable submodule, `ranker_module`,
+    whose parameters the batcher's `post_init_state` sets to the loaded
+    checkpoint's; `rerank_feed` runs it inside the forward, so gradients
+    reach it through scores / u_v / i_v (+ his_v); 'position' is an argsort
+    rank, with no gradient, as in the reference."""
+
+    reader: ClassVar[str] = "ImpressionReader"
+    runner: ClassVar[str] = "ImpressionRunner"
+    batcher: ClassVar[str] = "rerank"
+    extra_log_args: ClassVar[list] = ["tuneranker"]
+    needs_his_v: ClassVar[bool] = False
+
+    def __init__(self, *, ranker_name: str = "BPRMF", ranker_config_file: str = "",
+                 ranker_model_file: str = "", tuneranker: int = 0, ranker_emb_size: int = 64,
+                 ranker_module=None, **kwargs):
+        super().__init__(**kwargs)
+        self.ranker_name, self.ranker_config_file = ranker_name, ranker_config_file
+        self.ranker_model_file, self.tuneranker = ranker_model_file, tuneranker
+        self.ranker_emb_size = ranker_emb_size
+        if ranker_module is not None:
+            self.ranker_module = ranker_module
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--ranker_name", type=str, default="BPRMF", help="Base ranker")
+        parser.add_argument("--ranker_config_file", type=str, default="", help="Base ranker config file (yaml)")
+        parser.add_argument("--ranker_model_file", type=str, default="", help="Base ranker model file")
+        parser.add_argument("--tuneranker", type=int, default=0,
+                            help="Fine-tune the loaded ranker jointly with the "
+                                 "re-ranker (its params join the trainable set).")
+        return ImpressionModel.parse_model_args(parser)
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        from rechorus_tpu_torch import registry
+        from rechorus_tpu_torch.models.reranker._loader import ranker_args
+
+        kw = super().corpus_kwargs(args, corpus)
+        r_args = ranker_args(args)
+        kw["ranker_emb_size"] = int(getattr(r_args, "emb_size", 64))
+        if getattr(args, "tuneranker", 0):
+            kw["ranker_module"] = registry.get_model(args.ranker_name, "Impression").from_args(r_args, corpus)
+        return kw
+
+    def rerank_feed(self, feed):
+        """The ranker-stage feed keys: already there in the frozen lane;
+        computed by the trainable `ranker_module` in the tuned one."""
+        if not self.tuneranker or "scores" in feed:
+            return feed
+        from rechorus_tpu_torch.data.batching import ranker_features
+
+        return {**feed, **ranker_features(self.ranker_module, feed, self.needs_his_v)}
+
+
+class RerankSeqModel(RerankModel):
+    """+ the history feeds and 'his_v', the ranker's item vectors of the
+    positive history (port of rechorus_tpu/models/base.py:663-677;
+    reference BaseRerankerModel.py:86-133)."""
+
+    reader: ClassVar[str] = "ImpressionSeqReader"
+    batcher: ClassVar[str] = "rerank_seq"
+    needs_his_v: ClassVar[bool] = True
+
+    def __init__(self, *, history_max: int = 20, **kwargs):
+        super().__init__(**kwargs)
+        self.history_max = history_max
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--history_max", type=int, default=20, help="Maximum length of history.")
+        return RerankModel.parse_model_args(parser)

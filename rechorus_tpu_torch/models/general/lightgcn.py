@@ -1,6 +1,6 @@
 """LightGCN -- simplified graph convolution over the user-item bipartite
-graph (port of rechorus_tpu/models/general/lightgcn.py; LightGCNImpression
-comes with the impression runner).
+graph (port of rechorus_tpu/models/general/lightgcn.py: `LightGCN` and
+`LightGCNImpression`).
 
 Reference behavior: src/models/general/LightGCN.py (He et al., SIGIR'20):
 the symmetric-normalized adjacency D^-1/2 A D^-1/2 over the
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rechorus_tpu_torch.models.base import GeneralModel
+from rechorus_tpu_torch.models.base import GeneralModel, ImpressionModel
 from rechorus_tpu_torch.ops.layers import _glorot_uniform
 from rechorus_tpu_torch.registry import register_model
 
@@ -75,15 +75,13 @@ class _SymmetricPropagate(torch.autograd.Function):
         return _segment_product(g.contiguous(), cols, vals, offsets), None, None, None
 
 
-@register_model("LightGCN")
-class LightGCN(GeneralModel):
-    extra_log_args: ClassVar[list] = ["emb_size", "n_layers", "batch_size"]
-    supports_catalog: ClassVar[bool] = True
-    catalog_raw_table: ClassVar[bool] = False   # scores against the propagated table
+class LightGCNBase:
+    """The graph, the two tables and the propagation, shared by LightGCN and
+    LightGCNImpression (JAX `LightGCNBase`)."""
+
     PARAM_INITS = {"user_emb": _glorot_uniform, "item_emb": _glorot_uniform}
 
-    def __init__(self, *, emb_size: int = 64, n_layers: int = 3, edges=None, **kwargs):
-        super().__init__(**kwargs)
+    def init_graph(self, emb_size: int, n_layers: int, edges) -> None:
         self.emb_size, self.n_layers = emb_size, n_layers
         self.user_emb = nn.Parameter(torch.empty(self.user_num, emb_size))
         self.item_emb = nn.Parameter(torch.empty(self.item_num, emb_size))
@@ -101,22 +99,14 @@ class LightGCN(GeneralModel):
         self._cache = (None, None)
 
     @staticmethod
-    def parse_model_args(parser):
+    def parse_model_args_base(parser):
         parser.add_argument("--emb_size", type=int, default=64, help="Size of embedding vectors.")
         parser.add_argument("--n_layers", type=int, default=3, help="Number of LightGCN layers.")
-        return GeneralModel.parse_model_args(parser)
+        return parser
 
-    @classmethod
-    def corpus_kwargs(cls, args, corpus):
-        kw = super().corpus_kwargs(args, corpus)
-        kw["edges"] = build_edges(corpus.n_users, corpus.n_items, corpus.train_clicked_set)
-        return kw
-
-    def lazy_table_specs(self) -> dict:
-        # out of --lazy_emb_adam: the propagation back-propagates into every
-        # user and item row each step, so a touched-rows update is the
-        # whole table anyway
-        return {}
+    @staticmethod
+    def graph_kwargs(corpus):
+        return {"edges": build_edges(corpus.n_users, corpus.n_items, corpus.train_clicked_set)}
 
     def propagate(self):
         """(users [n_users, d], items [n_items, d]): the mean of the K + 1
@@ -139,6 +129,31 @@ class LightGCN(GeneralModel):
             self._cache = (key, self.propagate())
         return self._cache[1]
 
+
+@register_model("LightGCN")
+class LightGCN(GeneralModel, LightGCNBase):
+    extra_log_args: ClassVar[list] = ["emb_size", "n_layers", "batch_size"]
+    supports_catalog: ClassVar[bool] = True
+    catalog_raw_table: ClassVar[bool] = False   # scores against the propagated table
+
+    def __init__(self, *, emb_size: int = 64, n_layers: int = 3, edges=None, **kwargs):
+        super().__init__(**kwargs)
+        self.init_graph(emb_size, n_layers, edges)
+
+    @staticmethod
+    def parse_model_args(parser):
+        return GeneralModel.parse_model_args(LightGCNBase.parse_model_args_base(parser))
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        return {**super().corpus_kwargs(args, corpus), **cls.graph_kwargs(corpus)}
+
+    def lazy_table_specs(self) -> dict:
+        # out of --lazy_emb_adam: the propagation back-propagates into every
+        # user and item row each step, so a touched-rows update is the
+        # whole table anyway
+        return {}
+
     def catalog_item_table(self) -> torch.Tensor:
         return self._propagated()[1].detach().float().contiguous()
 
@@ -149,3 +164,32 @@ class LightGCN(GeneralModel):
             return {"u_v": u_embed}
         i_embed = item_all[feed["item_id"]]                          # [B, C, d]
         return {"prediction": (u_embed[:, None, :] * i_embed).sum(-1)}
+
+
+@register_model("LightGCNImpression")
+class LightGCNImpression(ImpressionModel, LightGCNBase):
+    """Impression-mode LightGCN (reference LightGCN.py:93-108), with the
+    re-rankers' 'u_v' and 'i_v'. Its lazy tables are ImpressionModel's,
+    which its parameters lack: --lazy_emb_adam 1 resolves no table and the
+    first step raises, as in the JAX package."""
+
+    extra_log_args: ClassVar[list] = ["emb_size", "n_layers", "batch_size"]
+
+    def __init__(self, *, emb_size: int = 64, n_layers: int = 3, edges=None, **kwargs):
+        super().__init__(**kwargs)
+        self.init_graph(emb_size, n_layers, edges)
+
+    @staticmethod
+    def parse_model_args(parser):
+        return ImpressionModel.parse_model_args(LightGCNBase.parse_model_args_base(parser))
+
+    @classmethod
+    def corpus_kwargs(cls, args, corpus):
+        return {**super().corpus_kwargs(args, corpus), **cls.graph_kwargs(corpus)}
+
+    def forward(self, feed, training: bool = False, gen=None):
+        user_all, item_all = self._propagated()
+        u_embed = user_all[feed["user_id"]]
+        i_embed = item_all[feed["item_id"]]
+        return {"prediction": (u_embed[:, None, :] * i_embed).sum(-1),
+                "u_v": u_embed[:, None, :].expand(i_embed.shape), "i_v": i_embed}

@@ -1,6 +1,5 @@
 """SASRec -- self-attentive sequential recommendation (port of
-rechorus_tpu/models/sequential/sasrec.py:19-73, `SASRec` only; the
-Impression variant comes with its runner).
+rechorus_tpu/models/sequential/sasrec.py: `SASRec` and `SASRecImpression`).
 
 Reference behavior: src/models/sequential/SASRec.py (Kang & McAuley,
 ICDM'18): item + reversed-position embeddings, causal mask, post-LN
@@ -15,18 +14,16 @@ from typing import ClassVar
 
 import torch
 
-from rechorus_tpu_torch.models.base import SequentialModel
+from rechorus_tpu_torch.models.base import ImpressionSeqModel, SequentialModel
 from rechorus_tpu_torch.ops.layers import TransformerLayer, embed
 from rechorus_tpu_torch.registry import register_model
 
 
-@register_model("SASRec")
-class SASRec(SequentialModel):
-    extra_log_args: ClassVar[list] = ["emb_size", "num_layers", "num_heads"]
-    supports_catalog: ClassVar[bool] = True
+class SASRecBase:
+    """The tables, the transformer stack and the history encoder, shared by
+    SASRec and SASRecImpression (JAX `SASRecBase`)."""
 
-    def __init__(self, *, emb_size: int = 64, num_layers: int = 1, num_heads: int = 4, **kwargs):
-        super().__init__(**kwargs)
+    def init_layers(self, emb_size: int, num_layers: int, num_heads: int) -> None:
         self.emb_size, self.num_layers, self.num_heads = emb_size, num_layers, num_heads
         self.i_embeddings = embed(self.item_num, emb_size)
         self.p_embeddings = embed(self.history_max + 1, emb_size)
@@ -35,11 +32,11 @@ class SASRec(SequentialModel):
                 emb_size, emb_size, num_heads, dropout=self.dropout, kq_same=False))
 
     @staticmethod
-    def parse_model_args(parser):
+    def parse_model_args_base(parser):
         parser.add_argument("--emb_size", type=int, default=64, help="Size of embedding vectors.")
         parser.add_argument("--num_layers", type=int, default=1, help="Number of self-attention layers.")
         parser.add_argument("--num_heads", type=int, default=4, help="Number of attention heads.")
-        return SequentialModel.parse_model_args(parser)
+        return parser
 
     def encode(self, feed, training: bool, gen):
         """[B, D] state at position lengths - 1 of the history stack."""
@@ -57,9 +54,45 @@ class SASRec(SequentialModel):
         last = (lengths - 1).clamp(min=0)
         return his.gather(1, last[:, None, None].expand(B, 1, his.shape[2]))[:, 0]
 
+
+@register_model("SASRec")
+class SASRec(SequentialModel, SASRecBase):
+    extra_log_args: ClassVar[list] = ["emb_size", "num_layers", "num_heads"]
+    supports_catalog: ClassVar[bool] = True
+
+    def __init__(self, *, emb_size: int = 64, num_layers: int = 1, num_heads: int = 4, **kwargs):
+        super().__init__(**kwargs)
+        self.init_layers(emb_size, num_layers, num_heads)
+
+    @staticmethod
+    def parse_model_args(parser):
+        return SequentialModel.parse_model_args(SASRecBase.parse_model_args_base(parser))
+
     def forward(self, feed, catalog: bool = False, training: bool = False, gen=None):
         his_vector = self.encode(feed, training, gen)
         if catalog:
             return {"u_v": his_vector}
         i_vectors = self.i_embeddings(feed["item_id"])
         return {"prediction": (his_vector[:, None, :] * i_vectors).sum(-1)}
+
+
+@register_model("SASRecImpression")
+class SASRecImpression(ImpressionSeqModel, SASRecBase):
+    """Impression-mode SASRec (reference SASRec.py:107-122), with the
+    re-rankers' 'u_v' and 'i_v'."""
+
+    extra_log_args: ClassVar[list] = ["emb_size", "num_layers", "num_heads"]
+
+    def __init__(self, *, emb_size: int = 64, num_layers: int = 1, num_heads: int = 4, **kwargs):
+        super().__init__(**kwargs)
+        self.init_layers(emb_size, num_layers, num_heads)
+
+    @staticmethod
+    def parse_model_args(parser):
+        return ImpressionSeqModel.parse_model_args(SASRecBase.parse_model_args_base(parser))
+
+    def forward(self, feed, training: bool = False, gen=None):
+        his_vector = self.encode(feed, training, gen)
+        i_vectors = self.i_embeddings(feed["item_id"])
+        return {"prediction": (his_vector[:, None, :] * i_vectors).sum(-1),
+                "u_v": his_vector[:, None, :].expand(i_vectors.shape), "i_v": i_vectors}

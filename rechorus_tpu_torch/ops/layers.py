@@ -1,8 +1,9 @@
 """Shared torch blocks (port of rechorus_tpu/ops/layers.py:38-187,
-:206-253, :320-359 and :422-444: `dense` and its init scheme, `TableEmbed`,
+:206-253, :320-376 and :422-444: `dense` and its init scheme, `TableEmbed`,
 `embed`, the table dtype and the sparse-lookup context, dropout,
 `MLPBlock` with flax's `BatchNorm` and `LayerNorm`, `apply_activation`,
-`AttLayer`, `MaskedGRU`, `MultiHeadAttention` and `TransformerLayer`).
+`AttLayer`, `MaskedGRU`, `BiLSTM`, `MultiHeadAttention` and
+`TransformerLayer`).
 
 Init convention of the reference BaseModel.init_weights
 (src/models/BaseModel.py:29-35): N(0, 0.01) for embedding tables and
@@ -10,7 +11,7 @@ dense kernels and biases. Every parameter is drawn by
 `BaseModel.init_weights` from one generator through `param_init` below;
 a module names its parameters' initialisers in `PARAM_INITS` (the flax
 initialisers of the JAX package's layer: LayerNorm ones and zeros, the
-GRU cell's lecun-normal, orthogonal and zeros).
+GRU and LSTM cells' lecun-normal, orthogonal and zeros).
 
 Blocks that act differently in training take `training` and the step's
 `torch.Generator` explicitly, as the flax modules take `training` and a
@@ -413,6 +414,85 @@ class MaskedGRU(nn.Module):
         return outputs, outputs.gather(1, last[:, None, None].expand(B, 1, outputs.shape[2]))[:, 0]
 
 
+class LSTMCell(nn.Module):
+    """flax `nn.OptimizedLSTMCell`'s parameters in its layout: input
+    projections `ii`, `if`, `ig`, `io` without biases, recurrent `hi`, `hf`,
+    `hg`, `ho` with them; lecun-normal input kernels, orthogonal recurrent
+    kernels, zero biases.
+
+      i = sigmoid(ii(x) + hi(h)); f = sigmoid(if(x) + hf(h))
+      g = tanh(ig(x) + hg(h)); o = sigmoid(io(x) + ho(h))
+      c' = f * c + i * g; h' = o * tanh(c')
+    """
+
+    GATES = ("i", "f", "g", "o")     # torch's LSTM gate order too
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for gate in self.GATES:
+            self.add_module("i" + gate, Dense(in_features, hidden, False, _lecun_normal, _zeros))
+            self.add_module("h" + gate, Dense(hidden, hidden, True, _orthogonal, _zeros))
+
+    def stacked(self):
+        """[w_ih, w_hh, b_ih, b_hh] as PyTorch's LSTM kernels take them,
+        with the input bias held at zero (not a parameter)."""
+        w_h = [getattr(self, "h" + g) for g in self.GATES]
+        b_hh = torch.cat([m.bias for m in w_h])
+        return [torch.cat([getattr(self, "i" + g).weight for g in self.GATES]),
+                torch.cat([m.weight for m in w_h]), torch.zeros_like(b_hh), b_hh]
+
+
+class _LSTMDirection(nn.Module):
+    """One direction of `BiLSTM` (flax `nn.RNN`), its cell at `cell` as in
+    the flax tree."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.cell = LSTMCell(in_features, hidden)
+
+    def forward(self, seq):
+        """[B, L, H] outputs of the cell run from zero state over all L steps
+        (one call of PyTorch's LSTM, cuDNN on the card)."""
+        h0 = seq.new_zeros(1, seq.shape[0], self.cell.hidden)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="RNN module weights are not part")
+            # (input, hx, params, has_biases, num_layers, dropout, train,
+            # bidirectional, batch_first)
+            out, _, _ = torch._VF.lstm(seq.contiguous(), (h0, h0), self.cell.stacked(), True, 1, 0.0,
+                                       torch.is_grad_enabled(), False, True)
+        return out
+
+
+def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """flax's `flip_sequences` over [B, L, ...]: each row's first `lengths`
+    steps reversed and its padding steps reversed among themselves (time
+    index (L - 1 - t + length) mod L); an involution."""
+    B, L = x.shape[:2]
+    idx = torch.remainder(L - 1 - torch.arange(L, device=x.device)[None, :] + lengths[:, None], L)
+    return x.gather(1, idx.reshape(B, L, *([1] * (x.dim() - 2))).expand(x.shape))
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional LSTM over left-aligned padded sequences -> [B, L, 2H]
+    (port of rechorus_tpu/ops/layers.py:362-376: flax `nn.RNN` of
+    `OptimizedLSTMCell` forward, and reversed with `keep_order=True` and
+    `seq_lengths` backward). The forward direction runs over all L steps;
+    the backward one over each row flipped by `flip_sequences`, its outputs
+    flipped back. As in flax, the outputs at pad steps are the cell
+    continued over the pad inputs: mask them before use where it matters."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.fwd = _LSTMDirection(in_features, hidden)
+        self.bwd = _LSTMDirection(in_features, hidden)
+
+    def forward(self, seq, lengths):
+        out_f = self.fwd(seq)
+        out_b = flip_sequences(self.bwd(flip_sequences(seq, lengths)), lengths)
+        return torch.cat([out_f, out_b], dim=-1)
+
+
 # the attention maps `MultiHeadAttention` keeps for `BaseRunner.check`
 # (the JAX layer `sow`s them): off unless `record_intermediates` is open
 _RECORD = False
@@ -472,13 +552,14 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Post-LN residual block (reference layers.py:92-118), LayerNorm eps
-    1e-5 as torch's."""
+    1e-5 as torch's; `out_proj` gives the attention its output projection
+    (PRM's encoder)."""
 
     def __init__(self, d_model: int, d_ff: int, n_heads: int, dropout: float = 0.0,
-                 kq_same: bool = False):
+                 kq_same: bool = False, out_proj: bool = False):
         super().__init__()
         self.dropout = dropout
-        self.mha = MultiHeadAttention(d_model, n_heads, kq_same=kq_same)
+        self.mha = MultiHeadAttention(d_model, n_heads, kq_same=kq_same, out_proj=out_proj)
         self.ln1 = LayerNorm(d_model)
         self.ff1 = Dense(d_model, d_ff)
         self.ff2 = Dense(d_ff, d_model)

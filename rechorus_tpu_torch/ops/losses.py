@@ -1,12 +1,12 @@
-"""Training losses (port of rechorus_tpu/ops/losses.py:20-59 and :196-251:
-`masked_softmax`, `bpr_multi_neg`, the pointwise CTR losses `bce` and
-`mse`, ContraRec's `infonce`, DirectAU's `alignment_loss` and
-`uniformity_loss`, and `margin_rank_loss`; the listwise impression losses
-come with their runner).
+"""Training losses (port of rechorus_tpu/ops/losses.py: `masked_softmax`,
+`bpr_multi_neg`, the pointwise CTR losses `bce` and `mse`, the listwise
+impression losses of :65-195, ContraRec's `infonce`, DirectAU's
+`alignment_loss` and `uniformity_loss`, and `margin_rank_loss`).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps softmax grads NaN-free
 
@@ -44,6 +44,114 @@ def bce(predictions: torch.Tensor, labels: torch.Tensor, eps: float = 1e-7) -> t
 
 def mse(predictions: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return ((predictions - labels.to(predictions.dtype)) ** 2).mean()
+
+
+# ---------------------------------------------------------------------------
+# Listwise impression losses
+# ---------------------------------------------------------------------------
+
+
+def impression_loss(prediction: torch.Tensor, target: torch.Tensor, train_max_pos: int,
+                    loss_n: str = "BPR") -> torch.Tensor:
+    """Dispatch over the four listwise loss families (reference
+    src/models/BaseImpressionModel.py:44-128).
+
+    prediction: [B, P+N] scores, columns [0:P) positives, [P:) negatives.
+    target: [B, P+N] with +1 valid positive, 0 valid negative, -1 pad.
+    """
+    if "BPR" in loss_n:
+        return _impression_bpr(prediction, target, train_max_pos, loss_n)
+    elif loss_n == "listnet":
+        return _impression_listnet(prediction, target, train_max_pos)
+    elif loss_n == "softmaxCE":
+        return _impression_softmax_ce(prediction, target, train_max_pos)
+    elif loss_n == "attention_rank":
+        return _impression_attention_rank(prediction, target, train_max_pos)
+    raise ValueError("Undefined loss function: {}".format(loss_n))
+
+
+def _valid_mask(target: torch.Tensor) -> torch.Tensor:
+    """1.0 for non-pad entries (reference: where(target == -1) + 1)."""
+    return (target != -1).float()
+
+
+def _have_neg(target: torch.Tensor, train_max_pos: int) -> torch.Tensor:
+    """Row weight: 1 if the first negative slot is valid (reference
+    `test_have_neg = mask[:, train_max_pos_item]`)."""
+    return (target[:, train_max_pos] != -1).float()
+
+
+def _impression_bpr(prediction, target, P, loss_n):
+    B, L = prediction.shape
+    mask = _valid_mask(target)
+    col = torch.arange(L, device=prediction.device)
+    pos_mask = (col < P).float()[None, :]
+    neg_mask = (col >= P).float()[None, :]
+    valid_pair = mask[:, :, None] * mask[:, None, :]
+    select_mask = pos_mask[:, :, None] * neg_mask[:, None, :] * valid_pair      # [B, L, L]
+    score_diff_mask = (prediction[:, :, None] - prediction[:, None, :]) * select_mask
+
+    neg_softmax = masked_softmax(prediction, (neg_mask * mask) == 1, dim=1)
+    pos_valid = (pos_mask * mask) == 1
+    if "hard" in loss_n:
+        # higher weight for LOWER-score positives (the reference's
+        # (pos_pred.min() - pos_pred).softmax: the global min is a shift)
+        pos_softmax = masked_softmax(-prediction, pos_valid, dim=1)
+    else:
+        pos_softmax = masked_softmax(prediction, pos_valid, dim=1)
+
+    if "after" in loss_n:
+        loss = ((F.softplus(-score_diff_mask) * neg_softmax[:, None, :]).sum(-1) * pos_softmax).sum(-1)
+        return loss.mean()
+    elif "before" in loss_n:
+        # as the reference: pos_softmax multiplies INSIDE the softplus, and
+        # the sum runs over all columns (a zero-weight column adds log 2)
+        loss = F.softplus(-(score_diff_mask * neg_softmax[:, None, :]).sum(-1) * pos_softmax).sum(-1)
+        return loss.mean()
+    elif "simple" in loss_n:
+        # the reference returns this un-reduced; mean-reduced, as in the
+        # JAX package
+        return (F.softplus(-score_diff_mask) * select_mask).sum(-1).sum(-1).mean()
+    sig = torch.where(select_mask == 1, torch.sigmoid(score_diff_mask), 0.0)   # 'between'
+    agg = ((sig * neg_softmax[:, None, :]).sum(-1) * pos_softmax).sum(-1)
+    return -torch.log(agg.clamp_min(1e-12)).mean()
+
+
+def _row_weight(loss_rows: torch.Tensor, have_neg: torch.Tensor) -> torch.Tensor:
+    """The reference's loss * have_neg / have_neg.sum() * B, then .mean():
+    the mean over the rows with at least one valid negative."""
+    return (loss_rows * have_neg).sum() / have_neg.sum().clamp_min(1.0)
+
+
+def _impression_listnet(prediction, target, P):
+    mask = _valid_mask(target)
+    t_soft = masked_softmax(target.float(), mask == 1, dim=1)
+    # as the reference: the prediction softmax is NOT masked, so the pads'
+    # raw scores stay in the denominator (and pad id 0's row gets a gradient)
+    p_soft = torch.where(mask == 1, torch.softmax(prediction, dim=1), 1.0)   # pads -> log 0
+    loss_rows = -(t_soft * torch.log(p_soft.clamp_min(1e-12))).sum(dim=1)
+    return _row_weight(loss_rows, _have_neg(target, P))
+
+
+def _impression_softmax_ce(prediction, target, P):
+    mask = _valid_mask(target)
+    pos_len = (target == 1).sum(dim=1).float().clamp_min(1.0)
+    target_pre = masked_softmax(prediction, mask == 1, dim=1)[:, :P]
+    target_pre = torch.where(mask[:, :P] == 1, target_pre, 1.0)
+    loss_rows = -torch.log(target_pre.clamp_min(1e-12)).sum(dim=1) / pos_len
+    return _row_weight(loss_rows, _have_neg(target, P))
+
+
+def _impression_attention_rank(prediction, target, P):
+    mask = _valid_mask(target)
+    t_soft = masked_softmax(target.float(), mask == 1, dim=1)
+    p_soft = masked_softmax(prediction, mask == 1, dim=1)
+    p1 = torch.where(mask == 1, p_soft, 1.0)
+    loss_1 = -(t_soft * torch.log(p1.clamp_min(1e-12))).sum(dim=1)
+    p2 = torch.where(mask == 1, p_soft, 0.0)
+    p2 = torch.where(p2 != 1.0, p2, 0.0)          # singleton rows contribute 0
+    loss_2 = -((1 - t_soft) * torch.log((1 - p2).clamp_min(1e-12))).sum(dim=1)
+    return _row_weight(loss_1 + loss_2, _have_neg(target, P))
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:

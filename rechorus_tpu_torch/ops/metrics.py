@@ -1,5 +1,5 @@
 """Evaluation metric kernels (port of rechorus_tpu/ops/metrics.py:31-150,
-251-280).
+a copy of its numpy listwise metrics :151-250, and :251-280).
 
 Ranks count ties AGAINST the ground truth: gt_rank = (predictions >=
 predictions[:, 0]).sum(-1), reference src/helpers/BaseRunner.py:63. The
@@ -108,6 +108,99 @@ def evaluate_ctr(predictions: np.ndarray, labels: np.ndarray, metrics: List[str]
             evaluations[metric] = log_loss(labels, predictions)
         else:
             raise ValueError("Undefined evaluation metric: {}.".format(metric))
+    return evaluations
+
+
+# -------------------- masked listwise metrics (impressions) ----------------
+# numpy on the host, over the [B, P + N] score rows ImpressionRunner
+# collects; copied from the JAX package (reference ImpressionRunner.py:18-133)
+
+
+def hr_at_k(labels: np.ndarray, valid_num: np.ndarray, k: int) -> np.ndarray:
+    """Listwise hit rate: 1 if any positive is ranked before k.
+    labels: [B, L] binary, already sorted by predicted rank; valid_num: [B]
+    valid (non-pad) entries per row."""
+    indices = np.arange(labels.shape[1]) < valid_num[:, None]
+    labels = labels * indices
+    num_hits = np.sum(labels[:, :k], axis=1)
+    positive_num = np.sum(labels, axis=1)
+    positive_num[positive_num == 0] = 1
+    positive_num[positive_num > k] = k
+    hit_rate = num_hits / positive_num
+    hit_rate[hit_rate > 0] = 1
+    return hit_rate
+
+
+def dcg_at_k(labels: np.ndarray, valid_num: np.ndarray, k: int) -> np.ndarray:
+    indices = np.arange(labels.shape[1]) < valid_num[:, None]
+    labels = labels * indices
+    labels = labels[:, :k]
+    return np.sum(labels / np.log2(np.arange(2, labels.shape[1] + 2)), axis=1)
+
+
+def ndcg_at_k(labels: np.ndarray, valid_num: np.ndarray, k: int) -> np.ndarray:
+    """The ideal DCG by a sort (reference ImpressionRunner.py:38-51)."""
+    indices = np.arange(labels.shape[1]) < valid_num[:, None]
+    labels = labels * indices
+    dcg = dcg_at_k(labels, valid_num, k)
+    sorted_labels = np.sort(labels, axis=1)[:, ::-1]
+    ideal_dcg = dcg_at_k(sorted_labels, valid_num, k)
+    ideal_dcg[ideal_dcg == 0] = 1
+    return dcg / ideal_dcg
+
+
+def ap_at_k(labels: np.ndarray, valid_num: np.ndarray, k: int) -> np.ndarray:
+    """Reference ImpressionRunner.py:53-66."""
+    indices = np.arange(labels.shape[1]) < valid_num[:, None]
+    labels = labels * indices
+    num_positive_predictions = np.cumsum(labels, axis=1)
+    num_positive_predictions[:, k:] = 0
+    precision = num_positive_predictions / np.arange(1, labels.shape[1] + 1)
+    positive_num = np.sum(labels, axis=1)
+    positive_num[positive_num == 0] = 1
+    positive_num[positive_num > k] = k
+    return np.sum(precision * labels, axis=1) / positive_num
+
+
+def evaluate_impression(predictions: np.ndarray, topk: List[int], metrics: List[str],
+                        pos_num: np.ndarray, neg_num: np.ndarray,
+                        pos_num_max: int) -> Dict[str, float]:
+    """Listwise evaluation over padded [pos_pad | neg_pad] score rows,
+    predictions [B, pos_num_max + neg_num_max] with the pads at -inf. The
+    scores are cast to float64 and the positives lowered by 1e-6, so that a
+    tie ranks a positive last; the mergesort keeps the order of equal keys
+    (reference ImpressionRunner.py:73-133)."""
+    evaluations = dict()
+    predictions = np.asarray(predictions, dtype=np.float64).copy()
+    pos_num = np.asarray(pos_num)
+    neg_num = np.asarray(neg_num)
+    B, L = predictions.shape
+    neg_num_max = L - pos_num_max
+
+    eps = 1e-6
+    predictions[:, :pos_num_max] -= eps  # positives lose ties
+
+    sort_idx = (-predictions).argsort(axis=1, kind="mergesort")
+
+    pos_num_cliped = np.minimum(pos_num, pos_num_max)
+    neg_num_cliped = np.minimum(neg_num, neg_num_max)
+    whole_len = pos_num_cliped + neg_num_cliped
+
+    labels = (np.arange(pos_num_max) < pos_num_cliped[:, None]).astype(int)
+    labels = np.concatenate((labels, np.zeros((B, L - pos_num_max), dtype=int)), axis=1)
+    labels = np.take_along_axis(labels, sort_idx, axis=1)
+
+    for metric in metrics:
+        for k in topk:
+            key = "{}@{}".format(metric, k)
+            if metric == "NDCG":
+                evaluations[key] = ndcg_at_k(labels, whole_len, k).mean()
+            elif metric == "MAP":
+                evaluations[key] = ap_at_k(labels, whole_len, k).mean()
+            elif metric == "HR":
+                evaluations[key] = hr_at_k(labels, whole_len, k).mean()
+            else:
+                raise ValueError("Undefined evaluation metric: {}.".format(metric))
     return evaluations
 
 

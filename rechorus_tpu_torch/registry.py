@@ -47,6 +47,7 @@ _MODULES = [
     "rechorus_tpu_torch.runners.base",
     "rechorus_tpu_torch.runners.buir",
     "rechorus_tpu_torch.runners.ctr",
+    "rechorus_tpu_torch.runners.impression",
     "rechorus_tpu_torch.models.general.bprmf",
     "rechorus_tpu_torch.models.general.pop",
     "rechorus_tpu_torch.models.general.neumf",
@@ -76,6 +77,9 @@ _MODULES = [
     "rechorus_tpu_torch.models.context.autoint",
     "rechorus_tpu_torch.models.context.sam",
     "rechorus_tpu_torch.models.context.finalmlp",
+    "rechorus_tpu_torch.models.reranker.prm",
+    "rechorus_tpu_torch.models.reranker.setrank",
+    "rechorus_tpu_torch.models.reranker.mir",
 ]
 
 

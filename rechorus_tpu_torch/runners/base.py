@@ -314,10 +314,12 @@ class BaseRunner:
 
     # ------------------------------------------------------------------ #
     # state & checkpointing
-    def init_state(self, model, seed: int) -> TrainState:
+    def init_state(self, model, seed: int, batcher=None) -> TrainState:
         """Move the model to the runner's device, redraw its parameters
         N(0, 0.01) from a generator seeded by `seed`, pick the optimizer
-        lane and zero its state."""
+        lane and zero its state. A train `batcher` with a `post_init_state`
+        hook may then set parameters (the re-rank batchers' --tuneranker
+        ranker)."""
         model.to(self.device)
         # per-group lr (Chorus stage 2): {state_dict key: scale} or None
         scales = model.lr_scales() if hasattr(model, "lr_scales") else None
@@ -346,6 +348,8 @@ class BaseRunner:
             # 2, TiMiRec finetune)
             model.post_init_state()
         params = dict(model.named_parameters())
+        if batcher is not None and hasattr(batcher, "post_init_state"):
+            batcher.post_init_state(TrainState(model=model, params=params, opt_state=None))
         if lazy_specs:
             tx = LA.LazyAdamTx(self.learning_rate, self.l2, decay_mask=_decay_mask)
         else:

@@ -1,8 +1,10 @@
-"""Seed bands of the context models' published commands, through a CLI.
+"""Seed bands of the context models' published commands, and of the
+impression and re-rank tasks, through a CLI.
 
     python -m rechorus_tpu_torch.tools.context_bands --suite topk_grocery --seeds 0,1,2
     python -m rechorus_tpu_torch.tools.context_bands --suite ctr_ml1m --cpu --jobs 2
     python -m rechorus_tpu_torch.tools.context_bands --suite fm_parity --seeds 0,1,2
+    python -m rechorus_tpu_torch.tools.context_bands --suite rerank_parity --seeds 0,1
 
 Each run is `python -m <package>.main --model_name <M> --model_mode <mode>
 <flags> ...` in a subprocess, on a corpus written under `--work` (each run
@@ -26,7 +28,31 @@ Suites (the flags are docs/benchmark_commands.md's, D = 64):
                 i_category_c;
   fm_parity     FMCTR on SynthCTRBig and FMTopK on SynthTOPK with the
                 cross-framework parity flags (emb 32, 30 epochs, early stop
-                5, user, item and situation features).
+                5, user, item and situation features);
+  impression_ml1m  two epochs of BPRMFImpression under the BPR, listnet,
+                softmaxCE and attention_rank losses, LightGCNImpression,
+                SASRecImpression (1 layer, 2 heads, history 10) and
+                GRU4RecImpression (hidden 64), and BPRMFImpression with
+                --lazy_emb_adam 1, on `make_impression_dataset`
+                at ML-1M's 6,040 users and 3,706 items, 10 requests a user
+                at noise 0.3 (D = 64, lr 1e-3, l2 1e-6, batch 256, caps
+                20 / 20);
+  rerank_ml1m   per seed, the two-stage recipe on that corpus: the
+                BPRMFImpression and SASRecImpression backbones (as above),
+                then one epoch each of PRM, SetRank (IMSAB) and MIR in
+                General mode over the first and in Sequential mode over the
+                second, with scripts/cross_parity.py's re-ranker flags
+                (:200-212) at D = 64;
+  impression_parity  BPRMFImpression, SASRecImpression and
+                GRU4RecImpression on SynthImpBig (scripts/cross_parity.py's
+                corpus, :134-137) with its flags (:57-71, 30 epochs, early
+                stop 5);
+  rerank_parity the three re-rankers in General mode over a BPRMFImpression
+                backbone on SynthImpBig, with cross_parity's two-stage
+                flags (:200-240).
+A two-stage suite runs its stages one after another in one directory per
+seed: the backbone's checkpoint and a YAML file of its model flags are the
+re-rankers' --ranker_model_file and --ranker_config_file.
 """
 from __future__ import annotations
 
@@ -117,6 +143,54 @@ PARITY_RUNS = {  # (model, mode): (flags, dataset)
 }
 
 
+# the impression cell: ML-1M's users and items (a synthetic stand-in for
+# MIND, whose 51,282-item catalog under --test_all would need ~20 GB of
+# host scores), 10 requests a user at cross_parity's mid-SNR noise
+IMP_ML1M = dict(n_users=6040, n_items=3706, n_impressions=10, noise=0.3)
+IMP_EPOCHS, RERANK_EPOCHS = 2, 1
+IMP_METRICS = ["--metric", "NDCG,HR,MAP", "--topk", "1,3,5", "--main_metric", "NDCG@3"]
+IMP_COMMON = ["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--batch_size", "256", *IMP_METRICS]
+IMP_MODELS = {  # run -> (model, flags)
+    "BPRMF": ("BPRMF", ["--loss_n", "BPR"]),
+    "BPRMF_listnet": ("BPRMF", ["--loss_n", "listnet"]),
+    "BPRMF_softmaxCE": ("BPRMF", ["--loss_n", "softmaxCE"]),
+    "BPRMF_attention_rank": ("BPRMF", ["--loss_n", "attention_rank"]),
+    "LightGCN": ("LightGCN", ["--n_layers", "3"]),
+    "SASRec": ("SASRec", ["--num_layers", "1", "--num_heads", "2", "--history_max", "10"]),
+    "GRU4Rec": ("GRU4Rec", ["--hidden_size", "64", "--history_max", "10"]),
+    "BPRMF_lazy": ("BPRMF", ["--loss_n", "BPR", "--lazy_emb_adam", "1"]),
+}
+# scripts/cross_parity.py:200-212 at D = 64 (MIR's --history_max 10 for all,
+# which the Sequential modes need: it sizes SASRec's position table)
+RERANKERS = {
+    "PRM": ["--n_blocks", "2", "--num_heads", "2", "--num_hidden_unit", "32", "--lr", "1e-3", "--l2", "1e-6"],
+    "SetRank": ["--n_blocks", "2", "--num_heads", "2", "--num_hidden_unit", "32", "--setrank_type", "IMSAB",
+                "--lr", "1e-3", "--l2", "1e-6"],
+    "MIR": ["--num_heads", "2", "--num_hidden_unit", "32", "--lr", "1e-3", "--l2", "1e-6"],
+}
+RERANK_COMMON = ["--emb_size", "64", "--history_max", "10", "--batch_size", "256", *IMP_METRICS]
+# scripts/cross_parity.py's SynthImpBig (:134-137) and impression flags
+IMP_PARITY_DATA = dict(n_users=250, n_items=120, n_impressions=10, noise=0.3)
+IMP_PARITY_METRICS = ["--loss_n", "BPR", "--metric", "NDCG,HR", "--topk", "1,3,5", "--main_metric", "NDCG@3"]
+IMP_PARITY_RUNS = {
+    "BPRMF": ["--emb_size", "32", "--lr", "1e-3", "--l2", "1e-6"],
+    "SASRec": ["--emb_size", "32", "--num_layers", "1", "--num_heads", "2", "--history_max", "10",
+               "--lr", "1e-3", "--l2", "1e-6"],
+    "GRU4Rec": ["--emb_size", "32", "--hidden_size", "32", "--history_max", "10", "--lr", "1e-3",
+                "--l2", "1e-6"],
+}
+PARITY_RUN = ["--epoch", "30", "--early_stop", "5", "--num_workers", "0", "--save_final_results", "0"]
+
+
+def ranker_config(flags) -> str:
+    """The YAML text of a backbone's model flags (its --emb_size and the
+    like; history_max is the re-ranker's, reference BaseRerankerModel.py:
+    53-56)."""
+    pairs = dict(zip(flags[0::2], flags[1::2]))
+    keep = ("--emb_size", "--num_layers", "--num_heads", "--hidden_size", "--n_layers")
+    return "".join(f"{k[2:]}: {v}\n" for k, v in pairs.items() if k in keep)
+
+
 def make_corpus(data_root: str, dataset: str) -> None:
     """Write (or link) `dataset` under `data_root` if it is not there."""
     path = os.path.join(data_root, dataset)
@@ -132,12 +206,19 @@ def make_corpus(data_root: str, dataset: str) -> None:
         synthetic.make_ctr_dataset(path, **PARITY_DATA)
     elif dataset == "SynthTOPK":
         synthetic.make_ctr_dataset(path, **PARITY_DATA, topk=True)
+    elif dataset == "Imp_ML1M":
+        synthetic.make_impression_dataset(path, **IMP_ML1M)
+    elif dataset == "SynthImpBig":
+        synthetic.make_impression_dataset(path, **IMP_PARITY_DATA)
     else:
         raise ValueError(f"unknown dataset {dataset!r}")
 
 
 def suite_runs(suite: str):
-    """[(model, mode, flags, dataset)] of a suite."""
+    """[(model, mode, flags, dataset[, run])] of a suite (`run` names a
+    run where one model runs with several flag sets); a two-stage suite's
+    entries are chains, [(run, model, mode, flags, dataset, backbone run or
+    None)], with the backbones first."""
     if suite == "topk_grocery":
         return [(m, "TopK", f + TOPK_COMMON + ["--epoch", str(EPOCHS)], GROCERY)
                 for m, f in TOPK_MODELS.items()]
@@ -146,6 +227,27 @@ def suite_runs(suite: str):
                 for m, f in CTR_MODELS.items()]
     if suite == "fm_parity":
         return [(m, mode, flags + PARITY_COMMON, ds) for (m, mode), (flags, ds) in PARITY_RUNS.items()]
+    if suite == "impression_ml1m":
+        return [(m, "Impression", f + IMP_COMMON + ["--epoch", str(IMP_EPOCHS)], "Imp_ML1M", run)
+                for run, (m, f) in IMP_MODELS.items()]
+    if suite == "impression_parity":
+        return [(m, "Impression", f + IMP_PARITY_METRICS + PARITY_RUN, "SynthImpBig")
+                for m, f in IMP_PARITY_RUNS.items()]
+    if suite == "rerank_ml1m":
+        chain = [(b, b, "Impression", IMP_MODELS[b][1] + IMP_COMMON + ["--epoch", str(IMP_EPOCHS)],
+                  "Imp_ML1M", None) for b in ("BPRMF", "SASRec")]
+        chain += [(m + mode, m, mode, f + RERANK_COMMON + ["--epoch", str(RERANK_EPOCHS)], "Imp_ML1M", b)
+                  for mode, b in (("General", "BPRMF"), ("Sequential", "SASRec")) for m, f in RERANKERS.items()]
+        return [chain]
+    if suite == "rerank_parity":
+        # cross_parity's backbone (emb 32) and its re-rankers' flags (emb
+        # 32, MIR's history 10), 30 epochs with early stop 5 each
+        chain = [("BPRMF", "BPRMF", "Impression", ["--emb_size", "32"] + IMP_PARITY_METRICS + PARITY_RUN,
+                  "SynthImpBig", None)]
+        chain += [(m + "General", m, "General",
+                   f + ["--emb_size", "32"] + (["--history_max", "10"] if m == "MIR" else [])
+                   + IMP_PARITY_METRICS + PARITY_RUN, "SynthImpBig", "BPRMF") for m, f in RERANKERS.items()]
+        return [chain]
     raise ValueError(f"unknown suite {suite!r}")
 
 
@@ -159,10 +261,12 @@ def metrics_of(text: str, prefix: str) -> dict:
 
 
 def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str, seed: int,
-            cpu: bool) -> dict:
-    """One CLI run in a directory of its own under `work`."""
-    tag = f"{model}{mode}_{dataset}_{seed}"
-    run_dir = os.path.join(work, tag)
+            cpu: bool, run_dir: str = "", tag: str = "") -> dict:
+    """One CLI run in a directory of its own under `work` (or `run_dir`,
+    whose model.bin / run.log it then names after `tag`)."""
+    stem = tag if run_dir else ""
+    tag = tag or f"{model}{mode}_{dataset}_{seed}"
+    run_dir = run_dir or os.path.join(work, tag)
     data_root = os.path.join(run_dir, "data")
     os.makedirs(data_root, exist_ok=True)
     shared = os.path.join(work, "_corpora", dataset)
@@ -172,10 +276,10 @@ def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str,
         for name in os.listdir(shared):
             if name.endswith(".csv"):
                 os.symlink(os.path.realpath(os.path.join(shared, name)), os.path.join(target, name))
-    log = os.path.join(run_dir, "run.log")
+    log = os.path.join(run_dir, (stem or "run") + ".log")
     argv = [sys.executable, "-m", f"{package}.main", "--model_name", model, "--model_mode", mode,
             *flags, "--dataset", dataset, "--path", data_root, "--random_seed", str(seed),
-            "--log_file", log, "--model_path", os.path.join(run_dir, "model.bin")]
+            "--log_file", log, "--model_path", os.path.join(run_dir, (stem or "model") + ".bin")]
     if "--save_final_results" not in flags:
         argv += ["--save_final_results", "0"]
     if cpu:
@@ -186,7 +290,8 @@ def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str,
     proc = subprocess.run(argv, capture_output=True, text=True, cwd=run_dir, env=env)
     seconds = time.perf_counter() - t
     text = open(log).read() if os.path.exists(log) else ""
-    out = dict(model=model + mode, dataset=dataset, seed=seed, rc=proc.returncode,
+    out = dict(model=tag[: -len(f"_{dataset}_{seed}")] if tag.endswith(f"_{dataset}_{seed}") else tag,
+               dataset=dataset, seed=seed, rc=proc.returncode,
                seconds=round(seconds, 3), dev=metrics_of(text, "Dev  After Training"),
                test=metrics_of(text, "Test After Training"),
                epochs=len(re.findall(r"^Epoch \d+ ", text, re.M)))
@@ -195,9 +300,33 @@ def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str,
     return out
 
 
+def run_chain(package: str, work: str, chain, seed: int, cpu: bool) -> list:
+    """A two-stage chain in one directory: each backbone run writes
+    <run>.bin and <run>.yaml (its model flags), which the re-rankers that
+    name it load as their frozen ranker."""
+    run_dir = os.path.join(work, f"chain_{seed}")
+    out = []
+    for run, model, mode, flags, dataset, backbone in chain:
+        if backbone is not None:
+            flags = [*flags, "--ranker_name", backbone,
+                     "--ranker_config_file", os.path.join(run_dir, backbone + ".yaml"),
+                     "--ranker_model_file", os.path.join(run_dir, backbone + ".bin")]
+        res = run_one(package, work, model, mode, flags, dataset, seed, cpu, run_dir=run_dir, tag=run)
+        text = open(os.path.join(run_dir, run + ".log")).read() if res["rc"] == 0 else ""
+        if backbone is None:
+            with open(os.path.join(run_dir, run + ".yaml"), "w") as f:
+                f.write(ranker_config(flags))
+        else:
+            res["ranker_loaded"] = "Loaded frozen ranker from" in text
+        out.append(res)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--suite", required=True, choices=["topk_grocery", "ctr_ml1m", "fm_parity"])
+    parser.add_argument("--suite", required=True,
+                        choices=["topk_grocery", "ctr_ml1m", "fm_parity", "impression_ml1m", "rerank_ml1m",
+                                 "impression_parity", "rerank_parity"])
     parser.add_argument("--seeds", default="0,1,2")
     parser.add_argument("--package", default="rechorus_tpu_torch", help="package whose main.py runs")
     parser.add_argument("--cpu", action="store_true", help="pass --gpu '' (the CPU)")
@@ -208,14 +337,25 @@ def main(argv=None) -> int:
     runs = suite_runs(opts.suite)
     with tempfile.TemporaryDirectory() as tmp:
         work = os.path.abspath(opts.work or tmp)
-        for ds in {r[3] for r in runs}:
+        chained = opts.suite.startswith("rerank")
+        for ds in {r[4] for r in runs[0]} if chained else {r[3] for r in runs}:
             make_corpus(os.path.join(work, "_corpora"), ds)
         jobs = [(r, s) for r in runs for s in seeds]
         results = []
+
+        def do(job):
+            if chained:
+                return run_chain(opts.package, work, job[0], job[1], opts.cpu)
+            model, mode, flags, dataset, *run = job[0]
+            tag = f"{run[0]}{mode}_{dataset}_{job[1]}" if run else ""
+            return [run_one(opts.package, work, model, mode, flags, dataset, job[1], opts.cpu,
+                            tag=tag)]
+
         with ThreadPoolExecutor(max_workers=max(1, opts.jobs)) as pool:
-            for res in pool.map(lambda j: run_one(opts.package, work, *j[0], j[1], opts.cpu), jobs):
-                print(json.dumps(res), flush=True)
-                results.append(res)
+            for batch in pool.map(do, jobs):
+                for res in batch:
+                    print(json.dumps(res), flush=True)
+                    results.append(res)
     summary = {}
     for res in results:
         row = summary.setdefault(res["model"], {"seeds": [], "dev": {}, "test": {}})

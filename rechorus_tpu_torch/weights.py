@@ -18,8 +18,10 @@ the kind of each module, which fixes how its leaves cross:
   param       raw parameters (flax `self.param`), the same name and axes on
               both sides: a top-level one, or every leaf of the module
 
-The torch module path is the flax one with '/' -> '.' and flax's
-`GRUCell_0` -> `cell`. Every transform is a permutation of axes, so a
+The torch module path is the flax one with '/' -> '.', flax's
+`GRUCell_0` -> `cell`, and a BiLSTM's `OptimizedLSTMCell_0` / `_1` (flax
+names the cells of its two `nn.RNN`s after the cell class) -> `fwd.cell` /
+`bwd.cell`. Every transform is a permutation of axes, so a
 round trip flax -> torch -> flax is exact.
 """
 from __future__ import annotations
@@ -70,6 +72,27 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
                 rf"interest_predictor/rnn/GRUCell_0/{_GRU}": "dense", r"proj_(\d+|final)": "dense"},
 }
 FLAX_TO_TORCH["ContraKDA"] = FLAX_TO_TORCH["KDA"]
+for _name in ("BPRMF", "LightGCN", "SASRec", "GRU4Rec"):
+    FLAX_TO_TORCH[_name + "Impression"] = FLAX_TO_TORCH[_name]
+# a re-ranker's --tuneranker submodule: any of the four Impression rankers
+_RANKER = {"ranker_module": "param",
+           **{"ranker_module/" + k: v for _name in ("BPRMF", "LightGCN", "SASRec", "GRU4Rec")
+              for k, v in FLAX_TO_TORCH[_name].items()}}
+_MAB = r"(msab_\d+|imsab_\d+_[12])"
+_RERANK = {
+    "PRM": {"i_embeddings": "embed", "ordinal_position_embedding": "embed", "rFF[01]": "dense",
+            r"encoder_\d+/(mha/([qkv]|out_proj)|ff[12])": "dense", r"encoder_\d+/ln[12]": "layer_norm"},
+    "SetRank": {"i_embeddings": "embed", "ordinal_position_embedding": "embed", "rFF[01]": "dense",
+                r"inducing_\d+": "param", rf"{_MAB}/(attn/([qkv]|out_proj)|linear[12])": "dense",
+                rf"{_MAB}/norm[12]": "layer_norm"},
+    "MIR": {"i_embeddings": "embed", "intra_set/([qkv]|out_proj)": "dense",
+            "intra_list/OptimizedLSTMCell_[01]/(ii|if|ig|io|hi|hf|hg|ho)": "dense",
+            "SLAttention": "param", "SLAttention/fc_decay[12]": "dense", "fc[1-4]": "dense"},
+}
+for _name, _mapping in _RERANK.items():
+    FLAX_TO_TORCH[_name + "General"] = FLAX_TO_TORCH[_name + "Sequential"] = {**_mapping, **_RANKER}
+# flax module names -> torch module paths (and back, by `_flax_module_path`)
+_RENAME = {"GRUCell_0": "cell", "OptimizedLSTMCell_0": "fwd.cell", "OptimizedLSTMCell_1": "bwd.cell"}
 _BANK = {"bank/(fused_table|fused_linear)": "embed", r"bank/float_(emb|lin)_\d+": "dense"}
 
 
@@ -139,7 +162,15 @@ def _torch_leaf(model: str, path) -> tuple:
     if path[-1] not in leaves:
         raise KeyError(f"{model}: unmapped flax leaf {'/'.join(path)!r}")
     name, axes = leaves[path[-1]]
-    return ".".join(p if p != "GRUCell_0" else "cell" for p in path[:-1]) + "." + name, axes
+    return ".".join(_RENAME.get(p, p) for p in path[:-1]) + "." + name, axes
+
+
+def _flax_module_path(torch_parts) -> list:
+    """The flax module path of a torch module path (`_RENAME` inverted)."""
+    dotted = "." + ".".join(torch_parts) + "."
+    for flax_name, torch_name in sorted(_RENAME.items(), key=lambda kv: -len(kv[1])):
+        dotted = dotted.replace("." + torch_name + ".", "." + flax_name + ".")
+    return dotted.strip(".").split(".")
 
 
 def _to_torch(tree: Mapping, model: str) -> Dict[str, torch.Tensor]:
@@ -173,7 +204,7 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
             if collection == "params":
                 tree[key] = value.detach().float().cpu().numpy().copy()
             continue
-        path = ["GRUCell_0" if p == "cell" else p for p in parts[:-1]]
+        path = _flax_module_path(parts[:-1])
         kind = _kind(model, "/".join(path))
         if kind == "param":
             match = [(parts[-1], None)]

@@ -312,8 +312,8 @@ def test_default_log_and_model_paths_lie_inside_the_working_directory(data_root,
 def test_unported_model_name_raises_a_key_error_that_names_it():
     with pytest.raises(KeyError, match="CLRec"):
         registry.get_model("CLRec")
-    with pytest.raises(KeyError, match="BPRMFImpression"):
-        registry.get_model("BPRMF", "Impression")
+    with pytest.raises(KeyError, match="DINCTR"):
+        registry.get_model("DIN", "CTR")
     assert registry.get_model("BPRMF").registered_name == "BPRMF"
     assert registry.get_runner("BaseRunner").__name__ == "BaseRunner"
     assert registry.get_reader("BaseReader").__name__ == "BaseReader"
@@ -330,6 +330,30 @@ def test_every_runner_flag_of_the_jax_package_is_kept():
         names(model.parse_model_args(argparse.ArgumentParser()))
     assert jmodel.extra_log_args == model.extra_log_args
     assert (jmodel.reader, jmodel.runner, jmodel.batcher) == (model.reader, model.runner, model.batcher)
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("BPRMF", "Impression"), ("LightGCN", "Impression"), ("SASRec", "Impression"), ("GRU4Rec", "Impression"),
+    ("PRM", "General"), ("PRM", "Sequential"), ("SetRank", "General"), ("SetRank", "Sequential"),
+    ("MIR", "General"), ("MIR", "Sequential")])
+def test_impression_and_rerank_modes_resolve_as_in_the_jax_package(tmp_path, name, mode):
+    """--model_name <name> --model_mode <mode> resolves to the class the JAX
+    package resolves, with its reader, runner and batcher, its model flags
+    (and those of its reader and runner) and its log-name arguments."""
+    names = lambda p: {a.dest for a in p._actions}                       # noqa: E731
+    argv = ["--model_name", name, "--model_mode", mode, "--dataset", "D", "--path", str(tmp_path)]
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    jmodel = jax_registry.get_model(name, mode)
+    assert model_cls.__name__ == jmodel.__name__ == name + mode
+    assert (model_cls.reader, model_cls.runner, model_cls.batcher) == (jmodel.reader, jmodel.runner,
+                                                                       jmodel.batcher)
+    assert (reader_cls.__name__, runner_cls.__name__) == (jmodel.reader, jmodel.runner)
+    assert names(model_cls.parse_model_args(argparse.ArgumentParser())) == \
+        names(jmodel.parse_model_args(argparse.ArgumentParser()))
+    assert names(reader_cls.parse_data_args(argparse.ArgumentParser())) >= \
+        names(jax_registry.get_reader(jmodel.reader).parse_data_args(argparse.ArgumentParser()))
+    assert model_cls.extra_log_args == jmodel.extra_log_args
+    assert args.log_file.startswith(f"log/{name}{mode}/") and args.gpu == "0"
 
 
 METRICS = [{"HR@5": 0.35491234, "NDCG@5": 0.2486, "HR@10": 0.5, "NDCG@10": 0.31},

@@ -52,7 +52,10 @@ def test_importing_the_port_loads_no_jax_module():
             "rechorus_tpu_torch.models.context.dcn", "rechorus_tpu_torch.models.context.dcnv2",
             "rechorus_tpu_torch.models.context.xdeepfm", "rechorus_tpu_torch.models.context.autoint",
             "rechorus_tpu_torch.models.context.sam", "rechorus_tpu_torch.models.context.finalmlp",
-            "rechorus_tpu_torch.tools.context_bands"} <= set(result["imported"])
+            "rechorus_tpu_torch.tools.context_bands", "rechorus_tpu_torch.runners.impression",
+            "rechorus_tpu_torch.models.reranker._loader", "rechorus_tpu_torch.models.reranker.prm",
+            "rechorus_tpu_torch.models.reranker.setrank",
+            "rechorus_tpu_torch.models.reranker.mir"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 
