@@ -24,10 +24,12 @@ shapes the main path gives it, and drives the port's main paths:
     exact references, then the same evaluation for FPMC's computed
     [1M, 128] table and for TiSASRec (after 10 dense steps);
   * KDA through the CLI on Grocery with bench.py's kda lane flags (dense
-    Adam, its s/train-epoch, `--test_all 1` by the dense route and, with
-    the trained weights, by the candidate-tiled route, `--lazy_emb_adam
-    1`), and KDA's tiled full-catalog evaluation on a 100,000-item
-    synthetic KG catalog;
+    Adam, its s/train-epoch, `--test_all 1` by the dense route and by the
+    candidate-tiled route, `--lazy_emb_adam 1`), and KDA's tiled
+    full-catalog evaluation on a 100,000-item synthetic KG catalog; from
+    here on `--test_all 1` ranks the test split once over the catalog with
+    the dense run's saved weights, by the stack the CLI builds
+    (`_saved_catalog_eval`), instead of a CLI run that trains again;
   * the rest of the general family through the CLI on Grocery with
     docs/benchmark_commands.md's flags (POP, NeuMF, DirectAU, LightGCN,
     BUIR, CFKG: dense Adam over a floor, the step profile, `--test_all 1`,
@@ -53,7 +55,8 @@ shapes the main path gives it, and drives the port's main paths:
     impression corpus (6,040 users, 3,706 items, 10 requests a user):
     BPRMFImpression under the BPR, listnet, softmaxCE and attention_rank
     losses, LightGCNImpression, SASRecImpression and GRU4RecImpression
-    (over dev NDCG@3 floors from the JAX package's bands, the step
+    (over dev NDCG@3 floors from the JAX package's bands and over the
+    chance level of a random ranking measured in the run, the step
     profile), BPRMFImpression's logged export against
     ImpressionRunner.predict and its reload, a `--test_all 1` run (the
     catalog as the negative block, the top-100 export) and a
@@ -61,8 +64,9 @@ shapes the main path gives it, and drives the port's main paths:
     must end bit-equal); then the re-rankers PRM, SetRank and MIR in
     General mode over the BPRMFImpression checkpoint and in Sequential
     mode over the SASRecImpression one (the log names the loaded ranker;
-    floors; the step profile), the frozen ranker bit-equal over training
-    steps, `--tuneranker 1` moving it, and the `--test_all` error;
+    floors and the chance level; the step profile), the frozen ranker
+    bit-equal over training steps, `--tuneranker 1` moving it, and the
+    `--test_all` error;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
@@ -113,7 +117,7 @@ from rechorus_tpu_torch.ops import cuda_scatter as CS
 from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import topk as TT
-from rechorus_tpu_torch.ops.metrics import evaluate_topk_from_ranks, masked_topk
+from rechorus_tpu_torch.ops.metrics import evaluate_impression, evaluate_topk_from_ranks, masked_topk
 from rechorus_tpu_torch.runners.base import BaseRunner
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
 from rechorus_tpu_torch.tools import context_bands as CB
@@ -318,27 +322,44 @@ KDA_TRAINED_CHUNK = 2048
 KDA_ENTITY_ROWS = 256 * (2 + SEQ_HISTORY + 2 * 4 + 2 + 2 + 1)
 # The impression cell: make_impression_dataset at ML-1M's 6,040 users and
 # 3,706 items, 10 requests a user at noise 0.3 (context_bands.IMP_ML1M), the
-# impression models (context_bands.IMP_MODELS) for IMP_EPOCHS epochs and the
-# re-rankers (context_bands.RERANKERS) for RERANK_EPOCHS over the first
+# impression runs (context_bands.IMP_MODELS, each for its own epochs) and
+# the re-rankers (context_bands.RERANKERS) for RERANK_EPOCHS over the first
 # stage's BPRMFImpression (General) and SASRecImpression (Sequential)
 # checkpoints. Floors on dev NDCG@3: the minimum of the JAX package's band
 # less 0.02, from its CLI on a CPU with the same commands at --random_seed
 # 0, 1, 2 (python -m rechorus_tpu_torch.tools.context_bands --suite
 # impression_ml1m|rerank_ml1m --package rechorus_tpu --cpu): BPRMFImpression
-# 0.4277, 0.4328, 0.4299; with listnet 0.4128, 0.4142, 0.4116; softmaxCE
-# 0.4247, 0.4309, 0.4259; attention_rank 0.4297, 0.4330, 0.4318;
-# LightGCNImpression 0.6055, 0.6134, 0.6101; SASRecImpression 0.4276,
-# 0.4343, 0.4379; GRU4RecImpression 0.4140, 0.4110, 0.4149; BPRMFImpression
-# --lazy_emb_adam 1 0.4032, 0.4123, 0.4202; one re-rank epoch: PRMGeneral
-# 0.4237, 0.4292, 0.4270; SetRankGeneral 0.4277, 0.4259, 0.4299; MIRGeneral
-# 0.4841, 0.4916, 0.4819; PRMSequential 0.4283, 0.4348, 0.4367;
-# SetRankSequential 0.4283, 0.4352, 0.4374; MIRSequential 0.4087, 0.4178,
-# 0.4161.
-IMP_FLOORS = {"BPRMF": 0.4077, "BPRMF_listnet": 0.3916, "BPRMF_softmaxCE": 0.4047,
-              "BPRMF_attention_rank": 0.4097, "LightGCN": 0.5855, "SASRec": 0.4076, "GRU4Rec": 0.3910,
-              "BPRMF_lazy": 0.3832}
-RERANK_FLOORS = {"PRMGeneral": 0.4037, "SetRankGeneral": 0.4059, "MIRGeneral": 0.4619,
-                 "PRMSequential": 0.4083, "SetRankSequential": 0.4083, "MIRSequential": 0.3887}
+# (5 epochs) 0.4623, 0.4636, 0.4604; with listnet (2) 0.4128, 0.4142,
+# 0.4116, last training loss 2.2941, 2.2946, 2.2952; softmaxCE (5) 0.4498,
+# 0.4522, 0.4473; attention_rank (5) 0.4640, 0.4650, 0.4656;
+# LightGCNImpression (2) 0.6055, 0.6134, 0.6101; SASRecImpression (3)
+# 0.4632, 0.4625, 0.4686; GRU4RecImpression (10) 0.4353, 0.4873, 0.4713,
+# last training loss 0.4833, 0.4717, 0.4569;
+# BPRMFImpression --lazy_emb_adam 1 (10) 0.4385, 0.4379, 0.4440; one
+# re-rank epoch: PRMGeneral 0.4528, 0.4505, 0.4472; SetRankGeneral 0.4507,
+# 0.4498, 0.4487; MIRGeneral 0.5021, 0.5035, 0.4955; PRMSequential 0.4557,
+# 0.4520, 0.4615; SetRankSequential 0.4616, 0.4526, 0.4677; MIRSequential
+# 0.5446, 0.5226, 0.5424.
+IMP_FLOORS = {"BPRMF": 0.4404, "BPRMF_listnet": 0.3916, "BPRMF_softmaxCE": 0.4273,
+              "BPRMF_attention_rank": 0.4440, "LightGCN": 0.5855, "SASRec": 0.4425, "GRU4Rec": 0.4153,
+              "BPRMF_lazy": 0.4179}
+RERANK_FLOORS = {"PRMGeneral": 0.4272, "SetRankGeneral": 0.4287, "MIRGeneral": 0.4755,
+                 "PRMSequential": 0.4320, "SetRankSequential": 0.4326, "MIRSequential": 0.5026}
+# A random ranking's dev NDCG@3, measured in the run from CHANCE_DRAWS
+# draws of random scores over the dev requests (about 0.4095, one draw's
+# standard deviation about 0.004 over 6,040 requests): every run but those
+# of LOSS_BANDS must clear it by CHANCE_SDS standard deviations, which a
+# model at chance does in about one run of 1,000. It binds where a band's
+# floor sits below it (the lazy run).
+CHANCE_DRAWS, CHANCE_SDS = 200, 3
+# The runs whose dev NDCG@3 can stay at chance in both packages, held by
+# their last training loss instead: the JAX package's 3-seed range above
+# widened each way by the larger of 0.01 and the range's own width.
+# BPRMF_listnet's unmasked softmax spends the gradient on the pad column;
+# GRU4RecImpression leaves chance in some seeds and not in others (the JAX
+# package's seed 0 above; on a CPU the port's seed 0 stays at 0.435 through
+# 16 epochs, its seed 2026 reaches 0.47, at losses 0.4796 and 0.4983).
+LOSS_BANDS = {"BPRMF_listnet": (2.2841, 2.3052), "GRU4Rec": (0.4305, 0.5097)}
 IMP_DATASET = "Imp_ML1M"
 # a BPRMFImpression step's item ids at batch 256: up to 9 valid ones a
 # request (1-3 positives, 3-6 negatives); the other slots of the caps'
@@ -1028,6 +1049,37 @@ def phase_train_1m(totals):
     return out
 
 
+def _evaluate_saved(model_path: str) -> list:
+    """CLI flags of a run that trains nothing and evaluates the weights a
+    dense run saved at `model_path` (the impression `--test_all 1` run,
+    whose export the CLI writes). --test_all changes only the dev and test
+    feeds, so training under it would repeat the dense run's epochs. Such
+    a run evaluates the test split twice (the log's "Test Before" and
+    "Test After Training") and the dev split once."""
+    return ["--load", "1", "--train", "0", "--model_path", model_path]
+
+
+def _saved_catalog_eval(totals, argv: list, model_path) -> dict:
+    """The `--test_all 1` evaluation of the later phases: the stack the CLI
+    builds from `argv` with `--test_all 1`, the weights a dense run saved
+    at `model_path` (None: a model with none, POP), and one evaluation of
+    the test split over the catalog, as the CLI's "Test After Training".
+    Returns its seconds, launches, peak device memory and metrics."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv + ["--test_all", "1"])
+    init_seed(args.random_seed)
+    _, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    state = runner.init_state(model, args.random_seed, batchers["train"])
+    if model_path is not None:
+        state = runner.load_model(state, model_path)
+    with counted(totals) as c:
+        test = runner.evaluate(state, batchers["test"], arrays["test"], "test", runner.topk, runner.metrics)
+    return dict(seconds=time.perf_counter() - t, launches=c.launches,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
+
+
 def _grocery_lane(model_name: str, argv: list, timed_epochs: int) -> dict:
     """A Grocery training lane as the CLI builds it: the step profile of
     its steady step, after WARM_STEPS steps; with `timed_epochs`, first
@@ -1364,11 +1416,13 @@ def phase_train_grocery_kda(totals):
             "kda_dense", "--test_all", "1", "--eval_candidate_chunk", str(KDA_TRAINED_CHUNK), epochs=1))
         # 2. its s/train-epoch as bench.py measures it, and its step profile
         out["lane"] = _grocery_lane("KDA", argv("timing", epochs=1), SEQ_TIMED_EPOCHS)
-        # 3. --test_all 1: dense route, every evaluation ranks through B1
+        # 3. --test_all 1 on the dense run's weights: the dense route ranks
+        # the test split through B1
         n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
         n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
-        out["test_all"] = run("kda_test_all", "--test_all", "1", epochs=GROCERY_SHORT_EPOCHS)
-        want = 2 * n_batch["test"] + (GROCERY_SHORT_EPOCHS + 1) * n_batch["dev"]
+        out["test_all"] = _saved_catalog_eval(totals, argv("kda_test_all", epochs=1),
+                                              os.path.join(tmp, "kda_dense.bin"))
+        want = n_batch["test"]
         check(out["test_all"]["launches"]["ge_count"] == want,
               f"ge_count launches of the KDA --test_all run: {out['test_all']['launches']} != {want}")
         # 4. --lazy_emb_adam 1: one commit per lazy table per step
@@ -1585,10 +1639,11 @@ def phase_train_grocery_general(totals):
                 check(hr5 > floor, f"{name} dev HR@5 {hr5} above {floor}")
             # 2. the steady step's profile
             res["lane"] = _grocery_lane(name, argv(name, "profile", epochs=1), 0)
-            # 3. --test_all 1: every evaluation ranks over the catalog through B1
-            short = min(epochs, GROCERY_SHORT_EPOCHS)
-            res["test_all"] = run(name, name + "_test_all", "--test_all", "1", epochs=short)
-            want = 2 * n_batch["test"] + (short + 1) * n_batch["dev"]
+            # 3. --test_all 1 on the dense run's weights (POP has none): the
+            # test split ranked over the catalog through B1
+            res["test_all"] = _saved_catalog_eval(totals, argv(name, "test_all", epochs=1),
+                                                  os.path.join(tmp, name + ".bin") if epochs else None)
+            want = n_batch["test"]
             check(res["test_all"]["launches"]["ge_count"] == want,
                   f"ge_count launches of the {name} --test_all run: {res['test_all']['launches']} "
                   f"!= {want}")
@@ -1712,10 +1767,12 @@ def phase_train_grocery_seq2(totals):
                 res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check", epochs=1), extractor)
             # 2. the steady step's profile
             res["lane"] = _grocery_lane(name, argv(run_name, "profile", epochs=1), 0)
-            # 3. --test_all 1: every evaluation ranks over the catalog through B1
+            # 3. --test_all 1 on the dense run's weights: the test split
+            # ranked over the catalog through B1
             if test_all:
-                res["test_all"], _ = run(run_name, run_name + "_test_all", "--test_all", "1", epochs=1)
-                want = 2 * n_batch["test"] + 2 * n_batch["dev"]
+                res["test_all"] = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
+                                                      os.path.join(tmp, run_name + ".bin"))
+                want = n_batch["test"]
                 check(res["test_all"]["launches"]["ge_count"] == want,
                       f"ge_count launches of the {run_name} --test_all run: "
                       f"{res['test_all']['launches']} != {want}")
@@ -1809,15 +1866,14 @@ def phase_train_grocery_context(totals):
             check(dev["HR@5"] > floor, f"{name}TopK dev HR@5 {dev['HR@5']} above {floor}")
             # 2. the steady step's profile
             res["lane"] = _grocery_lane(name + "TopK", argv(name, "profile", epochs=1), 0)
-            # 3. --test_all 1: every evaluation ranks over the catalog through B1
-            _, text, launches, secs, peak = _context_run(
-                totals, tmp, argv(name, name + "_test_all", "--test_all", "1", epochs=1), name + "_test_all")
-            _context_checked(text, 1, name + "_test_all")
-            want = 2 * n_batch["test"] + 2 * n_batch["dev"]
+            # 3. --test_all 1 on the dense run's weights: the test split
+            # ranked over the catalog through B1
+            cat = _saved_catalog_eval(totals, argv(name, "test_all", epochs=1), os.path.join(tmp, name + ".bin"))
+            launches = cat["launches"]
+            want = n_batch["test"]
             check(launches["ge_count"] == want,
                   f"ge_count launches of the {name}TopK --test_all run: {launches} != {want}")
-            res["test_all"] = dict(seconds=secs, launches=launches, peak_memory_bytes=peak, route="dense",
-                                   test=_log_metrics(text, "Test After Training"))
+            res["test_all"] = dict(cat, route="dense")
         # 4. --lazy_emb_adam 1: FMTopK raises at its first step, no commit
         with counted(totals) as c:
             try:
@@ -1926,10 +1982,10 @@ def phase_train_ctr(totals):
 def _imp_argv(tmp, run, tag, *extra, epochs=None):
     """The CLI command of impression run `run` (context_bands.IMP_MODELS) on
     the impression cell, its log and checkpoint at tmp/<tag>."""
-    model, flags = CB.IMP_MODELS[run]
+    model, flags, run_epochs = CB.IMP_MODELS[run]
     return ["--model_name", model, "--model_mode", "Impression", *flags, *CB.IMP_COMMON,
             "--dataset", IMP_DATASET, "--path", os.path.join(tmp, "data"),
-            "--epoch", str(CB.IMP_EPOCHS if epochs is None else epochs), "--random_seed", str(SEED),
+            "--epoch", str(run_epochs if epochs is None else epochs), "--random_seed", str(SEED),
             "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
 
 
@@ -1939,16 +1995,43 @@ def _export_values(cell: str) -> list:
     return [float(x) for x in re.findall(r"-?\d+(?:\.\d+)?(?:e-?\d+)?(?=\)|,|\])", cell)]
 
 
+def _chance_ndcg3(pos_num, neg_num, draws: int = CHANCE_DRAWS) -> dict:
+    """NDCG@3 of random scores over requests of `pos_num` positives and
+    `neg_num` negatives, by evaluate_impression, over `draws` draws: the
+    mean, the standard deviation of one draw, and the level a run must
+    clear (mean + CHANCE_SDS standard deviations)."""
+    rng = np.random.default_rng(SEED)
+    P, N = int(pos_num.max()), int(neg_num.max())
+    valid = np.concatenate([np.arange(P) < pos_num[:, None], np.arange(N) < neg_num[:, None]], axis=1)
+    vals = [evaluate_impression(np.where(valid, rng.random(valid.shape), -np.inf), [3], ["NDCG"],
+                                pos_num, neg_num, P)["NDCG@3"] for _ in range(draws)]
+    mean, sd = float(np.mean(vals)), float(np.std(vals, ddof=1))
+    return dict(mean=mean, sd=sd, draws=draws, level=mean + CHANCE_SDS * sd)
+
+
+def _impression_quality(run: str, ndcg3: float, last_loss: float, floor: float, chance: dict) -> None:
+    """A run's dev NDCG@3 over its floor (from the JAX package's band) and
+    over the chance level of the same dev requests; a run of LOSS_BANDS is
+    held by its last training loss instead of the chance level."""
+    check(ndcg3 > floor, f"{run} dev NDCG@3 {ndcg3} above {floor}")
+    if run in LOSS_BANDS:
+        lo, hi = LOSS_BANDS[run]
+        check(lo <= last_loss <= hi, f"{run} last training loss {last_loss} inside [{lo}, {hi}]")
+    else:
+        check(ndcg3 > chance["level"], f"{run} dev NDCG@3 {ndcg3} above chance: {chance}")
+
+
 def phase_train_impression(totals, tmp):
     """The impression task through the CLI on the card, on the impression
     cell (make_impression_dataset at ML-1M's users and items, written under
-    `tmp`): each run of context_bands.IMP_MODELS for CB.IMP_EPOCHS epochs
-    (the loss falls, dev NDCG@3 over its floor, the steady step's profile);
+    `tmp`): each run of context_bands.IMP_MODELS for its epochs (the loss
+    falls, dev NDCG@3 over its floor and over the chance level of the dev
+    requests, `_impression_quality`; the steady step's profile);
     BPRMFImpression's logged export against ImpressionRunner.predict on the
     trained weights and its reload (`--load 1 --train 0` reproduces the
-    test metrics); a `--test_all 1` run (neg_num = n_items - 1 - #clicked on
-    every row, as many valid catalog columns, the export's 100 rec_items
-    outside the clicked set); the `--lazy_emb_adam 1` run (two Adam commits
+    test metrics); a `--test_all 1` run on those weights (neg_num = n_items
+    - 1 - #clicked on every row, as many valid catalog columns, the
+    export's 100 rec_items outside the clicked set); the `--lazy_emb_adam 1` run (two Adam commits
     a step, the B4 kernel), then the same run with the plain commit, which
     must end bit-equal. The BPR and SASRec runs' checkpoints are the
     re-rank phase's first stages."""
@@ -1968,21 +2051,25 @@ def phase_train_impression(totals, tmp):
     steps = -(-rows["train"] // 256)
     clicked = (corpus.pos_clicked_matrix() > 0).sum(1)
     n_items = corpus.n_items
+    # a random ranking's dev NDCG@3 on the dev requests (caps 20 / 20 bind none)
+    chance = out["chance"] = _chance_ndcg3(corpus.data_df["dev"]["pos_num"].to_numpy(),
+                                           corpus.data_df["dev"]["neg_num"].to_numpy())
     del corpus
     for run, floor in IMP_FLOORS.items():
         if run == "BPRMF_lazy":
             continue
         res = out[run] = {}
+        epochs = CB.IMP_MODELS[run][2]
         export = ["--save_final_results", "1"] if run == "BPRMF" else []
         state, text, launches, secs, peak = _context_run(totals, tmp, _imp_argv(tmp, run, run, *export), run)
         dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
-        res["train"] = dict(seconds=secs, losses=_context_checked(text, CB.IMP_EPOCHS, run), dev=dev, test=test,
+        res["train"] = dict(seconds=secs, losses=_context_checked(text, epochs, run), dev=dev, test=test,
                             launches=launches, peak_memory_bytes=peak,
                             epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
                                                                   text, re.M)])
         check(set(test) == {f"{m}@{k}" for m in ("NDCG", "HR", "MAP") for k in (1, 3, 5)}
               and all(np.isfinite(v) for v in test.values()), f"{run}: finite NDCG, HR, MAP @1,3,5")
-        check(dev["NDCG@3"] > floor, f"{run} dev NDCG@3 {dev['NDCG@3']} above {floor}")
+        _impression_quality(run, dev["NDCG@3"], res["train"]["losses"][-1], floor, chance)
         res["lane"] = _grocery_lane(run, _imp_argv(tmp, run, "profile", epochs=1), 0)
         if run == "BPRMF":
             # the logged export equals the runner's predictions on the trained weights
@@ -2008,13 +2095,14 @@ def phase_train_impression(totals, tmp):
             res["reload"] = dict(seconds=secs2)
             del runner, b
         del state
-    # --test_all 1: the negative block is the catalog
+    # --test_all 1 on the BPR run's weights: the negative block is the catalog
+    saved = _evaluate_saved(os.path.join(tmp, "BPRMF.bin"))
     state, text, launches, secs, peak = _context_run(
-        totals, tmp, _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", "--save_final_results", "1", epochs=1),
-        "test_all")
-    _context_checked(text, 1, "test_all")
+        totals, tmp, _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", "--save_final_results", "1", *saved,
+                               epochs=0), "test_all")
+    _context_checked(text, 0, "test_all")
     args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
-        _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", epochs=1))
+        _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", *saved, epochs=0))
     runner = runner_cls(args)
     b = get_batcher(model_cls.batcher)(port_main.build_corpus(args, reader_cls), state.model, "test", args)
     preds, pos_num, neg_num = runner.predict(state, b, b.device_arrays(runner.device), "test")
@@ -2033,12 +2121,13 @@ def phase_train_impression(totals, tmp):
                            test=_log_metrics(text, "Test After Training"), export_rows=len(exp))
     del state, runner, b, preds
     # --lazy_emb_adam 1: two commits a step; the plain commit ends bit-equal
+    lazy_epochs = CB.IMP_MODELS["BPRMF_lazy"][2]
     state, text, launches, secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy"), "lazy")
     dev = _log_metrics(text, "Dev  After Training")
-    check(launches["adam_commit"] == 2 * steps * CB.IMP_EPOCHS,
-          f"BPRMFImpression lazy: adam_commit launches {launches} != 2 x {steps} x {CB.IMP_EPOCHS}")
-    check(dev["NDCG@3"] > IMP_FLOORS["BPRMF_lazy"],
-          f"BPRMF_lazy dev NDCG@3 {dev['NDCG@3']} above {IMP_FLOORS['BPRMF_lazy']}")
+    lazy_losses = _context_checked(text, lazy_epochs, "lazy")
+    check(launches["adam_commit"] == 2 * steps * lazy_epochs,
+          f"BPRMFImpression lazy: adam_commit launches {launches} != 2 x {steps} x {lazy_epochs}")
+    _impression_quality("BPRMF_lazy", dev["NDCG@3"], lazy_losses[-1], IMP_FLOORS["BPRMF_lazy"], chance)
     kernel_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
     del state
     kernel_commit, LA.adam_commit = LA.adam_commit, LA.adam_commit_plain
@@ -2051,23 +2140,24 @@ def phase_train_impression(totals, tmp):
     check(all(torch.equal(v, kernel_sd[k]) for k, v in state.model.state_dict().items()),
           "BPRMFImpression lazy: kernel commit and plain commit end bit-equal")
     out["lazy"] = dict(seconds=secs, launches=launches, dev=dev, plain_seconds=plain_secs,
-                       kernel_commit_equals_plain_commit=True,
-                       losses=_context_checked(text, CB.IMP_EPOCHS, "lazy"))
+                       kernel_commit_equals_plain_commit=True, losses=lazy_losses)
     del state, kernel_sd
     emit("train_impression", corpus=CB.IMP_ML1M, generator_s=round(gen_s, 3), reader_s=round(reader_s, 3),
-         rows=rows, flags={k: v[1] for k, v in CB.IMP_MODELS.items()}, common=CB.IMP_COMMON, floors=IMP_FLOORS,
+         rows=rows, flags={k: v[1] for k, v in CB.IMP_MODELS.items()}, epochs={k: v[2] for k, v in CB.IMP_MODELS.items()},
+         common=CB.IMP_COMMON, floors=IMP_FLOORS, loss_bands=LOSS_BANDS,
          seconds=round(time.perf_counter() - t0, 3), **out)
     return out
 
 
-def phase_train_rerank(totals, tmp):
+def phase_train_rerank(totals, tmp, chance: dict):
     """The re-rankers through the CLI on the card over the first stages of
     phase_train_impression (under `tmp`): PRM, SetRank (IMSAB) and MIR in
     General mode over the BPRMFImpression checkpoint and in Sequential mode
     over the SASRecImpression one, each with a YAML config of its
     backbone's model flags (context_bands.RERANKERS, RERANK_COMMON; the
-    log names the loaded ranker, dev NDCG@3 over its floor, the steady
-    step's profile); PRMGeneral's frozen lane (the batcher's ranker
+    log names the loaded ranker, dev NDCG@3 over its floor and over
+    `chance`, the impression phase's chance level of the same dev
+    requests, the steady step's profile); PRMGeneral's frozen lane (the batcher's ranker
     bit-equal to the checkpoint after training steps) and its --tuneranker
     1 lane (the model's ranker_module starts equal to the checkpoint and
     moves); and the --test_all 1 ValueError."""
@@ -2100,7 +2190,7 @@ def phase_train_rerank(totals, tmp):
         res["train"] = dict(seconds=secs, losses=_context_checked(text, CB.RERANK_EPOCHS, run), dev=dev,
                             test=_log_metrics(text, "Test After Training"), launches=launches,
                             peak_memory_bytes=peak)
-        check(dev["NDCG@3"] > floor, f"{run} dev NDCG@3 {dev['NDCG@3']} above {floor}")
+        _impression_quality(run, dev["NDCG@3"], res["train"]["losses"][-1], floor, chance)
         res["lane"] = _grocery_lane(run, argv(name, mode, "profile", epochs=1), 0)
     # the frozen and the tuned lane of PRMGeneral, a few steps each
     want = torch.load(os.path.join(tmp, "BPRMF.bin"), map_location="cuda")
@@ -2595,84 +2685,15 @@ def phase_launch_path():
     emit("launch_path", **got, seconds=round(time.perf_counter() - t0, 3))
 
 
-def _impression_phases(totals):
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_train_impression(totals, tmp)
-        phase_train_rerank(totals, tmp)
-
-
-# Phases whose results bound no device time or rate (their floors, counts
-# and checks hold whatever runs beside them) run in worker processes beside
-# the main one, which meanwhile drives the Grocery CLI phases of BPRMF, the
-# sequential models and KDA; the phases whose device times are bounds (the
-# 1M lanes, the windows, serving, the kernels' times) then run alone. Each
-# worker counts its own launches and reports them in its last line.
-WORKERS = {
-    "seq2": (phase_train_grocery_seq2,),
-    "context": (phase_train_grocery_context, phase_train_ctr),
-    "general_impression": (phase_train_grocery_general, _impression_phases),
-}
-
-
-def run_worker(name: str) -> int:
-    """The phases of WORKERS[name] in this process (`--worker NAME`); the
-    library is the one the main process built."""
-    t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    # four processes share the host's cores: a worker's torch CPU ops take a quarter
-    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
-    _build.load()
-    totals = {}
-    for phase in WORKERS[name]:
-        phase(totals)
-    emit("worker_done", worker=name, launches=totals, seconds=round(time.perf_counter() - t0, 3))
-    return 0
-
-
-def start_workers(out_dir: str) -> dict:
-    """{name: (process, stdout path, stderr path)}, one process per worker."""
-    procs = {}
-    for name in WORKERS:
-        out, err = (os.path.join(out_dir, f"{name}.{ext}") for ext in ("out", "err"))
-        with open(out, "w") as fo, open(err, "w") as fe:
-            procs[name] = (subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", name],
-                                            stdout=fo, stderr=fe, cwd=ROOT), out, err)
-    return procs
-
-
-def join_workers(procs: dict, totals: dict) -> dict:
-    """Waits for every worker, prints its phase lines, adds its launches to
-    `totals`; raises if one failed. Returns {name: seconds}."""
-    seconds = {}
-    for name, (proc, out, err) in procs.items():
-        rc = proc.wait()
-        lines = open(out).read().splitlines()
-        for line in lines:
-            print(line, flush=True)
-        done = [json.loads(ln) for ln in lines if ln.startswith('{"phase": "worker_done"')]
-        if rc or not done:
-            raise RuntimeError(f"worker {name} failed (rc {rc}):\n" + open(err).read()[-4000:])
-        for k, n in done[-1]["launches"].items():
-            totals[k] = totals.get(k, 0) + n
-        seconds[name] = done[-1]["seconds"]
-    return seconds
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train_windows", type=int, default=0, metavar="ROUNDS",
                         help="run only the interleaved timing windows of the training lanes, "
                              "ROUNDS rounds, and print their line (to compare two trees in turn)")
-    parser.add_argument("--worker", choices=sorted(WORKERS), default="",
-                        help="(internal) run one worker's phases; the main process starts them")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if opts.worker:
-        return run_worker(opts.worker)
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -2685,22 +2706,19 @@ def main() -> int:
     # the main paths: each is driven with every count at 0 just before it
     # and read just after; `totals` adds them up
     totals = {}
-    with tempfile.TemporaryDirectory() as work_dir:
-        workers = start_workers(work_dir)
-        try:
-            g_model = phase_train_grocery(totals)
-            phase_train_grocery_seq(totals)
-            phase_train_grocery_kda(totals)
-            phase_kda_tiled(totals)
-            worker_s = join_workers(workers, totals)
-        finally:
-            for proc, _, _ in workers.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-    emit("workers", seconds=worker_s, beside_s=round(time.perf_counter() - t_start, 3))
+    g_model = phase_train_grocery(totals)
     phase_train_1m(totals)
+    phase_train_grocery_seq(totals)
     corpus_1m = phase_train_1m_seq(totals)
+    phase_train_grocery_kda(totals)
+    phase_kda_tiled(totals)
+    phase_train_grocery_general(totals)
+    phase_train_grocery_seq2(totals)
+    phase_train_grocery_context(totals)
+    phase_train_ctr(totals)
+    with tempfile.TemporaryDirectory() as tmp:
+        imp = phase_train_impression(totals, tmp)
+        phase_train_rerank(totals, tmp, imp["chance"])
     phase_lightgcn_1m(totals, corpus_1m)
     del corpus_1m
     phase_train_windows()

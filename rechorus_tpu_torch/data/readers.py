@@ -119,6 +119,12 @@ class BaseReader:
         self.csv_chunksize = int(getattr(args, "csv_chunksize", 0) or 0)
         self._read_data()
         self._build_clicked_sets()
+        self._post_read()
+
+    def _post_read(self):
+        """The steps a subclass runs on the read data, after the clicked
+        sets; each override calls super()'s first, so that a reader of two
+        parents runs both parents' steps in its MRO's order."""
 
     def _build_clicked_sets(self):
         """CSR clicked sets: `train_clicked_set[u]` is the sorted unique
@@ -216,11 +222,16 @@ class ContextReader(BaseReader):
                             help="Whether include situation (i.e., dynamic context) features (0 or 1).")
         return BaseReader.parse_data_args(parser)
 
+    situation_flag = "include_situation_features"   # the CLI flag of the situation features
+
     def __init__(self, args):
-        super().__init__(args)
         self.include_item_features = args.include_item_features
         self.include_user_features = args.include_user_features
-        self.include_situation_features = args.include_situation_features
+        self.include_situation_features = getattr(args, self.situation_flag)
+        super().__init__(args)
+
+    def _post_read(self):
+        super()._post_read()
         self._load_ui_metadata()
         self._collect_context()
 
@@ -325,6 +336,9 @@ class ImpressionReader(BaseReader):
     def __init__(self, args):
         self.impression_idkey = args.impression_idkey
         super().__init__(args)
+
+    def _post_read(self):
+        super()._post_read()
         self._append_impression_info()
 
     def _read_data(self):
@@ -571,7 +585,11 @@ class ImpressionContextReader(ImpressionReader, ContextReader):
     """Impression data + context metadata (port of rechorus_tpu/data/
     readers.py:938-972; reference src/helpers/ImpressionContextReader.py:
     14-52). The reference's --include_context_features flag maps onto the
-    situation features."""
+    situation features. Its steps run in the MRO's order: the read data,
+    the context metadata (ContextReader), then the request grouping
+    (ImpressionReader)."""
+
+    situation_flag = "include_context_features"
 
     @staticmethod
     def parse_data_args(parser):
@@ -584,23 +602,6 @@ class ImpressionContextReader(ImpressionReader, ContextReader):
         parser.add_argument("--impression_idkey", type=str, default="time",
                             help="The key for impression identification, [time, impression_id]")
         return BaseReader.parse_data_args(parser)
-
-    def __init__(self, args):
-        self.impression_idkey = args.impression_idkey
-        # BaseReader's steps with ImpressionReader's _read_data, then the
-        # context metadata, then the request grouping
-        self.sep = args.sep
-        self.prefix = args.path
-        self.dataset = args.dataset
-        self.csv_chunksize = int(getattr(args, "csv_chunksize", 0) or 0)
-        self._read_data()
-        self._build_clicked_sets()
-        self.include_item_features = args.include_item_features
-        self.include_user_features = args.include_user_features
-        self.include_situation_features = args.include_context_features
-        self._load_ui_metadata()
-        self._collect_context()
-        self._append_impression_info()
 
 
 @register_reader("KDAReader")

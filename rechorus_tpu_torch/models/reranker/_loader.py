@@ -20,6 +20,7 @@ import logging
 import os
 
 import torch
+import yaml
 
 
 def resolve_path(args, name: str) -> str:
@@ -29,41 +30,15 @@ def resolve_path(args, name: str) -> str:
     return os.path.join("model", f"{args.ranker_name}Impression", name)
 
 
-def read_config(path: str) -> dict:
-    """The flat `key: value` mapping of a ranker's YAML config, by PyYAML
-    where it is installed, else by a reader of that flat form (scalar
-    values: numbers as numbers, true / false, anything else a string)."""
-    text = open(path, "r", encoding="utf-8").read()
-    try:
-        import yaml
-    except ImportError:
-        out = {}
-        for line in text.splitlines():
-            line = line.split("#", 1)[0].strip()
-            if not line or ":" not in line:
-                continue
-            key, value = (part.strip() for part in line.split(":", 1))
-            value = value.strip("'\"")
-            for cast in (int, float):
-                try:
-                    value = cast(value)
-                    break
-                except ValueError:
-                    pass
-            else:
-                value = {"true": True, "false": False}.get(value.lower(), value)
-            out[key] = value
-        return out
-    return yaml.safe_load(text) or {}
-
-
 def ranker_args(args):
     """The CLI args overlaid with the ranker's YAML config, except
     history_max (reference BaseRerankerModel.py:53-56)."""
     r_args = copy.deepcopy(args)
     cfg_path = resolve_path(args, args.ranker_config_file)
     if os.path.isfile(cfg_path):
-        for k, v in read_config(cfg_path).items():
+        with open(cfg_path, "r", encoding="utf-8") as f:
+            cfg = yaml.safe_load(f.read()) or {}
+        for k, v in cfg.items():
             if k != "history_max":
                 setattr(r_args, k, v)
     else:

@@ -3,13 +3,13 @@ both batchers with the same frozen ranker (BPRMFImpression and
 SASRecImpression; scores, 'position' and 'padding_mask' exactly, also where
 the ranker's scores tie, u_v / i_v / his_v at 1e-5), PRM, SetRank (IMSAB
 and MSAB) and MIR in both modes forward at 1e-5 with the weights carried
-across (`weights.from_flax_params`), the ranker config overlay and its
-reader, the checkpoint rules (the port's own state_dict file; a flax
-msgpack file names ROADMAP A11; a missing one warns), the frozen lane
-(ranker bit-identical over training) and the --tuneranker lane (the loaded
-ranker injected, then moved, with its own optimizer state), the JAX
-package's --test_all error word for word, and the two-stage recipe
-through the CLI with a learning test per re-ranker.
+across (`weights.from_flax_params`), the ranker config overlay (the JAX
+package's, value for value), the checkpoint rules (the port's own
+state_dict file; a flax msgpack file names ROADMAP A11; a missing one
+warns), the frozen lane (ranker bit-identical over training) and the
+--tuneranker lane (the loaded ranker injected, then moved, with its own
+optimizer state), the JAX package's --test_all error word for word, and
+the two-stage recipe through the CLI with a learning test per re-ranker.
 
 Small sizes: D = 8, one block of 2 heads, 8 hidden units, history 5.
 """
@@ -226,26 +226,18 @@ def test_ranker_config_overlay_and_its_reader(data_root, tmp_path):
     _, args = _args(data_root, "PRMGeneral", "port", emb_size=32, history_max=5)
     r = _loader.ranker_args(args)
     assert (r.emb_size, r.history_max, args.emb_size) == (8, 5, 32)     # history_max stays the CLI's
+    # the overlay of any YAML file is the JAX package's, value for value
+    # (YAML 1.1 reads `1e-3` as a string, and so do both packages)
+    from rechorus_tpu.models.reranker import _loader as jloader
+
     cfg = tmp_path / "c.yaml"
     cfg.write_text("emb_size: 16\nlr: 1e-3\nl2: 0.000001\nloss_n: softmaxCE   # a comment\n"
-                   "num_layers: 2\nflag: true\nname: 'x'\n")
-    want = yaml.safe_load(cfg.read_text())
-    assert _loader.read_config(str(cfg)) == want
-    import builtins
-
-    real = builtins.__import__
-
-    def no_yaml(name, *a, **kw):
-        if name == "yaml":
-            raise ImportError(name)
-        return real(name, *a, **kw)
-
-    builtins.__import__ = no_yaml
-    try:
-        got = _loader.read_config(str(cfg))
-    finally:
-        builtins.__import__ = real
-    assert got == {**want, "lr": 1e-3}   # YAML 1.1 reads 1e-3 as a string; the flat reader as a number
+                   "num_layers: 2\nflag: true\nname: 'x'\nhistory_max: 99\n")
+    args.ranker_config_file = str(cfg)
+    got, want = vars(_loader.ranker_args(args)), vars(jloader.ranker_args(args))
+    assert got == want
+    assert {k: got[k] for k in ("emb_size", "lr", "l2", "flag", "history_max")} == \
+        dict(emb_size=16, lr="1e-3", l2=1e-6, flag=True, history_max=5)
 
 
 def test_checkpoint_rules(data_root, caplog):
