@@ -51,6 +51,13 @@ shapes the main path gives it, and drives the port's main paths:
     (BCE over an AUC floor, the step profile; FMCTR's pCTR export equal to
     CTRRunner.predict, DCNCTR's reload with its BatchNorm statistics,
     FMCTR's `--lazy_emb_adam 1` dense);
+  * the five context-sequential models (DIN, DIEN, CAN, ETA, SDIM) the
+    same way: the TopK modes on Grocery with docs/benchmark_commands.md's
+    ML-1M top-k flags (ETA and SDIM with their CLI defaults; dense Adam
+    over a floor above chance, the step profile, `--test_all 1` by the
+    dense forward route with its peak memory; DINTopK's `--lazy_emb_adam
+    1` raises), the CTR modes on the ML-1M-shaped CTR corpus, and ETA's and
+    SDIM's long-history retrieval held to its lift on SynthCTRLong;
   * the impression task through the CLI on an ML-1M-sized synthetic
     impression corpus (6,040 users, 3,706 items, 10 requests a user):
     BPRMFImpression under the BPR, listnet, softmaxCE and attention_rank
@@ -194,7 +201,7 @@ SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
     "FPMC": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
 }
 SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
-SEQ_TIMED_EPOCHS = 5            # bench.py:97-127: one warm-up epoch, then five timed
+SEQ_TIMED_EPOCHS = 3            # bench.py:97-127 times five after one warm-up; three here (the time limit)
 # 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
 SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
 # KDA: bench.py's kda lane flags (bench.py:58-60). Floors from the JAX
@@ -302,6 +309,49 @@ CONTEXT_TOPK_FLOORS = {"FM": 0.25, "WideDeep": 0.24, "DeepFM": 0.25, "AFM": 0.28
                        "xDeepFM": 0.20, "AutoInt": 0.23, "DCNv2": 0.29, "FinalMLP": 0.25, "SAM": 0.25}
 CONTEXT_CTR_FLOORS = {"FM": 0.50, "WideDeep": 0.49, "DeepFM": 0.50, "AFM": 0.46, "DCN": 0.53,
                       "xDeepFM": 0.52, "AutoInt": 0.48, "DCNv2": 0.53, "FinalMLP": 0.46, "SAM": 0.48}
+# The context_seq models (DIN, DIEN, CAN, ETA, SDIM; context_bands.SEQ_*_MODELS):
+# the TopK modes on Grocery (docs/benchmark_commands.md:52-54's ML-1M top-k
+# flags for DIN, DIEN and CAN, the CLI defaults at --history_max 20 for ETA
+# and SDIM), the CTR modes on CTR_ML1M (:78-80 and the defaults), each for
+# CONTEXT_EPOCHS. Floors by SEQ_MODELS' rule from the JAX package's CLI on
+# a CPU with the same commands at --random_seed 0, 1, 2 (python -m
+# rechorus_tpu_torch.tools.context_bands --suite seq_topk_grocery|
+# seq_ctr_ml1m --package rechorus_tpu --cpu): dev HR@5 of DINTopK 0.3305,
+# 0.3274, 0.3325; DIENTopK 0.3168, 0.3212, 0.3059; CANTopK 0.2770, 0.2732,
+# 0.2583; ETATopK (3 epochs, context_bands.SEQ_TOPK_EPOCHS) 0.1739, 0.1635,
+# 0.1684; SDIMTopK 0.1912, 0.1971, 0.1860;
+# and dev AUC of DINCTR 0.8128, 0.8132, 0.8126; DIENCTR 0.8125, 0.8125,
+# 0.8111; CANCTR 0.8135, 0.8135, 0.8123; ETACTR 0.4951, 0.4937, 0.4938;
+# SDIMCTR 0.5012, 0.5040, 0.4981. ETA and SDIM predict from attention
+# outputs alone and sit at chance on this corpus in both packages, as on
+# SynthCTRBig (PARITY.md:65-68): their CTR floors catch a broken path, and
+# `ctr_long` holds their retrieval to its lift. A TopK floor must also
+# clear a random ranking's HR@5 over the target and 99 negatives, 5/100, by
+# CHANCE_SDS standard deviations over the dev rows.
+CONTEXT_SEQ_TOPK_FLOORS = {"DIN": 0.31, "DIEN": 0.28, "CAN": 0.23, "ETA": 0.13, "SDIM": 0.16}
+CONTEXT_SEQ_CTR_FLOORS = {"DIN": 0.81, "DIEN": 0.81, "CAN": 0.81, "ETA": 0.49, "SDIM": 0.47}
+TOPK_CHANCE_HR5 = 5 / 100
+# SynthCTRLong's lift (tests/test_retrieval_lift.py:44-97, its flags and
+# seed, --dense_init glorot): ETA's paper retrieval clears 0.60, the
+# reference's bucket-id retrieval (--ref_retrieval 1) stays at chance
+# (<= 0.57, at least 0.05 below), SDIM's collisions clear 0.53
+CTR_LONG_FLAGS = ["--include_item_features", "1", "--include_user_features", "0",
+                  "--include_situation_features", "0", "--epoch", "30", "--check_epoch", "0",
+                  "--early_stop", "30", "--lr", "1e-2", "--l2", "1e-6", "--batch_size", "256",
+                  "--eval_batch_size", "256", "--metric", "AUC,LOG_LOSS", "--random_seed", "0",
+                  "--emb_size", "32", "--loss_n", "BCE", "--history_max", "10", "--recent_k", "3",
+                  "--attention_dim", "16", "--num_heads", "2", "--dnn_hidden_units", "[32]",
+                  "--dense_init", "glorot", "--save_final_results", "0",
+                  "--short_target_field", '[("item_id","i_category_c")]',
+                  "--short_sequence_field", '[("history_item_id","history_i_category_c")]',
+                  "--long_target_field", '[("item_id","i_category_c")]',
+                  "--long_sequence_field", '[("history_item_id","history_i_category_c")]']
+CTR_LONG_RUNS = {  # run: (model, flags)
+    "ETA": ("ETA", ["--retrieval_k", "3", "--num_hashes", "2", "--hash_bits", "8", "--ref_retrieval", "0"]),
+    "ETA_ref": ("ETA", ["--retrieval_k", "3", "--num_hashes", "2", "--hash_bits", "8", "--ref_retrieval", "1"]),
+    "SDIM": ("SDIM", ["--num_hashes", "8", "--hash_bits", "2"]),
+}
+ETA_LONG_MIN, ETA_REF_LONG_MAX, ETA_LONG_GAP, SDIM_LONG_MIN = 0.60, 0.57, 0.05, 0.53
 JAX_LAZY_ERROR = ("--lazy_emb_adam: lazy_table_specs matched no param/feed keys for this model's "
                   "train feed; remove the flag or fix the model's lazy_table_specs()")
 # the approx lane: its recall targets, and the runner's dense route at
@@ -1059,12 +1109,15 @@ def _evaluate_saved(model_path: str) -> list:
     return ["--load", "1", "--train", "0", "--model_path", model_path]
 
 
-def _saved_catalog_eval(totals, argv: list, model_path) -> dict:
+def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False) -> dict:
     """The `--test_all 1` evaluation of the later phases: the stack the CLI
     builds from `argv` with `--test_all 1`, the weights a dense run saved
     at `model_path` (None: a model with none, POP), and one evaluation of
     the test split over the catalog, as the CLI's "Test After Training".
-    Returns its seconds, launches, peak device memory and metrics."""
+    Returns its seconds, launches, peak device memory and metrics; with
+    `profile`, then also the steady training step's profile on the same
+    stack (its train feeds do not depend on --test_all), after WARM_STEPS
+    steps, as `_grocery_lane` takes it on a stack of its own."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -1076,8 +1129,14 @@ def _saved_catalog_eval(totals, argv: list, model_path) -> dict:
         state = runner.load_model(state, model_path)
     with counted(totals) as c:
         test = runner.evaluate(state, batchers["test"], arrays["test"], "test", runner.topk, runner.metrics)
-    return dict(seconds=time.perf_counter() - t, launches=c.launches,
-                peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
+    out = dict(seconds=time.perf_counter() - t, launches=c.launches,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
+    if profile:
+        runner.fit(state, batchers["train"], arrays["train"], 0, max_steps=WARM_STEPS)
+        out["lane"] = dict(examples=len(batchers["train"]), batch=args.batch_size,
+                           step_profile=_step_profile((runner, state, batchers["train"], arrays["train"]),
+                                                      args.batch_size))
+    return out
 
 
 def _grocery_lane(model_name: str, argv: list, timed_epochs: int) -> dict:
@@ -1588,10 +1647,10 @@ def phase_train_grocery_general(totals):
     card, on the committed Grocery corpus (CFKG with its item_meta.csv
     attributes), with docs/benchmark_commands.md's flags: dense Adam for
     GENERAL_MODELS' epochs (the loss falls, dev HR@5 over its floor; POP
-    with --train 0 equals the JAX package's), the steady step's profile, a
-    `--test_all 1` run (B1 over the catalog scores: LightGCN's propagated
-    table through the catalog protocol, the others' [256, 8714] forward)
-    and, for the four models with lazy tables, a `--lazy_emb_adam 1` run
+    with --train 0 equals the JAX package's), a `--test_all 1` run (B1 over
+    the catalog scores: LightGCN's propagated table through the catalog
+    protocol, the others' [256, 8714] forward) and the steady step's
+    profile on its stack, and, for the four models with lazy tables, a `--lazy_emb_adam 1` run
     (the Adam commit: packed for NeuMF, DirectAU and CFKG, the three-table
     layout for BUIR, whose runner hooks the step)."""
     t0 = time.perf_counter()
@@ -1637,17 +1696,18 @@ def phase_train_grocery_general(totals):
                 check(hr5 == POP_DEV_HR5, f"POP dev HR@5 {hr5} == the JAX package's {POP_DEV_HR5}")
             else:
                 check(hr5 > floor, f"{name} dev HR@5 {hr5} above {floor}")
-            # 2. the steady step's profile
-            res["lane"] = _grocery_lane(name, argv(name, "profile", epochs=1), 0)
-            # 3. --test_all 1 on the dense run's weights (POP has none): the
-            # test split ranked over the catalog through B1
+            # 2. --test_all 1 on the dense run's weights (POP has none): the
+            # test split ranked over the catalog through B1; then the steady
+            # step's profile on that stack
             res["test_all"] = _saved_catalog_eval(totals, argv(name, "test_all", epochs=1),
-                                                  os.path.join(tmp, name + ".bin") if epochs else None)
+                                                  os.path.join(tmp, name + ".bin") if epochs else None,
+                                                  profile=True)
+            res["lane"] = res["test_all"].pop("lane")
             want = n_batch["test"]
             check(res["test_all"]["launches"]["ge_count"] == want,
                   f"ge_count launches of the {name} --test_all run: {res['test_all']['launches']} "
                   f"!= {want}")
-            # 4. --lazy_emb_adam 1: one commit per lazy table per step
+            # 3. --lazy_emb_adam 1: one commit per lazy table per step
             if lazy_floor is not None:
                 res["lazy"] = run(name, name + "_lazy", "--lazy_emb_adam", "1", epochs=epochs)
                 steps = n_batch["train"] * epochs
@@ -1685,9 +1745,9 @@ def phase_train_grocery_seq2(totals):
     ContraRec, ContraKDA and TiMiRec (pretrain, then finetune) through the
     CLI on the card, on the committed Grocery corpus, with
     docs/benchmark_commands.md's flags (SEQ2_MODELS): dense epochs (the loss
-    falls, dev HR@5 over its floor), the steady step's profile, a
-    `--test_all 1` run (B1 over the catalog: TiSASRec's catalog protocol,
-    the others' [256, 8714] forward) and, for the four models with lazy
+    falls, dev HR@5 over its floor), a `--test_all 1` run (B1 over the
+    catalog: TiSASRec's catalog protocol, the others' [256, 8714] forward)
+    and the steady step's profile on its stack, and, for the four models with lazy
     tables, a `--lazy_emb_adam 1` run (the packed lane's Adam commit, one
     launch per table per step). The second stages start from the first
     stages' files (the log line, and the weights equal to the file's);
@@ -1765,18 +1825,20 @@ def phase_train_grocery_seq2(totals):
             if run_name == "TiMiRec_finetune":
                 check("Load extractor from " + extractor in text, "TiMiRec finetune loads the extractor")
                 res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check", epochs=1), extractor)
-            # 2. the steady step's profile
-            res["lane"] = _grocery_lane(name, argv(run_name, "profile", epochs=1), 0)
-            # 3. --test_all 1 on the dense run's weights: the test split
-            # ranked over the catalog through B1
+            # 2. --test_all 1 on the dense run's weights: the test split
+            # ranked over the catalog through B1; then the steady step's
+            # profile on that stack (on a stack of its own without one)
             if test_all:
                 res["test_all"] = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
-                                                      os.path.join(tmp, run_name + ".bin"))
+                                                      os.path.join(tmp, run_name + ".bin"), profile=True)
+                res["lane"] = res["test_all"].pop("lane")
                 want = n_batch["test"]
                 check(res["test_all"]["launches"]["ge_count"] == want,
                       f"ge_count launches of the {run_name} --test_all run: "
                       f"{res['test_all']['launches']} != {want}")
-            # 4. --lazy_emb_adam 1: one commit per lazy table per step
+            else:
+                res["lane"] = _grocery_lane(name, argv(run_name, "profile", epochs=1), 0)
+            # 3. --lazy_emb_adam 1: one commit per lazy table per step
             if commits is not None:
                 res["lazy"], _ = run(run_name, run_name + "_lazy", "--lazy_emb_adam", "1", epochs=1)
                 check(res["lazy"]["launches"]["adam_commit"] == commits * n_batch["train"],
@@ -1823,10 +1885,10 @@ def phase_train_grocery_context(totals):
     the committed Grocery corpus (its one item feature, i_category, has no
     suffix and is a float feature), with docs/benchmark_commands.md's ML-1M
     top-k flags (context_bands.TOPK_MODELS): CONTEXT_EPOCHS dense epochs
-    (the loss falls, dev HR@5 over its floor), the steady step's profile, a
-    `--test_all 1` run (B1 over each [128, 8714] forward: the runner's rule
-    takes the dense route, whose candidate feed is one id per candidate)
-    with its peak memory; then FMTopK with `--lazy_emb_adam 1`, which
+    (the loss falls, dev HR@5 over its floor), a `--test_all 1` run (B1 over
+    each [128, 8714] forward: the runner's rule takes the dense route, whose
+    candidate feed is one id per candidate) with its peak memory and the
+    steady step's profile on its stack; then FMTopK with `--lazy_emb_adam 1`, which
     enters the lazy lane, resolves no table (the model has GeneralModel's
     specs and a fused feature table) and raises the JAX package's error at
     the first step, before any commit."""
@@ -1864,17 +1926,18 @@ def phase_train_grocery_context(totals):
                                 epoch_s=[float(x) for x in re.findall(
                                     r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
             check(dev["HR@5"] > floor, f"{name}TopK dev HR@5 {dev['HR@5']} above {floor}")
-            # 2. the steady step's profile
-            res["lane"] = _grocery_lane(name + "TopK", argv(name, "profile", epochs=1), 0)
-            # 3. --test_all 1 on the dense run's weights: the test split
-            # ranked over the catalog through B1
-            cat = _saved_catalog_eval(totals, argv(name, "test_all", epochs=1), os.path.join(tmp, name + ".bin"))
+            # 2. --test_all 1 on the dense run's weights: the test split
+            # ranked over the catalog through B1; then the steady step's
+            # profile on that stack
+            cat = _saved_catalog_eval(totals, argv(name, "test_all", epochs=1), os.path.join(tmp, name + ".bin"),
+                                      profile=True)
+            res["lane"] = cat.pop("lane")
             launches = cat["launches"]
             want = n_batch["test"]
             check(launches["ge_count"] == want,
                   f"ge_count launches of the {name}TopK --test_all run: {launches} != {want}")
             res["test_all"] = dict(cat, route="dense")
-        # 4. --lazy_emb_adam 1: FMTopK raises at its first step, no commit
+        # 3. --lazy_emb_adam 1: FMTopK raises at its first step, no commit
         with counted(totals) as c:
             try:
                 port_main.build_parser_and_run(argv("FM", "lazy", "--lazy_emb_adam", "1", epochs=1)
@@ -1975,6 +2038,131 @@ def phase_train_ctr(totals):
         out["lazy_FMCTR"] = dict(seconds=secs, launches=launches, dev=_log_metrics(text, "Dev  After Training"))
     emit("train_ctr", corpus=CB.CTR_ML1M, generator_s=round(gen_s, 3), rows=rows,
          flags={k: v for k, v in CB.CTR_MODELS.items()}, common=CB.CTR_COMMON, floors=CONTEXT_CTR_FLOORS,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_train_grocery_context_seq(totals):
+    """The five context_seq models' TopK modes through the CLI on the card,
+    on the committed Grocery corpus (context_bands.SEQ_TOPK_MODELS):
+    CONTEXT_EPOCHS dense epochs (ETA 3; the loss falls, dev HR@5 over its
+    floor, which clears chance), `--test_all 1` on the saved weights by the
+    dense route (B1 over each [eval batch, 8714] forward: one launch a test
+    batch) with its peak memory, and the steady step's profile on that
+    stack; then DINTopK with `--lazy_emb_adam 1`, which raises the JAX
+    package's error at the first step, before any commit."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+
+        def argv(name, tag, *extra, epochs):
+            return ["--model_name", name, "--model_mode", "TopK", *CB.TOPK_COMMON, *CB.SEQ_TOPK_MODELS[name],
+                    "--dataset", GROCERY, "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+                    "--random_seed", str(SEED), "--model_path", os.path.join(tmp, tag + ".bin"),
+                    "--save_final_results", "0", *extra]
+
+        for name, floor in CONTEXT_SEQ_TOPK_FLOORS.items():
+            res = out[name] = {}
+            # 1. dense Adam, sampled evaluation
+            epochs = CB.SEQ_TOPK_EPOCHS.get(name, CONTEXT_EPOCHS)
+            _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name, epochs=epochs), name)
+            dev = _log_metrics(text, "Dev  After Training")
+            n_dev = len(pd.read_csv(os.path.join(ROOT, "data", GROCERY, "dev.csv"), sep="\t"))
+            chance_bar = TOPK_CHANCE_HR5 + CHANCE_SDS * math.sqrt(TOPK_CHANCE_HR5 * (1 - TOPK_CHANCE_HR5) / n_dev)
+            check(floor > chance_bar, f"{name}TopK floor {floor} above chance {chance_bar}")
+            res["dense"] = dict(seconds=secs, losses=_context_checked(text, epochs, name),
+                                dev=dev, test=_log_metrics(text, "Test After Training"), peak_memory_bytes=peak,
+                                chance_bar=chance_bar, epoch_s=[float(x) for x in re.findall(
+                                    r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
+            check(dev["HR@5"] > floor, f"{name}TopK dev HR@5 {dev['HR@5']} above {floor}")
+            # 2. --test_all 1 on the dense run's weights, then the steady
+            # step's profile on that stack
+            cat_argv = argv(name, "test_all", epochs=1)
+            args = port_main.parse_cli(cat_argv + ["--test_all", "1"])[0]
+            cat = _saved_catalog_eval(totals, cat_argv, os.path.join(tmp, name + ".bin"), profile=True)
+            res["lane"] = cat.pop("lane")
+            n_test = len(pd.read_csv(os.path.join(ROOT, "data", GROCERY, "test.csv"), sep="\t"))
+            want = -(-n_test // args.eval_batch_size)
+            check(cat["launches"]["ge_count"] == want,
+                  f"ge_count launches of the {name}TopK --test_all run: {cat['launches']} != {want}")
+            check(all(np.isfinite(v) for v in cat["test"].values()), f"{name}TopK --test_all metrics {cat['test']}")
+            res["test_all"] = dict(cat, route="dense", eval_batch=args.eval_batch_size)
+        # 3. --lazy_emb_adam 1: DINTopK raises at its first step, no commit
+        with counted(totals) as c:
+            try:
+                port_main.build_parser_and_run(argv("DIN", "lazy", "--lazy_emb_adam", "1", epochs=1)
+                                               + ["--log_file", os.path.join(tmp, "lazy.log")])
+            except ValueError as e:
+                raised = str(e)
+            else:
+                raised = None
+        check(raised == JAX_LAZY_ERROR, f"DINTopK --lazy_emb_adam 1 raises the JAX package's error: {raised}")
+        check(c.launches["adam_commit"] == 0, f"DINTopK --lazy_emb_adam 1 commits nothing: {c.launches}")
+        out["lazy_DINTopK"] = dict(raised=raised, launches=c.launches)
+    emit("train_grocery_context_seq", flags=CB.SEQ_TOPK_MODELS, common=CB.TOPK_COMMON,
+         floors=CONTEXT_SEQ_TOPK_FLOORS, seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_train_ctr_seq(totals):
+    """The five context_seq models' CTR modes through the CLI on the card,
+    on the CTR_ML1M corpus of `phase_train_ctr` (context_bands.
+    SEQ_CTR_MODELS): CONTEXT_EPOCHS epochs of BCE (the loss falls, dev AUC
+    over its floor, the metrics finite). No step profile: the script's
+    time limit (PERF.md §4)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.make_ctr_dataset(os.path.join(tmp, "data", "CTR_ML1M"), **CB.CTR_ML1M)
+
+        def argv(name, tag):
+            return ["--model_name", name, "--model_mode", "CTR", *CB.SEQ_CTR_MODELS[name], *CB.CTR_COMMON,
+                    "--metric", "AUC,Log_loss,ACC,F1_SCORE", "--dataset", "CTR_ML1M",
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(CONTEXT_EPOCHS),
+                    "--random_seed", str(SEED), "--model_path", os.path.join(tmp, tag + ".bin"),
+                    "--save_final_results", "0"]
+
+        for name, floor in CONTEXT_SEQ_CTR_FLOORS.items():
+            _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name), name)
+            dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
+            check(all(np.isfinite(v) for v in list(dev.values()) + list(test.values())),
+                  f"{name}CTR: finite AUC, LOG_LOSS, ACC, F1: {dev} {test}")
+            check(dev["AUC"] > floor, f"{name}CTR dev AUC {dev['AUC']} above {floor}")
+            out[name] = dict(seconds=secs, losses=_context_checked(text, CONTEXT_EPOCHS, name + "CTR"),
+                             dev=dev, test=test, peak_memory_bytes=peak,
+                             epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
+    emit("train_ctr_seq", flags=CB.SEQ_CTR_MODELS, common=CB.CTR_COMMON, floors=CONTEXT_SEQ_CTR_FLOORS,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def phase_ctr_long(totals):
+    """ETA's and SDIM's long-history retrieval on SynthCTRLong through the
+    CLI on the card (CTR_LONG_*): the retrieval is causal for any AUC above
+    chance there, so the test AUCs hold ETA's paper retrieval above its
+    bar, the reference's bucket-id retrieval at chance, and SDIM's
+    collisions above theirs."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.make_ctr_long_dataset(os.path.join(tmp, "data", "SynthCTRLong"))
+        for run, (model, flags) in CTR_LONG_RUNS.items():
+            argv = ["--model_name", model, "--model_mode", "CTR", "--dataset", "SynthCTRLong",
+                    "--path", os.path.join(tmp, "data"), *CTR_LONG_FLAGS, *flags,
+                    "--model_path", os.path.join(tmp, run + ".bin")]
+            try:
+                _, text, _, secs, _ = _context_run(totals, tmp, argv, run)
+            finally:
+                port_main.set_dense_init("reference")
+            test = _log_metrics(text, "Test After Training")
+            out[run] = dict(seconds=secs, test=test, epochs=len(_context_losses(text)))
+    auc = {k: v["test"]["AUC"] for k, v in out.items()}
+    check(auc["ETA"] >= ETA_LONG_MIN, f"ETACTR on SynthCTRLong: AUC {auc['ETA']} >= {ETA_LONG_MIN}")
+    check(auc["ETA_ref"] <= ETA_REF_LONG_MAX and auc["ETA"] - auc["ETA_ref"] >= ETA_LONG_GAP,
+          f"ETACTR --ref_retrieval 1 at chance: {auc}")
+    check(auc["SDIM"] >= SDIM_LONG_MIN, f"SDIMCTR on SynthCTRLong: AUC {auc['SDIM']} >= {SDIM_LONG_MIN}")
+    emit("ctr_long", flags=CTR_LONG_FLAGS, runs={k: v[1] for k, v in CTR_LONG_RUNS.items()},
          seconds=round(time.perf_counter() - t0, 3), **out)
     return out
 
@@ -2716,6 +2904,9 @@ def main() -> int:
     phase_train_grocery_seq2(totals)
     phase_train_grocery_context(totals)
     phase_train_ctr(totals)
+    phase_train_grocery_context_seq(totals)
+    phase_train_ctr_seq(totals)
+    phase_ctr_long(totals)
     with tempfile.TemporaryDirectory() as tmp:
         imp = phase_train_impression(totals, tmp)
         phase_train_rerank(totals, tmp, imp["chance"])

@@ -1,6 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38, 83-305, 307-381, 446-684 and
-692-1149).
+rechorus_tpu/data/batching.py:26-38 and 83-1149).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -166,12 +165,15 @@ class CTRBatcher(Batcher):
     Parity: reference CTRModel.Dataset (BaseModel.py:276-288)."""
 
     def build(self):
-        df = self.corpus.data_df[self.phase]
-        self._df = df
+        df = self._df = self._rows()
         self.n = len(df)
         self.arrays["user_id"] = df["user_id"].to_numpy().astype(np.int32)
         self.arrays["target_item"] = df["item_id"].to_numpy().astype(np.int32)
         self.arrays["label"] = df["label"].to_numpy().astype(np.float32)
+
+    def _rows(self):
+        """The phase's rows this batcher serves."""
+        return self.corpus.data_df[self.phase]
 
     def _feed(self, arrays, idx):
         users = arrays["user_id"][idx]
@@ -465,6 +467,96 @@ class SequentialBatcher(GeneralBatcher):
 
     def eval_feed(self, arrays, idx, cands=None):
         return self._with_history(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+def _maybe_neg_history(batcher, feed, gen, rounds: int = 4):
+    """DIEN's sampled negative history for its auxiliary loss (port of
+    rechorus_tpu/data/batching.py:242-255): uniform ids in [1, n_items)
+    drawn from the step's generator, each avoiding the positive at its slot
+    within `rounds` resampling rounds (reference DIEN.py:195-205 samples
+    per epoch on the host)."""
+    if getattr(batcher.model, "alpha_aux", 0) <= 0 or "history_items" not in feed:
+        return feed
+    hist = feed["history_items"]
+    cand = torch.randint(1, batcher.corpus.n_items, (rounds + 1,) + tuple(hist.shape), generator=gen,
+                         device=hist.device, dtype=hist.dtype)
+    feed["history_neg_items"] = sampling.first_accepted(cand, cand == hist[None])
+    return feed
+
+
+def _history_situ(batcher, df) -> np.ndarray:
+    """[n, H, F_s] situation values at each history step, categorical
+    columns first (the order `group_embeddings` reads): float32 when a
+    situation feature is a float one, else int32 (port of
+    rechorus_tpu/data/batching.py:257-268)."""
+    from rechorus_tpu_torch.data.context import is_categorical
+
+    situ = list(batcher.corpus.situation_feature_names)
+    raw = batcher.corpus.history_situ_arrays(df, batcher.model.history_max)
+    order = [i for i, c in enumerate(situ) if is_categorical(c)] + \
+        [i for i, c in enumerate(situ) if not is_categorical(c)]
+    return raw[:, :, order].astype(np.int32 if all(is_categorical(c) for c in situ) else np.float32)
+
+
+@register_batcher("context_seq")
+class ContextSeqBatcher(SequentialBatcher):
+    """Sequential top-k feeds + the situation blocks, the situations of the
+    history steps with --add_historical_situations 1, and DIEN's negative
+    history in training (port of rechorus_tpu/data/batching.py:383-411).
+    The history items' features are gathered in the model from its feature
+    buffers by id (the reference precomputes history_<feature> columns,
+    BaseContextModel.py:110-124)."""
+
+    def _extra_arrays(self, df) -> None:
+        super()._extra_arrays(df)
+        _add_situation(self, df)
+        if getattr(self.model, "add_historical_situations", 0):
+            self.arrays["history_situ"] = _history_situ(self, df)
+
+    def _context(self, feed, arrays, idx):
+        feed = _situ_feed(feed, arrays, idx)
+        if "history_situ" in arrays:
+            feed["history_situ"] = arrays["history_situ"][idx]
+        return feed
+
+    def train_feed(self, arrays, idx, gen):
+        return _maybe_neg_history(self, self._context(super().train_feed(arrays, idx, gen), arrays, idx), gen)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._context(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+@register_batcher("context_seq_ctr")
+class ContextSeqCTRBatcher(CTRBatcher):
+    """Pointwise CTR rows with position > 0 + their history arrays, the
+    situation blocks and historical situations (port of
+    rechorus_tpu/data/batching.py:414-446; reference ContextSeqCTRModel.
+    Dataset, BaseContextModel.py:144-166)."""
+
+    KEYS = ("history_items", "history_times", "lengths", "history_situ", "situ_cat", "situ_float")
+
+    def _rows(self):
+        df = self.corpus.data_df[self.phase]
+        return df[df["position"].to_numpy() > 0].reset_index(drop=True)
+
+    def build(self):
+        super().build()
+        df = self._df
+        his = self.corpus.history_arrays(df, self.model.history_max)
+        self.arrays.update(zip(SequentialBatcher.HISTORY_KEYS, his))
+        _add_situation(self, df)
+        if getattr(self.model, "add_historical_situations", 0):
+            self.arrays["history_situ"] = _history_situ(self, df)
+
+    def _feed(self, arrays, idx):
+        feed = super()._feed(arrays, idx)
+        for k in self.KEYS:
+            if k in arrays:
+                feed[k] = arrays[k][idx]
+        return feed
+
+    def train_feed(self, arrays, idx, gen):
+        return _maybe_neg_history(self, self._feed(arrays, idx), gen)
 
 
 @register_batcher("kda")

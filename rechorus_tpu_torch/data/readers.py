@@ -1,8 +1,8 @@
-"""Corpus readers (port of rechorus_tpu/data/readers.py:1-381 and
-:462-972: `BaseReader` with its fixed-shape history arrays, the context
-reader `ContextReader`, `SeqReader`, the impression readers
-`ImpressionReader`, `ImpressionSeqReader` and `ImpressionContextReader`,
-and the knowledge-aware `KGReader` and `KDAReader`).
+"""Corpus readers (port of rechorus_tpu/data/readers.py:1-972: `BaseReader`
+with its fixed-shape history arrays, the context reader `ContextReader`,
+`SeqReader`, `ContextSeqReader`, the impression readers `ImpressionReader`,
+`ImpressionSeqReader` and `ImpressionContextReader`, and the
+knowledge-aware `KGReader` and `KDAReader`).
 
 Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
@@ -308,11 +308,46 @@ class SeqReader(BaseReader):
         position_all[order] = pos_sorted
         his_order = order[sidx]
         self.user_his = CSRRows(np.stack([i[his_order], t[his_order]], axis=1), offsets)
+        self._append_step_info(his_order, offsets)
         lo = 0
         for key in ["train", "dev", "test"]:
             L = len(self.data_df[key])
             self.data_df[key]["position"] = position_all[lo: lo + L]
             lo += L
+
+    def _append_step_info(self, his_order: np.ndarray, offsets: np.ndarray) -> None:
+        """Per-step arrays a subclass keeps beside `user_his`: all_df's row
+        `his_order[j]` is step j of the CSR over `offsets`."""
+
+
+@register_reader("ContextSeqReader")
+class ContextSeqReader(ContextReader, SeqReader):
+    """Context + sequential (port of rechorus_tpu/data/readers.py:382-461;
+    reference src/helpers/ContextSeqReader.py:18-43): SeqReader's history,
+    where each step also keeps its situation context, `user_his_situ`, a
+    CSR [T, n_situ] over the same offsets as `user_his` (pad 0 where a
+    split lacks a c_* column, where the reference's merge gave NaN)."""
+
+    def _append_step_info(self, his_order, offsets):
+        situ = list(self.situation_feature_names)
+        vals = (np.concatenate([
+            self.data_df[k].reindex(columns=situ, fill_value=0).to_numpy(np.int64)
+            for k in ("train", "dev", "test")]) if situ else np.zeros((len(his_order), 0), dtype=np.int64))
+        self.user_his_situ = CSRRows(vals[his_order], offsets)
+
+    def history_situ_arrays(self, df: pd.DataFrame, history_max: int) -> np.ndarray:
+        """[n_rows, history_max, n_situ] int64: each row's situation context
+        at the steps of its history (user_his_situ[u][:position][-H:],
+        left-aligned, zero-padded), in one fancy-index pass over the CSR."""
+        users = df["user_id"].to_numpy(np.int64)
+        positions = df["position"].to_numpy(np.int64)
+        flat, offsets = self.user_his_situ.flat, self.user_his_situ.offsets
+        start = np.maximum(0, positions - history_max)
+        lengths = positions - start          # rows with position <= 0 get length <= 0
+        idx = offsets[users, None] + start[:, None] + np.arange(history_max)[None, :]
+        valid = np.arange(history_max)[None, :] < lengths[:, None]
+        gathered = flat[np.clip(idx, 0, max(len(flat) - 1, 0))]
+        return np.where(valid[..., None], gathered, 0).astype(np.int64)
 
 
 @register_reader("ImpressionReader")

@@ -1,14 +1,14 @@
 """Synthetic datasets in the reference CSV contract (own copy of
-rechorus_tpu/data/synthetic.py:17-147 and :217-297: `make_topk_dataset`,
-`make_ctr_dataset`, `make_impression_dataset` and `make_kg_dataset`, numpy
-and pandas only).
+rechorus_tpu/data/synthetic.py:17-297: `make_topk_dataset`,
+`make_ctr_dataset`, `make_ctr_long_dataset`, `make_impression_dataset` and
+`make_kg_dataset`, numpy and pandas only).
 
 They write train/dev/test.csv (and item_meta.csv / user_meta.csv for the
 KG and CTR sets) with the columns the readers expect (reference
 data/README.md:9-60), with learnable structure (a block preference
 matrix), for tests and `chip_smoke.py`. `make_topk_dataset`,
-`make_ctr_dataset` and `make_impression_dataset` write the JAX package's
-files byte for byte.
+`make_ctr_dataset`, `make_ctr_long_dataset` and `make_impression_dataset`
+write the JAX package's files byte for byte.
 `make_kg_dataset` draws the same kind of relation lists (distinct
 same-group items, never the item itself) with one vectorised draw per
 group, where the JAX package's generator scans the catalog once per item
@@ -154,6 +154,51 @@ def make_ctr_dataset(
     })
     user_meta.to_csv(os.path.join(path, "user_meta.csv"), sep="\t", index=False)
     return {"n_users": n_users, "n_items": n_items}
+
+
+def make_ctr_long_dataset(path: str, n_users: int = 300, n_items: int = 200, n_per_user: int = 60,
+                          n_groups: int = 8, win_lo: int = 4, win_hi: int = 9, seed: int = 11):
+    """SynthCTRLong, the long-range-dependency CTR corpus: row j is a click
+    with p = 0.85 when ANY item `win_lo`..`win_hi` interactions earlier
+    shares the target's category, else 0.15 (0.5 for the first `win_lo`
+    rows). The informative window sits deeper than a recent_k of 3 and
+    inside a history_max of 10, and slides with j, so only a retrieval over
+    the long history (ETA's SimHash top-k, SDIM's bucket collisions) lifts
+    AUC above chance; u_group_c and c_hour_c are random, so no user or
+    situation feature carries the signal."""
+    rng = np.random.default_rng(seed)
+    all_items = np.arange(1, n_items + 1)
+    rows = []
+    for u in range(1, n_users + 1):
+        t0 = rng.integers(1e8, 2e8)
+        items = rng.choice(all_items, size=n_per_user, replace=True)
+        cats = items % n_groups
+        for j, it in enumerate(items):
+            if j >= win_lo:
+                window = cats[max(0, j - win_hi): j - win_lo + 1]
+                p = 0.85 if (window == cats[j]).any() else 0.15
+            else:
+                p = 0.5
+            label = int(rng.random() < p)
+            hour = int(rng.integers(0, 24))
+            rows.append((u, int(it), int(t0 + j * 86400), label, hour))
+    df = pd.DataFrame(rows, columns=["user_id", "item_id", "time", "label", "c_hour_c"])
+    df = df.sort_values(by=["time", "user_id"], kind="mergesort").reset_index(drop=True)
+    n = len(df)
+    os.makedirs(path, exist_ok=True)
+    for name, part in (("train", df.iloc[: int(n * 0.8)]), ("dev", df.iloc[int(n * 0.8): int(n * 0.9)]),
+                       ("test", df.iloc[int(n * 0.9):])):
+        part.to_csv(os.path.join(path, name + ".csv"), sep="\t", index=False)
+    pd.DataFrame({
+        "item_id": all_items,
+        "i_category_c": (all_items % n_groups).astype(int),
+        "i_quality_f": rng.uniform(0, 1, size=n_items).round(3),
+    }).to_csv(os.path.join(path, "item_meta.csv"), sep="\t", index=False)
+    pd.DataFrame({
+        "user_id": np.arange(1, n_users + 1),
+        "u_group_c": rng.integers(0, n_groups, size=n_users),
+    }).to_csv(os.path.join(path, "user_meta.csv"), sep="\t", index=False)
+    return {"n_users": n_users, "n_items": n_items, "win_lo": win_lo, "win_hi": win_hi}
 
 
 def make_impression_dataset(path: str, n_users: int = 120, n_items: int = 80,

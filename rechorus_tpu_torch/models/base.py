@@ -1,7 +1,7 @@
-"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-247,
-:352-492 and :529-677, the impression and re-rank bases;
-`_ContextFields.group_embeddings` of the context_seq models is not ported
-yet).
+"""Model base hierarchy (port of rechorus_tpu/models/base.py:29-677: the
+general, sequential and CTR bases, the context fields with their grouped
+embeddings, the context and context-sequential bases, and the impression
+and re-rank bases).
 
 A model is an `nn.Module` whose keyword arguments are hyperparameters,
 filled from CLI args + corpus statistics by `from_args`. It declares
@@ -58,7 +58,7 @@ class BaseModel(nn.Module):
         """Keyword arguments of every `__init__` along the model's MRO."""
         names: List[str] = []
         for klass in cls.__mro__:
-            if not (isinstance(klass, type) and issubclass(klass, BaseModel)):
+            if klass in (object, nn.Module) or "__init__" not in vars(klass):
                 continue
             for p in inspect.signature(klass.__init__).parameters.values():
                 if p.name != "self" and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY) \
@@ -301,6 +301,81 @@ class _ContextFields:
         """The feature matrix buffer `key` (e.g. 'item_cat'), or None."""
         return getattr(self, key, None)
 
+    def init_group_embeddings(self, vec_size: int) -> None:
+        """The modules of `group_embeddings`: one `fused_table` over every
+        categorical vocabulary (ids included) and one bias-free Dense(1 ->
+        vec_size) `float_<name>` per float feature, as the JAX package names
+        them; and each group's categorical offsets as buffers."""
+        from rechorus_tpu_torch.data.context import is_categorical
+        from rechorus_tpu_torch.ops.layers import Dense, embed
+
+        self.fused_table = embed(self.total_vocab, vec_size)
+        for n in self.feature_names:
+            if not is_categorical(n):
+                self.add_module("float_" + n, Dense(1, vec_size, use_bias=False))
+        cat_names = [n for n, k in zip(self.feature_names, self.feature_kinds) if k == "cat"]
+        self.cat_offset = dict(zip(cat_names, self.feature_offsets))
+        for group, names in zip(("user", "item", "situ"), self.source_names):
+            offs = [self.cat_offset[n] for n in names if is_categorical(n)]
+            self.register_buffer("offsets_" + group, torch.tensor(offs, dtype=torch.long), persistent=False)
+
+    def _group(self, id_vals, id_key, side, names):
+        """[..., F, d]: the fused-table rows of the ids (offset by
+        `id_key`'s) and of the side's categorical features, then the float
+        features' Dense rows (port of the JAX `group_embeddings.build`)."""
+        from rechorus_tpu_torch.data.context import is_categorical
+
+        cats = [id_vals[..., None] + self.cat_offset[id_key]]
+        if any(is_categorical(n) for n in names):
+            cats.append(self._const(side + "_cat")[id_vals] + getattr(self, "offsets_" + side))
+        parts = [self.fused_table(torch.cat(cats, dim=-1))]
+        flts = [n for n in names if not is_categorical(n)]
+        if flts:
+            src = self._const(side + "_float")[id_vals]
+            parts += [getattr(self, "float_" + n)(src[..., j: j + 1])[..., None, :] for j, n in enumerate(flts)]
+        return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
+
+    def _situ_group(self, cat_vals, float_vals):
+        """[..., Fs, d] of situation values: categorical columns through the
+        fused table, then the float ones through their Dense."""
+        from rechorus_tpu_torch.data.context import is_categorical
+
+        situ_names = self.source_names[2]
+        parts = []
+        if any(is_categorical(n) for n in situ_names):
+            parts.append(self.fused_table(cat_vals.long() + self.offsets_situ))
+        flts = [n for n in situ_names if not is_categorical(n)]
+        parts += [getattr(self, "float_" + n)(float_vals[..., j: j + 1].float())[..., None, :]
+                  for j, n in enumerate(flts)]
+        return torch.cat(parts, dim=-2)
+
+    def group_embeddings(self, feed, include_history: bool = True, extra_item_ids=None):
+        """Per-group stacked embeddings from one fused table (port of
+        rechorus_tpu/models/base.py:248-351; reference DIN.get_all_embedding,
+        src/models/context_seq/DIN.py:97-137):
+          'item'    [B, C, Fi, d]  item_id + i_* of each candidate
+          'user'    [B, Fu, d]     user_id + u_*
+          'situ'    [B, Fs, d]     c_* (when the corpus has them)
+          'history' [B, H, Fi, d]  the history items and their i_*
+          'history_situ' [B, H, Fs, d] when the feed carries it
+        and one [..., Fi, d] entry per `extra_item_ids` key (DIEN's negative
+        history). Within a group: id, categorical (sorted), float (sorted)."""
+        user_names, item_names, situ_names = self.source_names
+        out = {"item": self._group(self._items(feed), "item_id", "item", item_names),
+               "user": self._group(feed["user_id"], "user_id", "user", user_names)}
+        if situ_names:
+            n_cat = self.n_situ_cat
+            out["situ"] = self._situ_group(feed.get("situ_cat"), feed.get("situ_float"))
+        history = include_history and "history_items" in feed
+        if history:
+            out["history"] = self._group(feed["history_items"], "item_id", "item", item_names)
+        for key, ids in (extra_item_ids or {}).items():
+            out[key] = self._group(ids, "item_id", "item", item_names)
+        if history and "history_situ" in feed and situ_names:
+            hs = feed["history_situ"]
+            out["history_situ"] = self._situ_group(hs[..., :n_cat], hs[..., n_cat:])
+        return out
+
     @staticmethod
     def _items(feed):
         items = feed["item_id"]
@@ -420,6 +495,44 @@ class ContextCTRModel(CTRModel, _ContextFields):
         kw = super().corpus_kwargs(args, corpus)
         kw.update(cls.schema_kwargs(corpus))
         return kw
+
+
+class ContextSeqModel(ContextModel):
+    """Context + history, top-k (port of rechorus_tpu/models/base.py:
+    495-509; reference BaseContextModel.py:89-124)."""
+
+    reader: ClassVar[str] = "ContextSeqReader"
+    batcher: ClassVar[str] = "context_seq"
+
+    def __init__(self, *, history_max: int = 20, add_historical_situations: int = 0, **kwargs):
+        super().__init__(**kwargs)
+        self.history_max, self.add_historical_situations = history_max, add_historical_situations
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--history_max", type=int, default=20, help="Maximum length of history.")
+        parser.add_argument("--add_historical_situations", type=int, default=0,
+                            help="Whether to add historical situation context as sequence.")
+        return ContextModel.parse_model_args(parser)
+
+
+class ContextSeqCTRModel(ContextCTRModel):
+    """Context + history, CTR (port of rechorus_tpu/models/base.py:512-526;
+    reference BaseContextModel.py:129-166)."""
+
+    reader: ClassVar[str] = "ContextSeqReader"
+    batcher: ClassVar[str] = "context_seq_ctr"
+
+    def __init__(self, *, history_max: int = 20, add_historical_situations: int = 0, **kwargs):
+        super().__init__(**kwargs)
+        self.history_max, self.add_historical_situations = history_max, add_historical_situations
+
+    @staticmethod
+    def parse_model_args(parser):
+        parser.add_argument("--history_max", type=int, default=20, help="Maximum length of history.")
+        parser.add_argument("--add_historical_situations", type=int, default=0,
+                            help="Whether to add historical situation context as sequence.")
+        return ContextCTRModel.parse_model_args(parser)
 
 
 class ImpressionModel(GeneralModel):

@@ -4,19 +4,27 @@ rechorus_tpu/models/context/_modes.py).
 Each model file defines one mixin (its hyperparameters in `__init__`, its
 CLI flags in `add_model_args`, its score in `prediction`) and registers it
 twice: `<Name>CTR` over `ContextCTRModel` and `<Name>TopK` over
-`ContextModel`. The mixin comes first in the bases, so `ContextHead`'s
-`forward`, `loss` and `parse_model_args` are the ones that run.
+`ContextModel` (the context_seq models: over `ContextSeqCTRModel` and
+`ContextSeqModel`). The mixin comes first in the bases, so `ContextHead`'s
+`forward`, `loss` and `parse_model_args` are the ones that run, and the
+mode's base comes last.
 """
 from __future__ import annotations
 
 import torch
 
-from rechorus_tpu_torch.models.base import ContextCTRModel, ContextModel, CTRModel
+from rechorus_tpu_torch.models.base import CTRModel
 
 
 def ctr_out(prediction, feed):
     """A raw [B, 1] score in the CTR contract: sigmoid + label, both [B]."""
     return {"prediction": torch.sigmoid(prediction.reshape(-1)), "label": feed["label"].reshape(-1)}
+
+
+def mode_out(model, prediction, feed):
+    """[B, C] scores in the model's mode: `ctr_out` for a CTR model, the
+    scores for a TopK one."""
+    return ctr_out(prediction, feed) if isinstance(model, CTRModel) else {"prediction": prediction}
 
 
 class ContextHead:
@@ -28,7 +36,7 @@ class ContextHead:
 
     def forward(self, feed, training: bool = False, gen=None):
         pred, reg = self.prediction(feed, training, gen)
-        out = ctr_out(pred, feed) if isinstance(self, CTRModel) else {"prediction": pred}
+        out = mode_out(self, pred, feed)
         if reg is not None:
             out["reg_loss"] = self.reg_weight * reg
         return out
@@ -39,8 +47,7 @@ class ContextHead:
 
     @classmethod
     def parse_model_args(cls, parser):
-        mode_base = ContextCTRModel if issubclass(cls, CTRModel) else ContextModel
-        return mode_base.parse_model_args(cls.add_model_args(parser))
+        return cls.__bases__[-1].parse_model_args(cls.add_model_args(parser))
 
     def flat_embeddings(self, feed):
         """The bank's [B, C, F * d] embeddings of the feed's candidates."""

@@ -1,9 +1,9 @@
-"""Shared torch blocks (port of rechorus_tpu/ops/layers.py:38-187,
-:206-253, :320-376 and :422-444: `dense` and its init scheme, `TableEmbed`,
-`embed`, the table dtype and the sparse-lookup context, dropout,
-`MLPBlock` with flax's `BatchNorm` and `LayerNorm`, `apply_activation`,
-`AttLayer`, `MaskedGRU`, `BiLSTM`, `MultiHeadAttention` and
-`TransformerLayer`).
+"""Shared torch blocks (port of rechorus_tpu/ops/layers.py:38-444: `dense`
+and its init scheme, `TableEmbed`, `embed`, the table dtype and the
+sparse-lookup context, dropout, `MLPBlock` with flax's `BatchNorm` and
+`LayerNorm`, `Dice`, `apply_activation`, `AttLayer`, `MaskedGRU`,
+`AttentionalGRU`, `BiLSTM`, `MultiHeadAttention`,
+`MultiHeadTargetAttention` and `TransformerLayer`).
 
 Init convention of the reference BaseModel.init_weights
 (src/models/BaseModel.py:29-35): N(0, 0.01) for embedding tables and
@@ -81,6 +81,13 @@ def _xavier_normal_heads(shape, gen):
     H * Y (the leading axis is the receptive field), truncated at two std."""
     h, x, y = shape
     return _truncated_normal(shape, gen, 2.0 / (h * x + h * y))
+
+
+def _uniform(scale: float):
+    """U(-scale, scale) (torch's GRU default at scale 1 / sqrt(hidden))."""
+    def init(shape, gen):
+        return (torch.rand(shape, generator=gen, device=gen.device) * 2.0 - 1.0) * scale
+    return init
 
 
 def _constant(value: float):
@@ -216,13 +223,32 @@ def apply_activation(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(f"Unknown activation: {name}")
 
 
+class Dice(nn.Module):
+    """The DIN paper's adaptive activation (reference layers.py:246-285; JAX
+    `Dice`): p * x + (1 - p) * alpha * x with p = sigmoid(bn(x)), `bn` the
+    flax-faithful BatchNorm above at eps 1e-8 and momentum 0.9 (batch
+    statistics in training, its running buffers otherwise), `alpha` [d]
+    starting at zero."""
+
+    PARAM_INITS = {"alpha": _zeros}
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(dim))
+        self.bn = BatchNorm(dim, momentum=0.9, eps=1e-8)
+
+    def forward(self, x, training: bool = False):
+        p = torch.sigmoid(self.bn(x, training))
+        return p * x + (1.0 - p) * self.alpha * x
+
+
 class MLPBlock(nn.Module):
     """Configurable MLP tower (reference src/utils/layers.py:201-243; JAX
     `MLPBlock`): per hidden layer `dense_i`, then `bn_i` (flax BatchNorm,
-    above) or `ln_i` when `norm` asks for one, the activation, and dropout
-    when `dropout_rate` > 0; a linear `head` when `output_dim` is set.
-    `hidden_activations` is one name or one per layer. Dice (the DIN
-    family's activation) comes with the context_seq models."""
+    above) or `ln_i` when `norm` asks for one, the activation (`dice_i`
+    for Dice), and dropout when `dropout_rate` > 0; a linear `head` when
+    `output_dim` is set. `hidden_activations` is one name or one per
+    layer."""
 
     def __init__(self, in_dim: int, hidden_units, hidden_activations="ReLU",
                  output_dim: Optional[int] = None, dropout_rate: float = 0.0,
@@ -230,9 +256,6 @@ class MLPBlock(nn.Module):
         super().__init__()
         acts = hidden_activations
         self.acts = [acts] * len(hidden_units) if isinstance(acts, str) else list(acts)
-        if any(a.lower() == "dice" for a in self.acts):
-            raise NotImplementedError("MLPBlock: the Dice activation comes with the "
-                                      "context_seq models (ROADMAP A10.5)")
         self.dropout_rate, self.norm = dropout_rate, norm
         self.n_hidden = len(hidden_units)
         d = in_dim
@@ -242,6 +265,8 @@ class MLPBlock(nn.Module):
                 self.add_module(f"bn_{i}", BatchNorm(h))
             elif norm == "layer_norm":
                 self.add_module(f"ln_{i}", LayerNorm(h))
+            if self.acts[i].lower() == "dice":
+                self.add_module(f"dice_{i}", Dice(h))
             d = h
         self.head = Dense(d, output_dim, use_bias) if output_dim is not None else None
         self.out_dim = output_dim if output_dim is not None else d
@@ -253,7 +278,10 @@ class MLPBlock(nn.Module):
                 x = getattr(self, f"bn_{i}")(x, training)
             elif self.norm == "layer_norm":
                 x = getattr(self, f"ln_{i}")(x)
-            x = apply_activation(x, self.acts[i])
+            if self.acts[i].lower() == "dice":
+                x = getattr(self, f"dice_{i}")(x, training)
+            else:
+                x = apply_activation(x, self.acts[i])
             if self.dropout_rate > 0:
                 x = dropout(x, self.dropout_rate, training, gen)
         return self.head(x) if self.head is not None else x
@@ -414,6 +442,100 @@ class MaskedGRU(nn.Module):
         return outputs, outputs.gather(1, last[:, None, None].expand(B, 1, outputs.shape[2]))[:, 0]
 
 
+class AttentionalGRU(nn.Module):
+    """GRU whose update takes an attention score per step (port of
+    rechorus_tpu/ops/layers.py:256-317; reference DIEN.py:287-369's
+    DynamicGRU / AGRUCell / AUGRUCell over packed sequences). Parameters in
+    the JAX layout: `wx` [D, 3H], `wh` [H, 3H], `bias_x`, `bias_h` [3H]
+    (names with 'bias', so the weight decay skips them as in the JAX
+    package), gate order (r, z, n), all drawn U(-1/sqrt(H), 1/sqrt(H)):
+
+      r = sigmoid(i_r + h_r); z = sigmoid(i_z + h_z); n = tanh(i_n + r * h_n)
+      AGRU:  h' = (1 - a) h + a n
+      AUGRU: z' = a z; h' = (1 - z') h + z' n
+      AIGRU: the inputs scaled by a, then h' = (1 - z) h + z n
+
+    where i_* = x W_x + b_x and h_* = h W_h + b_h. inputs [B, T, D], shared
+    by the C candidates of a row (DIEN's interest states), att_scores
+    [B, C, T], lengths [B] -> the final states [B, C, H]: a row stops
+    updating at its length (0 for a row of length 0).
+
+    AGRU's and AUGRU's gates take the score, so they run a loop over the T
+    steps of [B, C, 3H] products, the input projection x W_x once per row
+    (not per candidate). AIGRU's cell is a plain GRU over a x: with
+    gradients, or up to CUDNN_MAX_ROWS rows B * C, it is one call of
+    PyTorch's GRU (cuDNN on the card) over the [B * C, T, D] rows, whose
+    update gate is 1 - z (its z rows enter negated: sigmoid(-x) =
+    1 - sigmoid(x)); past that, in evaluation, the same loop, with
+    (a x) W_x = a (x W_x), which materialises no [B * C, T, D] input. On an
+    NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), DIEN's evaluation batch of
+    3,200 rows (32 x 100 candidates) took 2.7-3.5 s a dev split through the
+    loop and 1.3-1.4 s through cuDNN, its full-catalog batch of 278,848
+    rows 45 ms through the loop and 113 ms through cuDNN's persistent
+    kernel."""
+
+    CUDNN_MAX_ROWS = 1 << 16
+
+    def __init__(self, in_features: int, hidden: int, gru_type: str = "AUGRU"):
+        super().__init__()
+        if gru_type not in ("AGRU", "AUGRU", "AIGRU"):
+            raise ValueError(f"Unknown evolving GRU type: {gru_type}")
+        self.hidden, self.gru_type = hidden, gru_type
+        self.wx = nn.Parameter(torch.empty(in_features, 3 * hidden))
+        self.wh = nn.Parameter(torch.empty(hidden, 3 * hidden))
+        self.bias_x = nn.Parameter(torch.empty(3 * hidden))
+        self.bias_h = nn.Parameter(torch.empty(3 * hidden))
+        u = _uniform(1.0 / math.sqrt(hidden))
+        self.PARAM_INITS = {"wx": u, "wh": u, "bias_x": u, "bias_h": u}
+
+    def forward(self, inputs, att_scores, lengths):
+        if self.gru_type == "AIGRU" and (torch.is_grad_enabled()
+                                         or inputs.shape[0] * att_scores.shape[1] <= self.CUDNN_MAX_ROWS):
+            return self._cudnn_aigru(inputs, att_scores, lengths)
+        B, T, _ = inputs.shape
+        C, Hs = att_scores.shape[1], self.hidden
+        xw = torch.matmul(inputs, self.wx)                        # [B, T, 3H]
+        aigru = self.gru_type == "AIGRU"
+        if not aigru:
+            xw = xw + self.bias_x
+        valid = (torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]).to(inputs.dtype)
+        # each step's update weight: 0 past a row's length, AGRU's a
+        weight = valid[:, None, :] * (att_scores if self.gru_type == "AGRU" else 1.0)
+        h = inputs.new_zeros(B, C, Hs)
+        for t in range(T):
+            x_t = xw[:, t, None, :]
+            gi = torch.addcmul(self.bias_x, att_scores[:, :, t, None], x_t) if aigru else x_t
+            gh = torch.addmm(self.bias_h, h.view(B * C, Hs), self.wh).view(B, C, 3 * Hs)
+            r, z = torch.sigmoid(gi[..., :2 * Hs] + gh[..., :2 * Hs]).chunk(2, dim=-1)
+            n = torch.tanh(torch.addcmul(gi[..., 2 * Hs:], r, gh[..., 2 * Hs:]))
+            w = weight[:, :, t, None]
+            if self.gru_type == "AUGRU":
+                w = w * att_scores[:, :, t, None] * z
+            elif aigru:
+                w = w * z
+            h = torch.lerp(h, n, w)                                # (1 - w) h + w n
+        return h
+
+    def _cudnn_aigru(self, inputs, att_scores, lengths):
+        B, T, D = inputs.shape
+        C, Hs = att_scores.shape[1], self.hidden
+        x = (inputs[:, None] * att_scores[..., None]).reshape(B * C, T, D)
+        flip = torch.ones(3 * Hs, device=inputs.device, dtype=inputs.dtype)
+        flip[Hs: 2 * Hs] = -1.0
+        # cuDNN takes contiguous [3H, in] weights in PyTorch's gate layout
+        params = [(self.wx * flip).t().contiguous(), (self.wh * flip).t().contiguous(),
+                  self.bias_x * flip, self.bias_h * flip]
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="RNN module weights are not part")
+            # (input, hx, params, has_biases, num_layers, dropout, train,
+            # bidirectional, batch_first)
+            outputs, _ = torch._VF.gru(x, inputs.new_zeros(1, B * C, Hs), params, True, 1, 0.0,
+                                       True, False, True)
+        last = (lengths - 1).clamp(min=0).repeat_interleave(C)
+        h = outputs.gather(1, last[:, None, None].expand(B * C, 1, Hs))[:, 0].view(B, C, Hs)
+        return torch.where((lengths > 0)[:, None, None], h, torch.zeros_like(h))
+
+
 class LSTMCell(nn.Module):
     """flax `nn.OptimizedLSTMCell`'s parameters in its layout: input
     projections `ii`, `if`, `ig`, `io` without biases, recurrent `hi`, `hf`,
@@ -498,6 +620,11 @@ class BiLSTM(nn.Module):
 _RECORD = False
 
 
+def recording() -> bool:
+    """Whether `record_intermediates` is open."""
+    return _RECORD
+
+
 @contextmanager
 def record_intermediates():
     """While open, every MultiHeadAttention keeps its last attention map
@@ -548,6 +675,49 @@ class MultiHeadAttention(nn.Module):
         out = torch.matmul(attn, vh).transpose(-2, -3)
         out = out.reshape(out.shape[:-2] + (self.att_d,))
         return self.out_proj(out) if self.has_out_proj else out
+
+
+class MultiHeadTargetAttention(nn.Module):
+    """Target attention, one query per candidate over a shared history
+    (port of rechorus_tpu/ops/layers.py:377-419; FuxiCTR-derived, reference
+    layers.py:121-198): target [B, C, D], history [B, H, D], mask [B, C, H]
+    (True = attend) -> [B, C, D]. With `use_qkvo` the bias-free projections
+    `W_q`, `W_k`, `W_v` map D to `attention_dim` and `W_o` back; masked
+    scores are -1e9 before the softmax (a fully masked row attends
+    uniformly, as in the JAX layer); the attention weights take dropout
+    from the step's generator."""
+
+    def __init__(self, input_dim: int = 64, attention_dim: int = 64, num_heads: int = 1,
+                 dropout_rate: float = 0.0, use_scale: bool = True, use_qkvo: bool = True):
+        super().__init__()
+        self.input_dim, self.num_heads = input_dim, num_heads
+        self.dropout_rate, self.use_scale, self.use_qkvo = dropout_rate, use_scale, use_qkvo
+        self.att_dim = attention_dim if use_qkvo else input_dim
+        if use_qkvo:
+            self.W_q = Dense(input_dim, self.att_dim, use_bias=False)
+            self.W_k = Dense(input_dim, self.att_dim, use_bias=False)
+            self.W_v = Dense(input_dim, self.att_dim, use_bias=False)
+            self.W_o = Dense(self.att_dim, input_dim, use_bias=False)
+
+    def forward(self, target, history, mask=None, training: bool = False, gen=None):
+        if self.use_qkvo:
+            q, k, v = self.W_q(target), self.W_k(history), self.W_v(history)
+        else:
+            q, k, v = target, history, history
+        B, C = q.shape[:2]
+        H, n = k.shape[1], self.num_heads
+        hd = self.att_dim // n
+        qh = q.reshape(B, C, n, hd).transpose(1, 2)              # [B, n, C, hd]
+        kh = k.reshape(B, H, n, hd).transpose(1, 2)              # [B, n, H, hd]
+        vh = v.reshape(B, H, n, hd).transpose(1, 2)
+        scores = torch.matmul(qh, kh.transpose(-1, -2))          # [B, n, C, H]
+        if self.use_scale:
+            scores = scores / (hd ** 0.5)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None], -1.0e9)
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout_rate, training, gen)
+        out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, C, self.att_dim)
+        return self.W_o(out) if self.use_qkvo else out
 
 
 class TransformerLayer(nn.Module):

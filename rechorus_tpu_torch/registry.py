@@ -77,6 +77,11 @@ _MODULES = [
     "rechorus_tpu_torch.models.context.autoint",
     "rechorus_tpu_torch.models.context.sam",
     "rechorus_tpu_torch.models.context.finalmlp",
+    "rechorus_tpu_torch.models.context_seq.din",
+    "rechorus_tpu_torch.models.context_seq.dien",
+    "rechorus_tpu_torch.models.context_seq.can",
+    "rechorus_tpu_torch.models.context_seq.eta",
+    "rechorus_tpu_torch.models.context_seq.sdim",
     "rechorus_tpu_torch.models.reranker.prm",
     "rechorus_tpu_torch.models.reranker.setrank",
     "rechorus_tpu_torch.models.reranker.mir",

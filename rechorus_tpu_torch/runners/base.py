@@ -868,7 +868,7 @@ class BaseRunner:
                 for key, v in kept.items():
                     v = v.float().cpu().numpy()
                     lines.append("{:<40} shape={} mean={:.4f} std={:.4f} max={:.4f}".format(
-                        path.replace(".", "/") + "/" + key, "x".join(map(str, v.shape)),
+                        "/".join(path.split(".") + [key]) if path else key, "x".join(map(str, v.shape)),
                         float(v.mean()), float(v.std()), float(v.max())))
         logging.info(os.linesep.join([os.linesep] + lines) + os.linesep)
 

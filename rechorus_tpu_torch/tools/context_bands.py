@@ -29,6 +29,18 @@ Suites (the flags are docs/benchmark_commands.md's, D = 64):
   fm_parity     FMCTR on SynthCTRBig and FMTopK on SynthTOPK with the
                 cross-framework parity flags (emb 32, 30 epochs, early stop
                 5, user, item and situation features);
+  seq_topk_grocery  two epochs (ETA three) of the five context_seq TopK
+                modes on the committed Grocery corpus: DIN, DIEN and CAN with :52-54's
+                ML-1M top-k flags (DIEN's and CAN's eval batch 32), ETA and
+                SDIM with their CLI defaults at --history_max 20, all with
+                the top-k common flags;
+  seq_ctr_ml1m  two epochs of the five context_seq CTR modes on the CTR
+                corpus of ctr_ml1m: DIN, DIEN and CAN with :78-80's ML-1M CTR
+                flags, ETA and SDIM with their CLI defaults;
+  context_seq_parity  DINCTR and DIENCTR on SynthCTRBig with
+                scripts/cross_parity.py's flags (:48-55, and its common
+                flags: 30 epochs, early stop 5, user, item and situation
+                features);
   impression_ml1m  BPRMFImpression under the BPR, listnet, softmaxCE and
                 attention_rank losses, LightGCNImpression, SASRecImpression
                 (1 layer, 2 heads, history 10) and GRU4RecImpression
@@ -125,6 +137,40 @@ CTR_MODELS = {  # docs/benchmark_commands.md:68-77 (ML-1M CTR)
             "--aggregation", "mean_pooling", "--num_layers", "1", "--use_residual", "0",
             "--dropout", "0.5"],
 }
+# the context_seq models: docs/benchmark_commands.md:52-54 (ML-1M top-k;
+# DIEN's and CAN's --eval_batch_size 32 overrides TOPK_COMMON's 128, so
+# these flags go after it) and :78-80 (ML-1M CTR); ETA and SDIM have no
+# published command and run with their CLI defaults (rechorus_tpu/models/
+# context_seq/eta.py:61-89), in TopK mode at --history_max 20
+SEQ_TOPK_MODELS = {
+    "DIN": ["--lr", "2e-3", "--l2", "1e-6", "--history_max", "10", "--att_layers", "[64,64,64]",
+            "--dnn_layers", "[128,64]", "--dropout", "0.5"],
+    "DIEN": ["--lr", "5e-4", "--l2", "1e-6", "--history_max", "20", "--alpha_aux", "0.1",
+             "--aux_hidden_layers", "[64]", "--fcn_hidden_layers", "[64]", "--evolving_gru_type", "AIGRU",
+             "--dropout", "0", "--eval_batch_size", "32"],
+    "CAN": ["--lr", "5e-4", "--l2", "1e-4", "--co_action_layers", "[4,4]", "--orders", "2",
+            "--induce_vec_size", "1024", "--history_max", "10", "--alpha_aux", "0.1",
+            "--aux_hidden_layers", "[64]", "--fcn_hidden_layers", "[64,64]", "--evolving_gru_type", "AIGRU",
+            "--dropout", "0.2", "--eval_batch_size", "32"],
+    "ETA": ["--history_max", "20"],
+    "SDIM": ["--history_max", "20"],
+}
+# ETA's reference init (N(0, 0.01) everywhere) starts it at a saddle that
+# both packages leave in epoch 1, 2 or 3 by seed: its TopK runs take 3
+SEQ_TOPK_EPOCHS = {"ETA": 3}
+SEQ_CTR_MODELS = {
+    "DIN": ["--history_max", "20", "--lr", "5e-4", "--l2", "1e-4", "--dnn_layers", "[512,64]",
+            "--att_layers", "[64]", "--dropout", "0.5"],
+    "DIEN": ["--lr", "5e-3", "--l2", "1e-6", "--history_max", "20", "--alpha_aux", "0.5",
+             "--aux_hidden_layers", "[64,64,64]", "--fcn_hidden_layers", "[256]",
+             "--evolving_gru_type", "AIGRU", "--dropout", "0.2"],
+    "CAN": ["--lr", "2e-3", "--l2", "1e-4", "--co_action_layers", "[4,4,4]", "--orders", "1",
+            "--induce_vec_size", "1024", "--history_max", "30", "--alpha_aux", "0.1",
+            "--aux_hidden_layers", "[64,64,64]", "--fcn_hidden_layers", "[256,128]",
+            "--evolving_gru_type", "AIGRU", "--dropout", "0.2"],
+    "ETA": [],
+    "SDIM": [],
+}
 # the CTR corpus at ML-1M's users, items and genres; 40 rows a user where
 # ML-1M averages 165 (a cut of depth)
 CTR_ML1M = dict(n_users=6040, n_items=3706, n_per_user=40, n_groups=18, expose_bias=0.6)
@@ -140,6 +186,13 @@ PARITY_RUNS = {  # (model, mode): (flags, dataset)
     ("FM", "TopK"): (["--emb_size", "32", "--lr", "5e-3", "--l2", "1e-6", "--num_neg", "1",
                       "--metric", "NDCG,HR", "--topk", "1,3,5", "--main_metric", "NDCG@3"],
                      "SynthTOPK"),
+}
+SEQ_PARITY_RUNS = {  # scripts/cross_parity.py:48-55
+    "DIN": ["--emb_size", "32", "--att_layers", "[32]", "--dnn_layers", "[32]", "--history_max", "10",
+            "--lr", "5e-3", "--l2", "1e-6", "--loss_n", "BCE", "--metric", "AUC,LOG_LOSS"],
+    "DIEN": ["--emb_size", "32", "--evolving_gru_type", "AUGRU", "--fcn_hidden_layers", "[32]",
+             "--aux_hidden_layers", "[32]", "--alpha_aux", "0.1", "--history_max", "10",
+             "--lr", "5e-3", "--l2", "1e-6", "--loss_n", "BCE", "--metric", "AUC,LOG_LOSS"],
 }
 
 
@@ -229,6 +282,14 @@ def suite_runs(suite: str):
     if suite == "ctr_ml1m":
         return [(m, "CTR", f + CTR_COMMON + ["--epoch", str(EPOCHS)], "CTR_ML1M")
                 for m, f in CTR_MODELS.items()]
+    if suite == "seq_topk_grocery":
+        return [(m, "TopK", TOPK_COMMON + f + ["--epoch", str(SEQ_TOPK_EPOCHS.get(m, EPOCHS))], GROCERY)
+                for m, f in SEQ_TOPK_MODELS.items()]
+    if suite == "seq_ctr_ml1m":
+        return [(m, "CTR", f + CTR_COMMON + ["--epoch", str(EPOCHS)], "CTR_ML1M")
+                for m, f in SEQ_CTR_MODELS.items()]
+    if suite == "context_seq_parity":
+        return [(m, "CTR", f + PARITY_COMMON, "SynthCTRBig") for m, f in SEQ_PARITY_RUNS.items()]
     if suite == "fm_parity":
         return [(m, mode, flags + PARITY_COMMON, ds) for (m, mode), (flags, ds) in PARITY_RUNS.items()]
     if suite == "impression_ml1m":
@@ -330,7 +391,8 @@ def run_chain(package: str, work: str, chain, seed: int, cpu: bool) -> list:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--suite", required=True,
-                        choices=["topk_grocery", "ctr_ml1m", "fm_parity", "impression_ml1m", "rerank_ml1m",
+                        choices=["topk_grocery", "ctr_ml1m", "fm_parity", "seq_topk_grocery", "seq_ctr_ml1m",
+                                 "context_seq_parity", "impression_ml1m", "rerank_ml1m",
                                  "impression_parity", "rerank_parity"])
     parser.add_argument("--seeds", default="0,1,2")
     parser.add_argument("--package", default="rechorus_tpu_torch", help="package whose main.py runs")

@@ -17,6 +17,9 @@ the kind of each module, which fixes how its leaves cross:
               feature-selection embeddings): its flax leaf says which
   param       raw parameters (flax `self.param`), the same name and axes on
               both sides: a top-level one, or every leaf of the module
+  constant    a top-level leaf of the flax `constants` collection that the
+              torch model keeps as a persistent buffer of the same name
+              (ETA's and SDIM's LSH rotations)
 
 The torch module path is the flax one with '/' -> '.', flax's
 `GRUCell_0` -> `cell`, and a BiLSTM's `OptimizedLSTMCell_0` / `_1` (flax
@@ -115,6 +118,19 @@ _CONTEXT = {
     "FinalMLP": {**_BANK, r"(fs[12]_ctx_bias|w_xy)": "param", r"fs[12]_emb_\d+": "embed_or_dense",
                  **_mlp(r"(mlp[12]|fs[12]_gate)"), "w_[xy]": "dense"},
 }
+_GROUPS = {"fused_table": "embed", "float_.+": "dense"}
+_DIEN = {**_GROUPS, rf"gru/GRUCell_0/{_GRU}": "dense", "(attentionW|evolving_gru)": "param",
+         **_mlp("(fcn_net|aux_net)")}
+_ETA = {**_GROUPS, r"(short|long)_attention_\d+/W_[qkvo]": "dense", **_mlp("dnn"),
+        r"random_rotations_\d+": "constant"}
+_CONTEXT.update({
+    "DIN": {**_GROUPS, **_mlp("(att|dnn)_mlp_layers"), r"dnn_mlp_layers/dice_\d+": "param",
+            r"dnn_mlp_layers/dice_\d+/bn": "batch_norm"},
+    "DIEN": _DIEN,
+    "CAN": {**_DIEN, "item_embedding_induce": "embed"},
+    "ETA": _ETA,
+    "SDIM": _ETA,
+})
 _CONTEXT["DeepFM"] = _CONTEXT["WideDeep"]
 for _name, _mapping in _CONTEXT.items():
     FLAX_TO_TORCH[_name + "CTR"] = FLAX_TO_TORCH[_name + "TopK"] = _mapping
@@ -150,8 +166,8 @@ def _kind(model: str, module: str) -> str:
 
 def _torch_leaf(model: str, path) -> tuple:
     """(state_dict key, flax -> torch axes) of one flax leaf path."""
-    if len(path) == 1:  # a raw top-level parameter
-        if _kind(model, path[0]) != "param":
+    if len(path) == 1:  # a raw top-level parameter or constant
+        if _kind(model, path[0]) not in ("param", "constant"):
             raise KeyError(f"{model}: unmapped flax leaf {path[0]!r}")
         return path[0], None
     module = "/".join(path[:-1])
@@ -184,24 +200,27 @@ def _to_torch(tree: Mapping, model: str) -> Dict[str, torch.Tensor]:
 
 def from_flax_params(params: Mapping, model: str = "BPRMF") -> Dict[str, torch.Tensor]:
     """torch `state_dict` entries (float32) for `model` from its flax param
-    tree, or from its `batch_stats` tree (the BatchNorm running buffers).
-    A module or leaf that `FLAX_TO_TORCH[model]` does not know raises."""
+    tree, from its `batch_stats` tree (the BatchNorm running buffers), or
+    from the `constant` leaves of its `constants` tree. A module or leaf
+    that `FLAX_TO_TORCH[model]` does not know raises."""
     return _to_torch(params, model)
 
 
 def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
                    collection: str = "params") -> dict:
     """The inverse of `from_flax_params`: the nested flax tree (numpy
-    float32 leaves) of the `collection` ('params' or 'batch_stats') that a
-    torch `state_dict` holds, so a model trained here can be scored by the
-    JAX package. Entries of the other collection are left out."""
+    float32 leaves) of the `collection` ('params', 'batch_stats' or
+    'constants') that a torch `state_dict` holds, so a model trained here
+    can be scored by the JAX package. Entries of the other collections are
+    left out."""
     tree: dict = {}
     for key, value in state_dict.items():
         parts = key.split(".")
-        if len(parts) == 1:  # a raw top-level parameter
-            if _kind(model, key) != "param":
+        if len(parts) == 1:  # a raw top-level parameter or constant
+            kind = _kind(model, key)
+            if kind not in ("param", "constant"):
                 raise KeyError(f"{model}: unmapped torch parameter {key!r}")
-            if collection == "params":
+            if collection == ("params" if kind == "param" else "constants"):
                 tree[key] = value.detach().float().cpu().numpy().copy()
             continue
         path = _flax_module_path(parts[:-1])
@@ -215,7 +234,7 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
         if not match:
             raise KeyError(f"{model}: unmapped torch parameter {key!r}")
         flax_leaf, axes = match[0]
-        if (flax_leaf in _BATCH_STATS) != (collection == "batch_stats"):
+        if ("batch_stats" if flax_leaf in _BATCH_STATS else "params") != collection:
             continue
         arr = value.detach().float().cpu().numpy()
         node = tree

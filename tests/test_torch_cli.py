@@ -312,9 +312,10 @@ def test_default_log_and_model_paths_lie_inside_the_working_directory(data_root,
 def test_unported_model_name_raises_a_key_error_that_names_it():
     with pytest.raises(KeyError, match="CLRec"):
         registry.get_model("CLRec")
-    with pytest.raises(KeyError, match="DINCTR"):
-        registry.get_model("DIN", "CTR")
+    with pytest.raises(KeyError, match="SRGNNCTR"):
+        registry.get_model("SRGNN", "CTR")
     assert registry.get_model("BPRMF").registered_name == "BPRMF"
+    assert registry.get_model("DIN", "CTR").registered_name == "DINCTR"
     assert registry.get_runner("BaseRunner").__name__ == "BaseRunner"
     assert registry.get_reader("BaseReader").__name__ == "BaseReader"
 

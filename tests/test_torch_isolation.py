@@ -55,7 +55,10 @@ def test_importing_the_port_loads_no_jax_module():
             "rechorus_tpu_torch.tools.context_bands", "rechorus_tpu_torch.runners.impression",
             "rechorus_tpu_torch.models.reranker._loader", "rechorus_tpu_torch.models.reranker.prm",
             "rechorus_tpu_torch.models.reranker.setrank",
-            "rechorus_tpu_torch.models.reranker.mir"} <= set(result["imported"])
+            "rechorus_tpu_torch.models.reranker.mir",
+            "rechorus_tpu_torch.models.context_seq.din", "rechorus_tpu_torch.models.context_seq.dien",
+            "rechorus_tpu_torch.models.context_seq.can", "rechorus_tpu_torch.models.context_seq.eta",
+            "rechorus_tpu_torch.models.context_seq.sdim"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 
