@@ -67,13 +67,21 @@ shapes the main path gives it, and drives the port's main paths:
     profile), BPRMFImpression's logged export against
     ImpressionRunner.predict and its reload, a `--test_all 1` run (the
     catalog as the negative block, the top-100 export) and a
-    `--lazy_emb_adam 1` run (the Adam commit, then the plain commit, which
-    must end bit-equal); then the re-rankers PRM, SetRank and MIR in
+    `--lazy_emb_adam 1` run (each Adam commit held bit-equal to the plain
+    commit on the same inputs); then the re-rankers PRM, SetRank and MIR in
     General mode over the BPRMFImpression checkpoint and in Sequential
     mode over the SASRecImpression one (the log names the loaded ranker;
     floors and the chance level; the step profile), the frozen ranker
     bit-equal over training steps, `--tuneranker 1` moving it, and the
     `--test_all` error;
+  * the developing models CLRec, FourierTA, SRGNN and S3Rec (stage 1,
+    then stage 2 from its file) through the CLI on Grocery (dense Adam
+    over a floor above chance, `--test_all 1` with its peak memory and the
+    step profile, the lazy lane as the JAX CLI runs each: CLRec's commits
+    each bit-equal to the plain commit, SRGNN's and FourierTA's error,
+    S3Rec dense), then `python -m rechorus_tpu_torch.exp` in process over
+    two seeds and a `--profile` run's trace; every checkpoint the phases
+    write and reload is the JAX package's flax msgpack file;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
@@ -109,7 +117,9 @@ import torch
 
 import pandas as pd
 
+from rechorus_tpu_torch import exp as port_exp
 from rechorus_tpu_torch import main as port_main
+from rechorus_tpu_torch import weights
 from rechorus_tpu_torch.data import synthetic
 from rechorus_tpu_torch.data.batching import GeneralBatcher, get_batcher
 from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
@@ -129,6 +139,7 @@ from rechorus_tpu_torch.runners.base import BaseRunner
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
 from rechorus_tpu_torch.tools import context_bands as CB
 from rechorus_tpu_torch.tools import launch_path
+from rechorus_tpu_torch.utils import io as port_io
 from rechorus_tpu_torch.utils.rng import init_seed
 
 SEED = 2026
@@ -165,7 +176,7 @@ OFF_PATH = {"scatter_rows"}
 GROCERY = "Grocery_and_Gourmet_Food"
 GROCERY_EPOCHS, GROCERY_SHORT_EPOCHS = 10, 2
 N_INTERACTIONS, TRAIN_STEPS, WARM_STEPS = 2_000_000, 150, 10
-WINDOW_STEPS, WINDOW_ROUNDS = 50, 5   # interleaved timing windows of the training lanes
+WINDOW_STEPS, WINDOW_ROUNDS = 50, 3   # interleaved timing windows of the training lanes
 # Floors for the Grocery checks, from the JAX package run on a CPU with the
 # same command and epochs (its CLI, rechorus_tpu/main.py, with --model_name
 # BPRMF --emb_size 64 --lr 1e-3 --l2 1e-6 --batch_size 256 --epoch 10 and
@@ -182,7 +193,8 @@ LAZY_DEV_HR5_FLOOR = 0.19     # the lazy lane's 2-epoch run, sampled candidates,
 # floor of its run here (sampled candidates, dev split). The floors come
 # from the JAX package run on a CPU with the same command, epochs and
 # --random_seed 0, 1, 2 (its CLI, rechorus_tpu/main.py, --save_final_results
-# 0): SASRec 5 dense epochs 0.2732, 0.2725, 0.2748; SASRec --lazy_emb_adam 1
+# 0): SASRec 2 dense epochs 0.2676, 0.2682, 0.2668 (5 epochs until the time
+# limit cut them: 0.2732, 0.2725, 0.2748); SASRec --lazy_emb_adam 1
 # 2 epochs 0.2672, 0.2684, 0.2669; 2 dense epochs of GRU4Rec 0.2682, 0.2691,
 # 0.2730; NARM 0.2870, 0.3022, 0.3043; Caser 0.2613, 0.2674, 0.2904; FPMC
 # 0.2821, 0.2779, 0.2810. Each floor is the higher of the band's minimum
@@ -191,7 +203,7 @@ LAZY_DEV_HR5_FLOOR = 0.19     # the lazy lane's 2-epoch run, sampled candidates,
 # (chance on 100 candidates is 0.05).
 SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
     "SASRec": (["--emb_size", "64", "--num_layers", "1", "--num_heads", "1", "--lr", "1e-4",
-                "--l2", "1e-6", "--history_max", "20"], 5, 0.26),
+                "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
     "GRU4Rec": (["--emb_size", "64", "--hidden_size", "100", "--lr", "1e-3", "--l2", "1e-4",
                  "--history_max", "20"], 2, 0.25),
     "NARM": (["--emb_size", "64", "--hidden_size", "100", "--attention_size", "4", "--lr", "1e-3",
@@ -201,18 +213,19 @@ SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
     "FPMC": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
 }
 SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
-SEQ_TIMED_EPOCHS = 3            # bench.py:97-127 times five after one warm-up; three here (the time limit)
+SEQ_TIMED_EPOCHS = 2            # bench.py:97-127 times five after one warm-up; two here (the time limit)
 # 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
 SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
 # KDA: bench.py's kda lane flags (bench.py:58-60). Floors from the JAX
 # package run on a CPU with the same command and --random_seed 0, 1, 2
-# (its CLI, --save_final_results 0): dev HR@5 after 5 dense epochs 0.4643,
-# 0.4596, 0.4598; with --lazy_emb_adam 1 after 2 epochs 0.3410, 0.3483,
-# 0.3332; by SEQ_MODELS' rule (the higher of the band's minimum less four
-# widths and the minimum less 0.03, to 0.01).
+# (its CLI, --save_final_results 0): dev HR@5 after 2 dense epochs 0.3643,
+# 0.3635, 0.3473 (after 5, the dense run's epochs until the time limit
+# cut them: 0.4643, 0.4596, 0.4598); with --lazy_emb_adam 1 after 2 epochs
+# 0.3410, 0.3483, 0.3332; by SEQ_MODELS' rule (the higher of the band's
+# minimum less four widths and the minimum less 0.03, to 0.01).
 KDA_FLAGS = ["--emb_size", "64", "--include_attr", "1", "--freq_rand", "0", "--lr", "1e-3",
              "--l2", "1e-6", "--num_heads", "4", "--history_max", "20"]
-KDA_EPOCHS, KDA_DEV_HR5_FLOOR, KDA_LAZY_DEV_HR5_FLOOR = 5, 0.44, 0.30
+KDA_EPOCHS, KDA_DEV_HR5_FLOOR, KDA_LAZY_DEV_HR5_FLOOR = 2, 0.31, 0.30
 # The rest of the general family on Grocery with docs/benchmark_commands.md's
 # flags (:21-27, D = 64): model -> (flags, dense epochs, dev HR@5 floor,
 # --lazy_emb_adam floor or None (no lazy tables), commits per lazy step).
@@ -354,6 +367,36 @@ CTR_LONG_RUNS = {  # run: (model, flags)
 ETA_LONG_MIN, ETA_REF_LONG_MAX, ETA_LONG_GAP, SDIM_LONG_MIN = 0.60, 0.57, 0.05, 0.53
 JAX_LAZY_ERROR = ("--lazy_emb_adam: lazy_table_specs matched no param/feed keys for this model's "
                   "train feed; remove the flag or fix the model's lazy_table_specs()")
+# The developing models (CLRec, FourierTA, SRGNN, S3Rec in two stages) on
+# Grocery with the CLI defaults (D = 64, history 20) and the sequential
+# optimiser flags (context_bands.DEV_COMMON), context_bands.DEV_EPOCHS each;
+# run -> (model, flags, dev HR@5 floor, the --lazy_emb_adam 1 case: Adam
+# commits a step, "raises" (the JAX package's error at the first step) or
+# "dense" (no lazy table, a warning)). Floors by SEQ_MODELS' rule, rounded
+# down to 0.01, from the JAX package's CLI on a CPU at --random_seed 0, 1, 2
+# (python -m rechorus_tpu_torch.tools.context_bands --suite developing_grocery
+# --package rechorus_tpu --cpu), dev HR@5: CLRec 0.3500, 0.3488, 0.3513;
+# FourierTA 0.3204, 0.3176, 0.3183; SRGNN 0.3088, 0.3197, 0.3199; S3Rec stage
+# 2 0.3532, 0.3573, 0.3522. S3Rec's stage 1 pretrains (MIP and SP losses,
+# which must fall); its dev HR@5 scores the pretrained encoder as stage 2
+# would, and spreads over seeds more than three show: its floor comes by
+# the same rule from the JAX package's seeds 0-7 and 2026 (suite
+# s3rec_stage1_grocery): 0.1709, 0.1680, 0.1652, 0.1863, 0.1444, 0.1562,
+# 0.1624, 0.1640, 0.1582 (the port's on a CPU: 0.1801, 0.1894, 0.1633,
+# 0.1571, 0.1280, 0.1735, 0.1456, 0.1626, 0.1815). Each floor also clears a
+# random ranking's 5/100 by CHANCE_SDS standard deviations over the dev
+# rows. The lazy cases are what the JAX CLI does with these models on a CPU.
+DEV_RUNS = {
+    "CLRec": ("CLRec", [], 0.33, 1),
+    "FourierTA": ("FourierTA", [], 0.30, "raises"),
+    "SRGNN": ("SRGNN", ["--num_layers", "1"], 0.27, "raises"),
+    "S3Rec_stage1": ("S3Rec", ["--stage", "1"], 0.11, None),
+    "S3Rec_stage2": ("S3Rec", ["--stage", "2"], 0.33, "dense"),
+}
+# the full-catalog evaluation's eval batch: FourierTA's [256, 8714, 20, 64]
+# attention query is 11.4 GB, under the 40 GiB this phase allows it
+DEV_EVAL_BATCH = EVAL_BATCH
+DEV_PEAK_LIMIT = 40 << 30
 # the approx lane: its recall targets, and the runner's dense route at
 # 100,000 items (ids 0..100,000: 4096 x 100,001 scores are under
 # DENSE_APPROX_MAX_ELEMS); the kernel is held bit-equal at the bins these
@@ -1099,38 +1142,34 @@ def phase_train_1m(totals):
     return out
 
 
-def _evaluate_saved(model_path: str) -> list:
-    """CLI flags of a run that trains nothing and evaluates the weights a
-    dense run saved at `model_path` (the impression `--test_all 1` run,
-    whose export the CLI writes). --test_all changes only the dev and test
-    feeds, so training under it would repeat the dense run's epochs. Such
-    a run evaluates the test split twice (the log's "Test Before" and
-    "Test After Training") and the dev split once."""
-    return ["--load", "1", "--train", "0", "--model_path", model_path]
-
-
-def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False) -> dict:
+def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False, export: bool = False) -> dict:
     """The `--test_all 1` evaluation of the later phases: the stack the CLI
     builds from `argv` with `--test_all 1`, the weights a dense run saved
     at `model_path` (None: a model with none, POP), and one evaluation of
     the test split over the catalog, as the CLI's "Test After Training".
     Returns its seconds, launches, peak device memory and metrics; with
+    `export`, the CLI's export of the test split too (`save_rec_results`),
+    and the runner, state, test batcher and arrays under "stack"; with
     `profile`, then also the steady training step's profile on the same
     stack (its train feeds do not depend on --test_all), after WARM_STEPS
-    steps, as `_grocery_lane` takes it on a stack of its own."""
+    steps, as `_grocery_lane` takes it."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv + ["--test_all", "1"])
     init_seed(args.random_seed)
-    _, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
     state = runner.init_state(model, args.random_seed, batchers["train"])
     if model_path is not None:
         state = runner.load_model(state, model_path)
     with counted(totals) as c:
         test = runner.evaluate(state, batchers["test"], arrays["test"], "test", runner.topk, runner.metrics)
+        if export:
+            port_main.save_rec_results(args, corpus, runner, state, batchers, arrays)
     out = dict(seconds=time.perf_counter() - t, launches=c.launches,
                peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
+    if export:
+        out["stack"] = dict(runner=runner, state=state, batcher=batchers["test"], arrays=arrays["test"])
     if profile:
         runner.fit(state, batchers["train"], arrays["train"], 0, max_steps=WARM_STEPS)
         out["lane"] = dict(examples=len(batchers["train"]), batch=args.batch_size,
@@ -1139,21 +1178,35 @@ def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False) -
     return out
 
 
-def _grocery_lane(model_name: str, argv: list, timed_epochs: int) -> dict:
-    """A Grocery training lane as the CLI builds it: the step profile of
-    its steady step, after WARM_STEPS steps; with `timed_epochs`, first
-    its s/train-epoch as bench.py's Grocery lane measures it
-    (bench.py:97-127): one warm-up epoch, then `timed_epochs` epochs timed
-    one by one on the host clock, each ending in the read of its mean
-    loss (a device sync)."""
+def _cli_run(argv: list, stack: dict = None):
+    """One CLI run of `argv` through the parts of `main.main` that the
+    `exp` harness's in-process mode calls (parse_cli, init_logging,
+    build_stack, train_and_eval); returns the final TrainState. A `stack`
+    dict receives the run's runner, batchers, arrays and final state, for
+    `_grocery_lane`."""
     args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    port_io.init_logging(args.log_file, args.verbose)
+    port_main.set_dense_init(args.dense_init)
     init_seed(args.random_seed)
-    _, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
-    state = runner.init_state(model, args.random_seed)
+    corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    state, _ = port_main.train_and_eval(args, corpus, runner, model, batchers, arrays, args.random_seed)
+    if stack is not None:
+        stack.update(runner=runner, batchers=batchers, arrays=arrays, state=state)
+    return state
+
+
+def _grocery_lane(model_name: str, stack: dict, timed_epochs: int) -> dict:
+    """A Grocery training lane, going on from the trained state of a CLI
+    run's `stack` (`_cli_run`), whose epochs were its warm-up: the step
+    profile of its steady step, after WARM_STEPS more steps; with
+    `timed_epochs`, first its s/train-epoch as bench.py's Grocery lane
+    measures it (bench.py:97-127): `timed_epochs` epochs timed one by one
+    on the host clock, each ending in the read of its mean loss (a device
+    sync)."""
+    runner, batchers, arrays, state = (stack[k] for k in ("runner", "batchers", "arrays", "state"))
     lane = (runner, state, batchers["train"], arrays["train"])
-    out = dict(examples=len(batchers["train"]), batch=args.batch_size)
+    out = dict(examples=len(batchers["train"]), batch=runner.batch_size)
     if timed_epochs:
-        runner.fit(*lane[1:], 0)
         times = []
         for e in range(1, timed_epochs + 1):
             t = time.perf_counter()
@@ -1164,16 +1217,17 @@ def _grocery_lane(model_name: str, argv: list, timed_epochs: int) -> dict:
                               epochs=times)
     else:
         runner.fit(*lane[1:], 0, max_steps=WARM_STEPS)
-    out["step_profile"] = _step_profile(lane, args.batch_size)
+    out["step_profile"] = _step_profile(lane, runner.batch_size)
     return out
 
 
 def phase_train_grocery_seq(totals):
     """The sequential models through the CLI on the card, on the committed
     Grocery corpus: SASRec with bench.py's lane flags (dense Adam for
-    SEQ_MODELS' epochs with its dev HR@5 floor, bench.py's s/train-epoch,
-    a `--test_all 1` run (B1) and a `--lazy_emb_adam 1` run (the packed
-    lane's Adam commit on the item table, history ids included)), then
+    SEQ_MODELS' epochs with its dev HR@5 floor, bench.py's s/train-epoch
+    after them, `--test_all 1` on the saved weights (B1) and a
+    `--lazy_emb_adam 1` run (the packed lane's Adam commit on the item
+    table, history ids included)), then
     GRU4Rec, NARM, Caser and FPMC with their benchmark flags, 2 dense
     epochs each: the loss falls and dev HR@5 clears its floor. Every
     model's dense lane also gets its steady step's profile."""
@@ -1188,10 +1242,10 @@ def phase_train_grocery_seq(totals):
                     "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
                     "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
 
-        def run(name, tag, *extra, epochs):
+        def run(name, tag, *extra, epochs, stack=None):
             t = time.perf_counter()
             with counted(totals) as c:
-                port_main.build_parser_and_run(argv(name, tag, *extra, epochs=epochs))
+                _cli_run(argv(name, tag, *extra, epochs=epochs), stack)
             text = open(os.path.join(tmp, tag + ".log")).read()
             epochs_seen = _epoch_lines(text)
             check(len(epochs_seen) == epochs, f"{tag}: one log line per epoch")
@@ -1204,24 +1258,25 @@ def phase_train_grocery_seq(totals):
 
         # 1. SASRec, dense Adam
         flags, epochs, floor = SEQ_MODELS["SASRec"]
-        out["sasrec_dense"], _ = run("SASRec", "sasrec_dense", epochs=epochs)
+        stack = {}
+        out["sasrec_dense"], _ = run("SASRec", "sasrec_dense", epochs=epochs, stack=stack)
         check(out["sasrec_dense"]["dev"]["HR@5"] > floor,
               f"SASRec dev HR@5 {out['sasrec_dense']['dev']['HR@5']} above {floor}")
-        # 2. its s/train-epoch as bench.py measures it, and its step profile
-        out["sasrec_lane"] = _grocery_lane("SASRec", argv("SASRec", "timing", epochs=1),
-                                           SEQ_TIMED_EPOCHS)
-        # 3. --test_all 1: every evaluation ranks over the catalog through B1
+        # 2. its s/train-epoch as bench.py measures it (the dense run's epochs
+        # the warm-up), and its step profile
+        out["sasrec_lane"] = _grocery_lane("SASRec", stack, SEQ_TIMED_EPOCHS)
+        del stack
+        # 3. --test_all 1 on the dense run's weights: the catalog route ranks
+        # the test split through B1
         corpus = port_main.build_corpus(argparse.Namespace(path=os.path.join(tmp, "data"),
                                                            dataset=GROCERY, regenerate=0), SeqReader)
         n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("dev", "test")}
         n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
-        out["sasrec_test_all"], text = run("SASRec", "sasrec_test_all", "--test_all", "1",
-                                           epochs=GROCERY_SHORT_EPOCHS)
-        want = 2 * n_batch["test"] + (GROCERY_SHORT_EPOCHS + 1) * n_batch["dev"]
-        check(out["sasrec_test_all"]["launches"]["ge_count"] == want,
+        out["sasrec_test_all"] = _saved_catalog_eval(totals, argv("SASRec", "sasrec_test_all", epochs=1),
+                                                     os.path.join(tmp, "sasrec_dense.bin"))
+        check(out["sasrec_test_all"]["launches"]["ge_count"] == n_batch["test"],
               f"ge_count launches of the SASRec --test_all run: {out['sasrec_test_all']['launches']} "
-              f"!= {want}")
-        out["sasrec_test_all"]["test"] = _log_metrics(text, "Test After Training")
+              f"!= {n_batch['test']}")
         # 4. --lazy_emb_adam 1: one commit per step, on the item table
         out["sasrec_lazy"], _ = run("SASRec", "sasrec_lazy", "--lazy_emb_adam", "1",
                                     epochs=GROCERY_SHORT_EPOCHS)
@@ -1234,10 +1289,12 @@ def phase_train_grocery_seq(totals):
         # 5. the other sequential models, dense Adam
         for name in ("GRU4Rec", "NARM", "Caser", "FPMC"):
             _, epochs, floor = SEQ_MODELS[name]
-            out[name], _ = run(name, name, epochs=epochs)
+            stack = {}
+            out[name], _ = run(name, name, epochs=epochs, stack=stack)
             check(out[name]["dev"]["HR@5"] > floor,
                   f"{name} dev HR@5 {out[name]['dev']['HR@5']} above {floor}")
-            out[name]["lane"] = _grocery_lane(name, argv(name, "profile", epochs=1), 0)
+            out[name]["lane"] = _grocery_lane(name, stack, 0)
+            del stack
     emit("train_grocery_seq", floors={k: v[2] for k, v in SEQ_MODELS.items()},
          lazy_floor=SEQ_LAZY_DEV_HR5_FLOOR, rows=dict(train=n_train, **n_rows),
          seconds=round(time.perf_counter() - t0, 3), **out)
@@ -1443,12 +1500,12 @@ def phase_train_grocery_kda(totals):
                     "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
                     "--model_path", os.path.join(tmp, tag + ".bin"), "--save_final_results", "0", *extra]
 
-        def run(tag, *extra, epochs):
+        def run(tag, *extra, epochs, stack=None):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             with counted(totals) as c:
-                port_main.build_parser_and_run(argv(tag, *extra, epochs=epochs))
+                _cli_run(argv(tag, *extra, epochs=epochs), stack)
             text = open(os.path.join(tmp, tag + ".log")).read()
             seen = _epoch_lines(text)
             check(len(seen) == epochs, f"KDA {tag}: one log line per epoch")
@@ -1467,14 +1524,17 @@ def phase_train_grocery_kda(totals):
         corpus = port_main.build_corpus(rargs, reader_cls)
         reader_build_s = time.perf_counter() - t
         # 1. dense Adam, sampled evaluation
-        out["dense"] = run("kda_dense", epochs=KDA_EPOCHS)
+        stack = {}
+        out["dense"] = run("kda_dense", epochs=KDA_EPOCHS, stack=stack)
         check(out["dense"]["dev"]["HR@5"] > KDA_DEV_HR5_FLOOR,
               f"KDA dev HR@5 {out['dense']['dev']['HR@5']} above {KDA_DEV_HR5_FLOOR}")
         # 1b. the tiled route with the trained weights
         out["tiled_trained"] = _kda_trained_tiled(totals, argv(
             "kda_dense", "--test_all", "1", "--eval_candidate_chunk", str(KDA_TRAINED_CHUNK), epochs=1))
-        # 2. its s/train-epoch as bench.py measures it, and its step profile
-        out["lane"] = _grocery_lane("KDA", argv("timing", epochs=1), SEQ_TIMED_EPOCHS)
+        # 2. its s/train-epoch as bench.py measures it (the dense run's
+        # epochs the warm-up), and its step profile
+        out["lane"] = _grocery_lane("KDA", stack, SEQ_TIMED_EPOCHS)
+        del stack
         # 3. --test_all 1 on the dense run's weights: the dense route ranks
         # the test split through B1
         n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
@@ -1732,7 +1792,7 @@ def _stage_file_loaded(argv, path) -> int:
     init_seed(args.random_seed)
     _, runner, model, _, _ = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
     state = runner.init_state(model, args.random_seed)
-    saved = torch.load(path, map_location=runner.device)
+    saved = weights.read_checkpoint(path, state.model, runner.device)
     own = state.model.state_dict()
     shared = [k for k in saved if k in own]
     check(shared and all(torch.equal(own[k], saved[k]) for k in shared),
@@ -1767,12 +1827,12 @@ def phase_train_grocery_seq2(totals):
                     "--random_seed", str(SEED), "--log_file", os.path.join(tmp, tag + ".log"),
                     "--model_path", os.path.join(where, tag + ".bin"), "--save_final_results", "0", *extra]
 
-        def run(run_name, tag, *extra, epochs, where=tmp):
+        def run(run_name, tag, *extra, epochs, where=tmp, stack=None):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             with counted(totals) as c:
-                port_main.build_parser_and_run(argv(run_name, tag, *extra, epochs=epochs, where=where))
+                _cli_run(argv(run_name, tag, *extra, epochs=epochs, where=where), stack)
             text = open(os.path.join(tmp, tag + ".log")).read()
             seen = _epoch_lines(text)
             check(len(seen) == epochs, f"{tag}: one log line per epoch")
@@ -1808,7 +1868,8 @@ def phase_train_grocery_seq2(totals):
                               where=os.path.join(tmp, "empty"))
                 check("Train from scratch!" in text, "TiMiRec finetune without the extractor file")
             # 1. dense Adam, sampled evaluation
-            res["dense"], text = run(run_name, run_name, epochs=epochs)
+            stack = None if test_all else {}
+            res["dense"], text = run(run_name, run_name, epochs=epochs, stack=stack)
             hr5 = res["dense"]["dev"]["HR@5"]
             if floor is not None:
                 check(hr5 > floor, f"{run_name} dev HR@5 {hr5} above {floor}")
@@ -1827,7 +1888,7 @@ def phase_train_grocery_seq2(totals):
                 res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check", epochs=1), extractor)
             # 2. --test_all 1 on the dense run's weights: the test split
             # ranked over the catalog through B1; then the steady step's
-            # profile on that stack (on a stack of its own without one)
+            # profile on that stack (on the dense run's own without one)
             if test_all:
                 res["test_all"] = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
                                                       os.path.join(tmp, run_name + ".bin"), profile=True)
@@ -1837,7 +1898,8 @@ def phase_train_grocery_seq2(totals):
                       f"ge_count launches of the {run_name} --test_all run: "
                       f"{res['test_all']['launches']} != {want}")
             else:
-                res["lane"] = _grocery_lane(name, argv(run_name, "profile", epochs=1), 0)
+                res["lane"] = _grocery_lane(name, stack, 0)
+            del stack
             # 3. --lazy_emb_adam 1: one commit per lazy table per step
             if commits is not None:
                 res["lazy"], _ = run(run_name, run_name + "_lazy", "--lazy_emb_adam", "1", epochs=1)
@@ -1860,14 +1922,15 @@ def _context_losses(text: str) -> list:
     return [float(x) for x in re.findall(r"^Epoch \d+\s+loss=([0-9.naninf-]+) ", text, re.M)]
 
 
-def _context_run(totals, tmp, argv, tag):
+def _context_run(totals, tmp, argv, tag, stack: dict = None):
     """One CLI run of `argv` with its log at tmp/<tag>.log: (state, log
-    text, launches, seconds, peak device bytes)."""
+    text, launches, seconds, peak device bytes). A `stack` dict receives
+    the run's stack and final state (for `_grocery_lane`)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     with counted(totals) as c:
-        state = port_main.build_parser_and_run(argv + ["--log_file", os.path.join(tmp, tag + ".log")])
+        state = _cli_run(argv + ["--log_file", os.path.join(tmp, tag + ".log")], stack)
     return (state, open(os.path.join(tmp, tag + ".log")).read(), c.launches,
             time.perf_counter() - t, torch.cuda.max_memory_allocated())
 
@@ -1985,7 +2048,9 @@ def phase_train_ctr(totals):
         for name, floor in CONTEXT_CTR_FLOORS.items():
             res = out[name] = {}
             export = ["--save_final_results", "1" if name == "FM" else "0"]
-            state, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name, *export), name)
+            stack = {}
+            state, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name, *export), name,
+                                                             stack=stack)
             dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
             res["train"] = dict(seconds=secs, losses=_context_checked(text, CONTEXT_EPOCHS, name + "CTR"),
                                 dev=dev, test=test, launches=launches, peak_memory_bytes=peak,
@@ -1995,7 +2060,6 @@ def phase_train_ctr(totals):
                   and all(np.isfinite(v) for v in list(dev.values()) + list(test.values())),
                   f"{name}CTR: finite AUC, LOG_LOSS, ACC, F1: {dev} {test}")
             check(dev["AUC"] > floor, f"{name}CTR dev AUC {dev['AUC']} above {floor}")
-            res["lane"] = _grocery_lane(name + "CTR", argv(name, "profile", epochs=1), 0)
             if name == "FM":
                 # the export equals the runner's predictions on the trained weights
                 args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv(name, name, *export))
@@ -2013,7 +2077,8 @@ def phase_train_ctr(totals):
                 del runner, corpus, b
             if name == "DCN":
                 # the best epoch's BatchNorm statistics travel with the checkpoint
-                saved = torch.load(os.path.join(tmp, "DCN.bin"), map_location=state.model.offsets_t.device)
+                saved = weights.read_checkpoint(os.path.join(tmp, "DCN.bin"), state.model,
+                                                state.model.offsets_t.device)
                 stats = {k: v for k, v in saved.items() if k.endswith(("running_mean", "running_var"))}
                 check(stats and not any(torch.equal(v, torch.ones_like(v)) for k, v in stats.items()
                                         if k.endswith("running_var")), "DCNCTR saved moved BatchNorm statistics")
@@ -2027,6 +2092,10 @@ def phase_train_ctr(totals):
                       and _log_metrics(text2, "Test After Training") == test,
                       "DCNCTR reload reproduces the test metrics")
                 res["reload"] = dict(seconds=secs2, batch_norm_buffers=len(stats))
+            # the steady step's profile, on the run's stack (after the checks
+            # of its trained weights: the profile trains on)
+            res["lane"] = _grocery_lane(name + "CTR", stack, 0)
+            del stack
             del state
         # FMCTR with --lazy_emb_adam 1: no lazy tables, the dense optimizer
         _, text, launches, secs, _ = _context_run(
@@ -2068,8 +2137,7 @@ def phase_train_grocery_context_seq(totals):
             epochs = CB.SEQ_TOPK_EPOCHS.get(name, CONTEXT_EPOCHS)
             _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, name, epochs=epochs), name)
             dev = _log_metrics(text, "Dev  After Training")
-            n_dev = len(pd.read_csv(os.path.join(ROOT, "data", GROCERY, "dev.csv"), sep="\t"))
-            chance_bar = TOPK_CHANCE_HR5 + CHANCE_SDS * math.sqrt(TOPK_CHANCE_HR5 * (1 - TOPK_CHANCE_HR5) / n_dev)
+            chance_bar = _chance_bar()
             check(floor > chance_bar, f"{name}TopK floor {floor} above chance {chance_bar}")
             res["dense"] = dict(seconds=secs, losses=_context_checked(text, epochs, name),
                                 dev=dev, test=_log_metrics(text, "Test After Training"), peak_memory_bytes=peak,
@@ -2217,12 +2285,13 @@ def phase_train_impression(totals, tmp):
     requests, `_impression_quality`; the steady step's profile);
     BPRMFImpression's logged export against ImpressionRunner.predict on the
     trained weights and its reload (`--load 1 --train 0` reproduces the
-    test metrics); a `--test_all 1` run on those weights (neg_num = n_items
-    - 1 - #clicked on every row, as many valid catalog columns, the
-    export's 100 rec_items outside the clicked set); the `--lazy_emb_adam 1` run (two Adam commits
-    a step, the B4 kernel), then the same run with the plain commit, which
-    must end bit-equal. The BPR and SASRec runs' checkpoints are the
-    re-rank phase's first stages."""
+    test metrics); `--test_all 1` on those weights, one evaluation of the
+    test split and the CLI's export (neg_num = n_items - 1 - #clicked on
+    every row, as many valid catalog columns, the export's 100 rec_items
+    outside the clicked set); the `--lazy_emb_adam 1` run (two Adam commits
+    a step, the B4 kernel, each held bit-equal to the plain commit on the
+    same inputs). The BPR and SASRec runs' checkpoints are the re-rank
+    phase's first stages."""
     from rechorus_tpu_torch.runners.impression import ImpressionRunner
 
     t0 = time.perf_counter()
@@ -2249,7 +2318,9 @@ def phase_train_impression(totals, tmp):
         res = out[run] = {}
         epochs = CB.IMP_MODELS[run][2]
         export = ["--save_final_results", "1"] if run == "BPRMF" else []
-        state, text, launches, secs, peak = _context_run(totals, tmp, _imp_argv(tmp, run, run, *export), run)
+        stack = {}
+        state, text, launches, secs, peak = _context_run(totals, tmp, _imp_argv(tmp, run, run, *export), run,
+                                                         stack=stack)
         dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
         res["train"] = dict(seconds=secs, losses=_context_checked(text, epochs, run), dev=dev, test=test,
                             launches=launches, peak_memory_bytes=peak,
@@ -2258,7 +2329,6 @@ def phase_train_impression(totals, tmp):
         check(set(test) == {f"{m}@{k}" for m in ("NDCG", "HR", "MAP") for k in (1, 3, 5)}
               and all(np.isfinite(v) for v in test.values()), f"{run}: finite NDCG, HR, MAP @1,3,5")
         _impression_quality(run, dev["NDCG@3"], res["train"]["losses"][-1], floor, chance)
-        res["lane"] = _grocery_lane(run, _imp_argv(tmp, run, "profile", epochs=1), 0)
         if run == "BPRMF":
             # the logged export equals the runner's predictions on the trained weights
             args, model_cls, reader_cls, runner_cls = port_main.parse_cli(_imp_argv(tmp, run, run))
@@ -2282,18 +2352,18 @@ def phase_train_impression(totals, tmp):
             res["export"] = dict(rows=len(exp), equals_predict=True)
             res["reload"] = dict(seconds=secs2)
             del runner, b
-        del state
+        # the steady step's profile, on the run's stack (after the checks of
+        # its trained weights: the profile trains on)
+        res["lane"] = _grocery_lane(run, stack, 0)
+        del state, stack
     # --test_all 1 on the BPR run's weights: the negative block is the catalog
-    saved = _evaluate_saved(os.path.join(tmp, "BPRMF.bin"))
-    state, text, launches, secs, peak = _context_run(
-        totals, tmp, _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", "--save_final_results", "1", *saved,
-                               epochs=0), "test_all")
-    _context_checked(text, 0, "test_all")
-    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
-        _imp_argv(tmp, "BPRMF", "test_all", "--test_all", "1", *saved, epochs=0))
-    runner = runner_cls(args)
-    b = get_batcher(model_cls.batcher)(port_main.build_corpus(args, reader_cls), state.model, "test", args)
-    preds, pos_num, neg_num = runner.predict(state, b, b.device_arrays(runner.device), "test")
+    # (one evaluation of the test split and the export, on the stack the
+    # CLI builds)
+    cat = _saved_catalog_eval(totals, _imp_argv(tmp, "BPRMF", "test_all", epochs=0),
+                              os.path.join(tmp, "BPRMF.bin"), export=True)
+    check(all(np.isfinite(v) for v in cat["test"].values()), f"--test_all test metrics {cat['test']}")
+    runner, state, b, arr = cat.pop("stack").values()
+    preds, pos_num, neg_num = runner.predict(state, b, arr, "test")
     users = b.arrays["user_id"]
     check(preds.shape[1] == b.pos_len + n_items and np.array_equal(neg_num, n_items - 1 - clicked[users])
           and np.array_equal(np.isfinite(preds[:, b.pos_len:]).sum(1), neg_num),
@@ -2305,31 +2375,25 @@ def phase_train_impression(totals, tmp):
           and all(len(r) == 100 and 0 not in r for r in rec)
           and not any(set(r) & set(pos_clicked[u][pos_clicked[u] > 0].tolist()) for r, u in zip(rec, users)),
           "--test_all export: 100 rec_items a row, none clicked, no id 0")
-    out["test_all"] = dict(seconds=secs, launches=launches, peak_memory_bytes=peak, width=int(preds.shape[1]),
-                           test=_log_metrics(text, "Test After Training"), export_rows=len(exp))
-    del state, runner, b, preds
-    # --lazy_emb_adam 1: two commits a step; the plain commit ends bit-equal
+    out["test_all"] = dict(cat, width=int(preds.shape[1]), export_rows=len(exp))
+    del state, runner, b, arr, preds
+    # --lazy_emb_adam 1: two commits a step, each bit-equal to the plain
+    # commit on the same inputs
     lazy_epochs = CB.IMP_MODELS["BPRMF_lazy"][2]
-    state, text, launches, secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy"), "lazy")
-    dev = _log_metrics(text, "Dev  After Training")
-    lazy_losses = _context_checked(text, lazy_epochs, "lazy")
-    check(launches["adam_commit"] == 2 * steps * lazy_epochs,
-          f"BPRMFImpression lazy: adam_commit launches {launches} != 2 x {steps} x {lazy_epochs}")
-    _impression_quality("BPRMF_lazy", dev["NDCG@3"], lazy_losses[-1], IMP_FLOORS["BPRMF_lazy"], chance)
-    kernel_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
-    del state
-    kernel_commit, LA.adam_commit = LA.adam_commit, LA.adam_commit_plain
+    commits = {"n": 0}
+    kernel_commit, LA.adam_commit = LA.adam_commit, _plain_checked_commit(LA.adam_commit, commits)
     try:
-        state, _, plain_launches, plain_secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy_plain"),
-                                                               "lazy_plain")
+        state, text, launches, secs, _ = _context_run(totals, tmp, _imp_argv(tmp, "BPRMF_lazy", "lazy"), "lazy")
     finally:
         LA.adam_commit = kernel_commit
-    check(plain_launches["adam_commit"] == 0, "the plain-commit run launched no kernel")
-    check(all(torch.equal(v, kernel_sd[k]) for k, v in state.model.state_dict().items()),
-          "BPRMFImpression lazy: kernel commit and plain commit end bit-equal")
-    out["lazy"] = dict(seconds=secs, launches=launches, dev=dev, plain_seconds=plain_secs,
+    dev = _log_metrics(text, "Dev  After Training")
+    lazy_losses = _context_checked(text, lazy_epochs, "lazy")
+    check(launches["adam_commit"] == 2 * steps * lazy_epochs == commits["n"],
+          f"BPRMFImpression lazy: adam_commit launches {launches} != 2 x {steps} x {lazy_epochs}")
+    _impression_quality("BPRMF_lazy", dev["NDCG@3"], lazy_losses[-1], IMP_FLOORS["BPRMF_lazy"], chance)
+    out["lazy"] = dict(seconds=secs, launches=launches, dev=dev, commits_checked=commits["n"],
                        kernel_commit_equals_plain_commit=True, losses=lazy_losses)
-    del state, kernel_sd
+    del state
     emit("train_impression", corpus=CB.IMP_ML1M, generator_s=round(gen_s, 3), reader_s=round(reader_s, 3),
          rows=rows, flags={k: v[1] for k, v in CB.IMP_MODELS.items()}, epochs={k: v[2] for k, v in CB.IMP_MODELS.items()},
          common=CB.IMP_COMMON, floors=IMP_FLOORS, loss_bands=LOSS_BANDS,
@@ -2371,7 +2435,8 @@ def phase_train_rerank(totals, tmp, chance: dict):
         mode = "General" if run.endswith("General") else "Sequential"
         name = run[: -len(mode)]
         res = out[run] = {}
-        _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, mode, run), run)
+        stack = {}
+        _, text, launches, secs, peak = _context_run(totals, tmp, argv(name, mode, run), run, stack=stack)
         dev = _log_metrics(text, "Dev  After Training")
         ckpt = os.path.join(tmp, backbones[mode] + ".bin")
         check(f"Loaded frozen ranker from {ckpt}" in text, f"{run}: the log names the loaded ranker")
@@ -2379,9 +2444,10 @@ def phase_train_rerank(totals, tmp, chance: dict):
                             test=_log_metrics(text, "Test After Training"), launches=launches,
                             peak_memory_bytes=peak)
         _impression_quality(run, dev["NDCG@3"], res["train"]["losses"][-1], floor, chance)
-        res["lane"] = _grocery_lane(run, argv(name, mode, "profile", epochs=1), 0)
+        res["lane"] = _grocery_lane(run, stack, 0)
+        del stack
     # the frozen and the tuned lane of PRMGeneral, a few steps each
-    want = torch.load(os.path.join(tmp, "BPRMF.bin"), map_location="cuda")
+    want = weights.read_checkpoint(os.path.join(tmp, "BPRMF.bin"), "BPRMFImpression", "cuda")
     lanes = {}
     for tune in (0, 1):
         args, model_cls, reader_cls, runner_cls = port_main.parse_cli(
@@ -2414,6 +2480,184 @@ def phase_train_rerank(totals, tmp, chance: dict):
     emit("train_rerank", flags=CB.RERANKERS, common=CB.RERANK_COMMON, floors=RERANK_FLOORS,
          seconds=round(time.perf_counter() - t0, 3), **out)
     return out
+
+
+def _chance_bar() -> float:
+    """A random ranking's dev HR@5 over the target and 99 negatives, 5/100,
+    plus CHANCE_SDS standard deviations over Grocery's dev rows."""
+    n_dev = len(pd.read_csv(os.path.join(ROOT, "data", GROCERY, "dev.csv"), sep="\t"))
+    return TOPK_CHANCE_HR5 + CHANCE_SDS * math.sqrt(TOPK_CHANCE_HR5 * (1 - TOPK_CHANCE_HR5) / n_dev)
+
+
+def phase_train_grocery_developing(totals):
+    """The developing models through the CLI on the card, on the committed
+    Grocery corpus (DEV_RUNS): CLRec, FourierTA, SRGNN, then S3Rec's stage 1
+    and its stage 2, each for context_bands.DEV_EPOCHS dense epochs (the
+    loss falls, dev HR@5 over its floor, which clears chance); stage 1
+    writes Pre__<dataset>.bin beside --model_path and stage 2's log names
+    it, its weights equal to the file's. For every model but stage 1,
+    `--test_all 1` on the saved weights by the dense route (B1 over each
+    [eval batch, 8714] forward: one launch a test batch) with its peak
+    memory, and the steady step's profile on that stack. `--lazy_emb_adam
+    1` as the JAX CLI runs it: CLRec's item table through the B4 Adam
+    commit, each commit of the run held bit-equal to the plain commit on
+    the same inputs (a CLRec run is not reproducible bit for bit on the
+    card, so two whole runs cannot be compared); SRGNN and FourierTA raise
+    the JAX package's error with no commit; S3Rec trains dense. Then `python -m rechorus_tpu_torch.exp` in
+    process on a 1-epoch BPRMF command with 2 seeds (two parsed seed rows
+    and their mean row), and a 2-epoch BPRMF run with `--profile` (a Chrome
+    trace of epoch 2 that holds CUDA kernel events)."""
+    t0 = time.perf_counter()
+    out = {}
+    chance = _chance_bar()
+    with tempfile.TemporaryDirectory() as tmp:
+        _grocery_dir(tmp)
+
+        def argv(run_name, tag, *extra, epochs=CB.DEV_EPOCHS):
+            name, flags = DEV_RUNS[run_name][:2]
+            return ["--model_name", name, *CB.DEV_COMMON, *flags, "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(epochs), "--random_seed", str(SEED),
+                    "--eval_batch_size", str(DEV_EVAL_BATCH), "--model_path", os.path.join(tmp, tag + ".bin"),
+                    "--save_final_results", "0", *extra]
+
+        rargs, _, reader_cls, _ = port_main.parse_cli(argv("CLRec", "reader"))
+        corpus = port_main.build_corpus(rargs, reader_cls)
+        n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
+        del corpus
+        steps = -(-n_rows["train"] // EVAL_BATCH)
+        pre = os.path.join(tmp, f"Pre__{GROCERY}.bin")
+        for run_name, (name, _, floor, lazy) in DEV_RUNS.items():
+            res = out[run_name] = {}
+            check(floor >= chance, f"{run_name} floor {floor} at or above chance {chance}")
+            # 1. dense Adam, sampled evaluation
+            _, text, launches, secs, peak = _context_run(totals, tmp, argv(run_name, run_name), run_name)
+            dev = _log_metrics(text, "Dev  After Training")
+            res["dense"] = dict(seconds=secs, losses=_context_checked(text, CB.DEV_EPOCHS, run_name), dev=dev,
+                                test=_log_metrics(text, "Test After Training"), launches=launches,
+                                peak_memory_bytes=peak, epoch_s=[float(x) for x in re.findall(
+                                    r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev", text, re.M)])
+            check(dev["HR@5"] > floor, f"{run_name} dev HR@5 {dev['HR@5']} above {floor}")
+            if run_name == "S3Rec_stage1":
+                check(os.path.exists(pre), f"S3Rec stage 1 saved {pre}")
+                continue
+            if run_name == "S3Rec_stage2":
+                check("Load pretrained S3Rec from " + pre in text, "S3Rec stage 2 loads the stage-1 file")
+                res["loaded_tensors"] = _stage_file_loaded(argv(run_name, "check"), pre)
+            # 2. --test_all 1 on the dense run's weights, then the steady
+            # step's profile on that stack
+            cat = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
+                                      os.path.join(tmp, run_name + ".bin"), profile=True)
+            res["lane"] = cat.pop("lane")
+            want = -(-n_rows["test"] // DEV_EVAL_BATCH)
+            check(cat["launches"]["ge_count"] == want,
+                  f"ge_count launches of the {run_name} --test_all run: {cat['launches']} != {want}")
+            check(all(np.isfinite(v) for v in cat["test"].values()), f"{run_name} --test_all metrics {cat['test']}")
+            check(cat["peak_memory_bytes"] < DEV_PEAK_LIMIT,
+                  f"{run_name} --test_all peak {cat['peak_memory_bytes']} under {DEV_PEAK_LIMIT}")
+            res["test_all"] = dict(cat, route="dense", eval_batch=DEV_EVAL_BATCH)
+            # 3. --lazy_emb_adam 1, as the JAX CLI runs the model
+            lazy_argv = argv(run_name, run_name + "_lazy", "--lazy_emb_adam", "1", epochs=1)
+            if lazy == "raises":
+                with counted(totals) as c:
+                    try:
+                        port_main.build_parser_and_run(lazy_argv + ["--log_file", os.path.join(tmp, "lazy.log")])
+                    except ValueError as e:
+                        raised = str(e)
+                    else:
+                        raised = None
+                check(raised == JAX_LAZY_ERROR, f"{run_name} --lazy_emb_adam 1 raises the JAX error: {raised}")
+                check(c.launches["adam_commit"] == 0, f"{run_name} --lazy_emb_adam 1 commits nothing: {c.launches}")
+                res["lazy"] = dict(raised=raised, launches=c.launches)
+                continue
+            commits = {"n": 0}
+            kernel_commit, LA.adam_commit = LA.adam_commit, _plain_checked_commit(LA.adam_commit, commits)
+            try:
+                state, text, launches, secs, _ = _context_run(totals, tmp, lazy_argv, run_name + "_lazy")
+            finally:
+                LA.adam_commit = kernel_commit
+            losses = _context_checked(text, 1, run_name + "_lazy")
+            res["lazy"] = dict(seconds=secs, launches=launches, losses=losses,
+                               dev=_log_metrics(text, "Dev  After Training"))
+            if lazy == "dense":
+                check(f"--lazy_emb_adam: {name} declares no lazy tables; dense optimizer" in text
+                      and launches["adam_commit"] == 0, f"{run_name} --lazy_emb_adam 1 trains dense: {launches}")
+                continue
+            check(launches["adam_commit"] == lazy * steps == commits["n"],
+                  f"{run_name} lazy: adam_commit launches {launches} != {lazy} x {steps}")
+            res["lazy"].update(commits_checked=commits["n"], kernel_commit_equals_plain_commit=True)
+            del state
+        out["exp"] = _exp_two_seeds(totals, tmp)
+        out["profile"] = _profiled_run(totals, tmp)
+    emit("train_grocery_developing", flags={k: v[1] for k, v in DEV_RUNS.items()}, common=CB.DEV_COMMON,
+         epochs=CB.DEV_EPOCHS, floors={k: v[2] for k, v in DEV_RUNS.items()}, chance_bar=chance, rows=n_rows,
+         seconds=round(time.perf_counter() - t0, 3), **out)
+    return out
+
+
+def _plain_checked_commit(kernel, counter: dict):
+    """`adam_commit` that first runs the plain commit on copies of its
+    inputs, then the kernel, and checks the kernel's table (and moments)
+    bit-equal to the plain ones; counts its calls in counter["n"] (the
+    kernel's launches stay counted on the kernel's wrapper)."""
+    def commit(tx, bc1, bc2, decay, table, g, scatter, **kw):
+        copies = {k: v.clone() for k, v in kw.items() if k in ("mu", "nu")}
+        want = LA.adam_commit_plain(tx, bc1, bc2, decay, table.clone(), g, scatter, **{**kw, **copies})
+        kernel(tx, bc1, bc2, decay, table, g, scatter, **kw)
+        check(torch.equal(table, want) and all(torch.equal(kw[k], v) for k, v in copies.items()),
+              f"commit {counter['n']}: the kernel commit equals the plain commit")
+        counter["n"] += 1
+        return table
+    return commit
+
+
+def _bprmf_command(tmp, tag, epochs) -> list:
+    return ["--model_name", "BPRMF", "--emb_size", str(EMB), "--lr", "1e-3", "--l2", "1e-6",
+            "--dataset", GROCERY, "--path", os.path.join(tmp, "data"), "--epoch", str(epochs),
+            "--save_final_results", "0", "--log_file", os.path.join(tmp, tag + ".log"),
+            "--model_path", os.path.join(tmp, tag + ".bin")]
+
+
+def _exp_two_seeds(totals, tmp) -> dict:
+    """`python -m rechorus_tpu_torch.exp` in this process on a 1-epoch
+    BPRMF command over 2 seeds: two seed rows with parsed test metrics and
+    Best Iter, then their mean row."""
+    t = time.perf_counter()
+    cmd = "python -m rechorus_tpu_torch.main " + " ".join(_bprmf_command(tmp, "exp", 1))
+    with open(os.path.join(tmp, "run.sh"), "w") as f:
+        f.write(cmd + "\n")
+    with counted(totals) as c:
+        port_exp.main(["--log_dir", tmp, "--cmd_dir", tmp, "--in_f", "run.sh", "--out_f", "exp.csv",
+                       "--n", "2", "--inproc", "1"])
+    df = pd.read_csv(os.path.join(tmp, "exp.csv"))
+    seeds = df.iloc[:2]
+    check(len(df) == 6 and [int(float(x)) for x in seeds["Seed"]] == [0, 1]
+          and all("HR@5" in str(x) for x in seeds["Test"]) and all(float(x) == 1 for x in seeds["Best Iter"]),
+          f"exp: two seed rows: {df.iloc[:2].to_dict('records')}")
+    check(df.iloc[2]["Model"] == "BPRMF" and "HR@5" in str(df.iloc[2]["Test"]),
+          f"exp: the mean row: {df.iloc[2].to_dict()}")
+    return dict(seconds=time.perf_counter() - t, launches=c.launches,
+                rows=[{k: str(v) for k, v in r.items() if k != "Run CMD"} for r in df.iloc[:3].to_dict("records")])
+
+
+def _profiled_run(totals, tmp) -> dict:
+    """A 2-epoch BPRMF run with --profile: torch.profiler's Chrome trace of
+    epoch 2 in the directory, with CUDA kernel events, and the log line."""
+    trace_dir = os.path.join(tmp, "trace")
+    t = time.perf_counter()
+    with counted(totals) as c:
+        port_main.build_parser_and_run(_bprmf_command(tmp, "profile", 2) + ["--profile", trace_dir])
+    secs = time.perf_counter() - t
+    files = os.listdir(trace_dir)
+    check(files == ["epoch2.pt.trace.json"], f"--profile wrote one trace: {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "--profile: the trace holds CUDA kernel events")
+    check(f"Saved profiler trace to {trace_dir}" in open(os.path.join(tmp, "profile.log")).read(),
+          "--profile: the log names the trace directory")
+    return dict(seconds=secs, launches=c.launches, trace_bytes=os.path.getsize(path), events=len(events),
+                kernel_events=kernels)
 
 
 def phase_lightgcn_1m(totals, corpus):
@@ -2910,6 +3154,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         imp = phase_train_impression(totals, tmp)
         phase_train_rerank(totals, tmp, imp["chance"])
+    phase_train_grocery_developing(totals)
     phase_lightgcn_1m(totals, corpus_1m)
     del corpus_1m
     phase_train_windows()

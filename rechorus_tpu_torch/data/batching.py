@@ -1,5 +1,5 @@
 """Fixed-shape device-resident batch pipelines (port of
-rechorus_tpu/data/batching.py:26-38 and 83-1149).
+rechorus_tpu/data/batching.py:26-38 and 83-1232).
 
 The whole corpus becomes a dict of tensors placed on the runner's device
 once, and feeds are assembled by index gather there -- negative sampling
@@ -981,3 +981,101 @@ class ChorusBatcher(SLRCBatcher):
         feed = super().eval_feed(arrays, idx, cands)
         feed["category_id"] = arrays["_item2cate"][feed["item_id"]]
         return feed
+
+
+@register_batcher("seq_delta")
+class SeqDeltaBatcher(SequentialBatcher):
+    """Sequential feeds + the log-normalised age of each history item,
+    `history_delta_t` = max(log2((t - history_times) / t_scalar + 1e-6), 0)
+    in f32 (FourierTA's feeds; port of rechorus_tpu/data/batching.py:
+    1152-1171; reference FourierTA.Dataset + KDAReader.norm_time). The
+    same term as KDA's, within 2 ulp of the JAX package's on the CPU (its
+    XLA division may round differently)."""
+
+    def build(self):
+        super().build()
+        self.arrays["time"] = self._df["time"].to_numpy().astype(np.int64)
+
+    def _delta(self, feed, arrays, idx):
+        dt = (arrays["time"][idx][:, None] - feed["history_times"]).to(torch.float32)
+        feed["history_delta_t"] = torch.clamp_min(torch.log2(dt / self.model.t_scalar + 1e-6), 0.0)
+        return feed
+
+    def train_feed(self, arrays, idx, gen):
+        return self._delta(super().train_feed(arrays, idx, gen), arrays, idx)
+
+    def eval_feed(self, arrays, idx, cands=None):
+        return self._delta(super().eval_feed(arrays, idx, cands), arrays, idx)
+
+
+@register_batcher("s3rec")
+class S3RecBatcher(SequentialBatcher):
+    """S3Rec's stage-1 train rows are the user sequences cut into
+    history_max chunks, with the MIP masking and the SP segment sampling
+    drawn on the device from the step's generator (port of
+    rechorus_tpu/data/batching.py:1174-1232; reference S3Rec.Dataset,
+    S3Rec.py:117-183); stage 2 and every dev / test feed are plain
+    sequential."""
+
+    NEG_ROUNDS = 8
+
+    def build(self):
+        self.pre_train = self.model.stage == 1 and self.phase == "train"
+        if not self.pre_train:
+            super().build()
+            return
+        H = self.model.history_max
+        his = self.corpus.user_his
+        # users ascending, each user's items in its history order: the JAX
+        # package's walk over corpus.user_his
+        counts = np.diff(his.offsets)
+        items = his.flat[:, 0]
+        chunks = np.where(counts > 0, (counts - 1) // H + 1, 0)
+        user = np.repeat(np.arange(len(counts)), chunks)
+        k = np.arange(len(user)) - np.repeat(np.cumsum(chunks) - chunks, chunks)
+        start = his.offsets[user] + k * H
+        lens = np.minimum(H, counts[user] - k * H)
+        cols = np.arange(H)[None, :]
+        rows = np.where(cols < lens[:, None],
+                        items[np.minimum(start[:, None] + cols, max(len(items) - 1, 0))], 0)
+        self.n = len(rows)
+        self.arrays["item_seq"] = rows.astype(np.int32)
+        self.arrays["seq_len"] = lens.astype(np.int32)
+        self.arrays["long_seq"] = items.astype(np.int32)
+
+    def train_feed(self, arrays, idx, gen):
+        if not self.pre_train:
+            return super().train_feed(arrays, idx, gen)
+        seq, seq_len = arrays["item_seq"][idx], arrays["seq_len"][idx]      # [B, H], [B]
+        B, H = seq.shape
+        dev = seq.device
+        n_items = mask_token = self.corpus.n_items
+        pos = torch.arange(H, device=dev)[None, :]
+        valid = pos < seq_len[:, None]
+
+        # MIP: mask random valid positions; a negative appears nowhere in the row
+        mip_sel = (torch.rand((B, H), generator=gen, device=dev) < self.model.mask_ratio) & valid
+        mask_seq = torch.where(mip_sel, mask_token, seq)
+        cand = torch.randint(1, n_items, (self.NEG_ROUNDS + 1, B, H), generator=gen, device=dev)
+        neg = sampling.first_accepted(cand, (cand[..., None] == seq[None, :, None, :]).any(-1))
+        neg_item = torch.where(mip_sel, neg, seq)
+
+        # SP: mask a contiguous segment; the negative segment comes from the
+        # long stream of every user's items
+        half = torch.clamp_min(seq_len // 2, 1)
+        sample_len = 1 + torch.randint(0, 1 << 30, (B,), generator=gen, device=dev) % half
+        start = torch.randint(0, 1 << 30, (B,), generator=gen, device=dev) \
+            % torch.clamp_min(seq_len - sample_len, 1)
+        long_seq = arrays["long_seq"]
+        n_long = long_seq.shape[0]
+        neg_start = torch.randint(0, 1 << 30, (B,), generator=gen, device=dev) % max(n_long - H, 1)
+        in_span = (pos >= start[:, None]) & (pos < (start + sample_len)[:, None]) & valid
+        trivial = (seq_len < 2)[:, None]       # length < 2: keep copies (reference :151)
+        masked = in_span & ~trivial
+        mask_seg_seq = torch.where(masked, mask_token, seq)
+        pos_seg = torch.where(in_span | ~valid | trivial, seq, mask_token)
+        neg_gathered = long_seq[(neg_start[:, None] + (pos - start[:, None])).clamp(0, n_long - 1)]
+        neg_seg = torch.where(masked, neg_gathered, pos_seg)
+        return {"mask_seq": mask_seq, "pos_item": seq, "neg_item": neg_item,
+                "mask_seg_seq": mask_seg_seq, "pos_seg": pos_seg, "neg_seg": neg_seg,
+                "seq_len": seq_len, "batch_size": B}

@@ -301,6 +301,16 @@ class _ContextFields:
         """The feature matrix buffer `key` (e.g. 'item_cat'), or None."""
         return getattr(self, key, None)
 
+    def flax_constants(self) -> dict:
+        """The corpus's feature matrices as the JAX package's `constants`
+        collection holds them (int32 / float32), for its checkpoint file."""
+        out = {}
+        for key in ("user_cat", "user_float", "item_cat", "item_float"):
+            m = self._const(key)
+            if m is not None:
+                out[key] = m.cpu().numpy().astype("int32" if key.endswith("_cat") else "float32")
+        return out
+
     def init_group_embeddings(self, vec_size: int) -> None:
         """The modules of `group_embeddings`: one `fused_table` over every
         categorical vocabulary (ids included) and one bias-free Dense(1 ->

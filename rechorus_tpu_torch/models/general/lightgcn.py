@@ -98,6 +98,14 @@ class LightGCNBase:
                                  persistent=False)
         self._cache = (None, None)
 
+    def flax_constants(self) -> dict:
+        """The JAX package's `constants` collection (the symmetric edge
+        list, rows ascending), for its checkpoint file."""
+        offsets = self.row_offsets.cpu().numpy()
+        rows = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets)).astype(np.int32)
+        return {"rows": rows, "cols": self.edge_cols.cpu().numpy().astype(np.int32),
+                "vals": self.edge_vals.cpu().numpy()}
+
     @staticmethod
     def parse_model_args_base(parser):
         parser.add_argument("--emb_size", type=int, default=64, help="Size of embedding vectors.")

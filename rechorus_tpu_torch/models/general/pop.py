@@ -34,5 +34,9 @@ class POP(GeneralModel):
                                        minlength=corpus.n_items)
         return kw
 
+    def flax_constants(self) -> dict:
+        """The JAX package's `constants` collection, for its checkpoint file."""
+        return {"popularity": self.popularity.cpu().numpy()}
+
     def forward(self, feed, training: bool = False, gen=None):
         return {"prediction": self.popularity[feed["item_id"]]}

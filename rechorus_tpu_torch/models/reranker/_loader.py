@@ -3,10 +3,10 @@ built from the CLI args overlaid with its YAML config, and its checkpoint
 loaded (port of rechorus_tpu/models/reranker/_loader.py; reference
 src/models/BaseRerankerModel.py:40-66).
 
-The checkpoint is this package's own, `BaseRunner.save_model`'s state_dict
-file. A flax msgpack checkpoint of the JAX package is not read here
-(ROADMAP A11). As in the JAX package, a missing checkpoint only warns and
-leaves the ranker at its random initialisation.
+The checkpoint is read by `weights.read_checkpoint`: the flax msgpack file
+that `BaseRunner.save_model` of either package writes, or a state_dict
+file of this package. As in the JAX package, a missing checkpoint only
+warns and leaves the ranker at its random initialisation.
 
 As in the JAX package, the loaded ranker is NOT re-initialised afterwards:
 every reference re-ranker's __init__ ends with `self.apply(self.init_weights)`
@@ -21,6 +21,8 @@ import os
 
 import torch
 import yaml
+
+from rechorus_tpu_torch.weights import read_checkpoint
 
 
 def resolve_path(args, name: str) -> str:
@@ -57,12 +59,12 @@ def load_ranker(args, corpus, device):
     model_path = resolve_path(args, args.ranker_model_file)
     if os.path.isfile(model_path):
         try:
-            state = torch.load(model_path, map_location=device, weights_only=True)
+            state = read_checkpoint(model_path, ranker, device)
         except Exception as e:
             raise ValueError(
-                f"Ranker checkpoint {model_path} is not a state_dict file of this package "
-                "(BaseRunner.save_model); a flax msgpack checkpoint of the JAX package is "
-                "not read here (ROADMAP A11)") from e
+                f"Ranker checkpoint {model_path} is not a checkpoint of {ranker.registered_name}: "
+                "neither the flax msgpack file of BaseRunner.save_model (either package) nor a "
+                "state_dict file of this package") from e
         ranker.load_state_dict(state)
         logging.info("Loaded frozen ranker from %s", model_path)
     else:

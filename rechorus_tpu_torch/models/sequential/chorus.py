@@ -34,6 +34,7 @@ from torch import nn
 from rechorus_tpu_torch.models.base import SequentialModel, stage_path
 from rechorus_tpu_torch.ops import losses
 from rechorus_tpu_torch.registry import register_model
+from rechorus_tpu_torch.weights import read_checkpoint
 
 
 @register_model("Chorus")
@@ -157,8 +158,7 @@ class Chorus(SequentialModel):
             return
         if not os.path.exists(self.pretrain_path):
             raise ValueError('Pre-trained KG model does not exist, please run with "--stage 1"')
-        device = self.i_embeddings.device
-        self.load_state_dict(torch.load(self.pretrain_path, map_location=device))
+        self.load_state_dict(read_checkpoint(self.pretrain_path, self, self.i_embeddings.device))
         logging.info("Load KG model from " + self.pretrain_path)
 
     def lr_scales(self):

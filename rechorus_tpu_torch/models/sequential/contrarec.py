@@ -27,8 +27,8 @@ from torch import nn
 
 from rechorus_tpu_torch.models.base import SequentialModel, target_col
 from rechorus_tpu_torch.ops import losses
-from rechorus_tpu_torch.ops.layers import (Dense, MaskedGRU, TransformerLayer, _truncated_normal,
-                                           _zeros, embed)
+from rechorus_tpu_torch.ops.layers import (Dense, LayerNorm, MaskedGRU, TransformerLayer,
+                                           _truncated_normal, _zeros, dropout, embed)
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -40,23 +40,35 @@ def last_valid(seq, lengths):
 
 class BERT4RecEncoder(nn.Module):
     """Bidirectional transformer over the valid positions (reference
-    ContraRec.py:253-276): the state at lengths - 1."""
+    ContraRec.py:253-276): `forward` gives the state at lengths - 1,
+    `encode_all` every position, zero past the length (S3Rec's MIP head).
+    S3Rec's variant (`input_ln`) LayerNorms the position-added input and
+    drops it at `dropout` (reference S3Rec.py:186-205); ContraRec's and
+    CLRec's does not."""
 
-    def __init__(self, emb_size: int, max_his: int, num_layers: int = 2, num_heads: int = 2):
+    def __init__(self, emb_size: int, max_his: int, num_layers: int = 2, num_heads: int = 2,
+                 input_ln: bool = False, dropout: float = 0.0):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.input_ln, self.dropout = num_layers, input_ln, dropout
         self.p_embeddings = embed(max_his + 1, emb_size)
         for k in range(num_layers):
             self.add_module(f"trm_{k}", TransformerLayer(emb_size, emb_size, num_heads))
+        if input_ln:
+            self.layer_norm = LayerNorm(emb_size)
 
-    def forward(self, seq, lengths, training: bool = False, gen=None):
+    def encode_all(self, seq, lengths, training: bool = False, gen=None):
         L = seq.shape[1]
         valid = torch.arange(L, device=seq.device)[None, :] < lengths[:, None]
         seq = seq + self.p_embeddings(torch.arange(L, device=seq.device)[None, :] * valid)
+        if self.input_ln:
+            seq = dropout(self.layer_norm(seq), self.dropout, training, gen)
         mask = valid[:, None, None, :]
         for k in range(self.num_layers):
             seq = getattr(self, f"trm_{k}")(seq, mask=mask, training=training, gen=gen)
-        return last_valid(seq * valid[:, :, None], lengths)
+        return seq * valid[:, :, None]
+
+    def forward(self, seq, lengths, training: bool = False, gen=None):
+        return last_valid(self.encode_all(seq, lengths, training, gen), lengths)
 
 
 class GRUEncoder(nn.Module):

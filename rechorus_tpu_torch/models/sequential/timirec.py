@@ -34,6 +34,7 @@ from rechorus_tpu_torch.models.sequential.comirec import closest_interest, targe
 from rechorus_tpu_torch.ops import losses
 from rechorus_tpu_torch.ops.layers import Dense, MaskedGRU, TransformerLayer, dropout, embed
 from rechorus_tpu_torch.registry import register_model
+from rechorus_tpu_torch.weights import read_checkpoint
 
 
 class MultiInterestExtractor(nn.Module):
@@ -174,6 +175,6 @@ class TiMiRec(SequentialModel):
             logging.info("Train from scratch!")
             return
         own = self.state_dict()
-        saved = torch.load(self.extractor_path, map_location=next(self.parameters()).device)
+        saved = read_checkpoint(self.extractor_path, self, next(self.parameters()).device)
         self.load_state_dict({k: v for k, v in saved.items() if k in own}, strict=False)
         logging.info("Load extractor from " + self.extractor_path)

@@ -2,8 +2,8 @@
 rechorus_tpu/registry.py).
 
 A model file calls @register_model; readers and runners register the
-same way. `load_all` imports the modules the port has so far; a name it
-does not have yet raises a KeyError that says so.
+same way. `load_all` imports every model module; an unknown name raises a
+KeyError that names it.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ def register_runner(name: str):
 
 
 # Modules that contribute registrations; imported lazily so that importing
-# the package stays light. Only what the port has is listed.
+# the package stays light. They bind the readers too, so the JAX package's
+# `data/readers_all.py` shim has no counterpart here.
 _MODULES = [
     "rechorus_tpu_torch.data.readers",
     "rechorus_tpu_torch.runners.base",
@@ -85,6 +86,10 @@ _MODULES = [
     "rechorus_tpu_torch.models.reranker.prm",
     "rechorus_tpu_torch.models.reranker.setrank",
     "rechorus_tpu_torch.models.reranker.mir",
+    "rechorus_tpu_torch.models.developing.clrec",
+    "rechorus_tpu_torch.models.developing.fourierta",
+    "rechorus_tpu_torch.models.developing.srgnn",
+    "rechorus_tpu_torch.models.developing.s3rec",
 ]
 
 
@@ -96,7 +101,7 @@ def load_all():
 def _lookup(registry: Dict[str, type], kind: str, key: str):
     load_all()
     if key not in registry:
-        raise KeyError(f"Unknown {kind} '{key}': not ported yet or misspelled. "
+        raise KeyError(f"Unknown {kind} '{key}': misspelled or not a registered name. "
                        f"Registered: {sorted(registry)}")
     return registry[key]
 

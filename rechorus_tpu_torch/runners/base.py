@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from rechorus_tpu_torch import registry
+from rechorus_tpu_torch import registry, weights
 from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import layers as layers_ops
 from rechorus_tpu_torch.ops import metrics as metrics_ops
@@ -156,9 +156,8 @@ def device_of_gpu_flag(gpu: str) -> torch.device:
 _LATER_FLAGS = [
     ("data_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
     ("model_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
-    ("ckpt_format", "flax", "ROADMAP A11: sharded orbax checkpoints"),
+    ("ckpt_format", "flax", "ROADMAP A12: sharded orbax checkpoints, with parallel/"),
     ("host_shard_input", 0, "ROADMAP A12: parallel/ (host-sharded corpus loading)"),
-    ("profile", "", "ROADMAP A11: the training-epoch profiler trace"),
 ]
 
 
@@ -186,8 +185,9 @@ class BaseRunner:
         parser.add_argument("--metric", type=str, default="NDCG,HR", help="metrics: NDCG, HR")
         parser.add_argument("--main_metric", type=str, default="", help="Main metric to determine the best model.")
         parser.add_argument("--profile", type=str, default="",
-                            help="Directory for a profiler trace of one training epoch "
-                                 "(not ported yet: a non-empty value raises).")
+                            help="Directory for a torch.profiler trace (CPU and CUDA "
+                                 "activities, Chrome format) of the second training "
+                                 "epoch, the first steady one.")
         parser.add_argument("--scan_unroll", type=int, default=1,
                             help="Kept for CLI parity; an epoch is a Python loop here.")
         parser.add_argument("--approx_topk", type=int, default=0,
@@ -200,9 +200,11 @@ class BaseRunner:
         parser.add_argument("--ckpt_format", type=str, default="flax",
                             choices=["flax", "orbax"],
                             help="Checkpoint serialization, named as in the JAX "
-                                 "package. 'flax': the single-file lane, here "
-                                 "torch.save of the state_dict. 'orbax': sharded "
-                                 "checkpoint directory (not ported yet: it raises).")
+                                 "package. 'flax': one file, flax's msgpack of "
+                                 "{params, extra_vars}, which the JAX package reads "
+                                 "and writes too (a torch.save state_dict file also "
+                                 "loads). 'orbax': sharded checkpoint directory "
+                                 "(not ported yet: it raises).")
         parser.add_argument("--lazy_emb_adam", type=int, default=0,
                             help="Touched-rows-only Adam for embedding tables "
                                  "(tf LazyAdam / torch SparseAdam semantics). "
@@ -288,6 +290,7 @@ class BaseRunner:
             self.bf16_emb = False
         # process-global; models built after this point store their tables so
         layers_ops.set_table_dtype(torch.bfloat16 if self.bf16_emb else None)
+        self.profile_dir = getattr(args, "profile", "")
         self.time = None
         self._lazy_specs = {}
         self._tx = None
@@ -359,13 +362,16 @@ class BaseRunner:
         return TrainState(model=model, params=params, opt_state=tx.init(params), step=0)
 
     def save_model(self, state: TrainState, model_path: str = None):
+        """The JAX package's checkpoint file (`weights.write_checkpoint`)."""
         path = model_path or self.model_path
         utils.check_dir(path)
-        torch.save(state.model.state_dict(), path)
+        weights.write_checkpoint(state.model, path)
 
     def load_model(self, state: TrainState, model_path: str = None) -> TrainState:
+        """A flax checkpoint of either package, or a state_dict file
+        (`weights.read_checkpoint`)."""
         path = model_path or self.model_path
-        state.model.load_state_dict(torch.load(path, map_location=self.device))
+        state.model.load_state_dict(weights.read_checkpoint(path, state.model, self.device))
         return state
 
     # ------------------------------------------------------------------ #
@@ -521,6 +527,23 @@ class BaseRunner:
         finally:
             self._unpack(state)
         return float(loss_sum) / max(1, len(starts))
+
+    def _profiled_fit(self, state: TrainState, batcher, arrays, epoch: int) -> float:
+        """`fit` under torch.profiler (CPU and, on a card, CUDA activities);
+        the Chrome trace goes into `--profile`'s directory (the JAX package
+        traces the same epoch with jax.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            loss = self.fit(state, batcher, arrays, epoch)
+            self._sync()
+        prof.export_chrome_trace(os.path.join(self.profile_dir, f"epoch{epoch}.pt.trace.json"))
+        logging.info("Saved profiler trace to %s", self.profile_dir)
+        return loss
 
     # ------------------------------------------------------------------ #
     # evaluation
@@ -759,7 +782,10 @@ class BaseRunner:
         for epoch in range(self.epoch):
             self._check_time()
             try:
-                loss = self.fit(state, batchers["train"], arrays["train"], epoch + 1)
+                if self.profile_dir and epoch == 1:  # epoch 2: the first steady one
+                    loss = self._profiled_fit(state, batchers["train"], arrays["train"], epoch + 1)
+                else:
+                    loss = self.fit(state, batchers["train"], arrays["train"], epoch + 1)
                 self._sync()
             except KeyboardInterrupt:
                 # headless runs (CI, nohup) have no tty to ask: just stop

@@ -61,10 +61,25 @@ Suites (the flags are docs/benchmark_commands.md's, D = 64):
                 stop 5);
   rerank_parity the three re-rankers in General mode over a BPRMFImpression
                 backbone on SynthImpBig, with cross_parity's two-stage
-                flags (:200-240).
+                flags (:200-240);
+  imp_jax_init  per seed, BPRMFImpression (impression_ml1m's BPRMF run)
+                started from the JAX package's initial parameters: that
+                package's CLI writes them (one epoch at --lr 0, which moves
+                no parameter, saves the initial ones as the best epoch's
+                file), then --package's CLI loads the file (--load 1) and
+                trains the run's epochs;
+  developing_grocery  two epochs of CLRec, FourierTA and SRGNN, and of
+                S3Rec's stage 1 then its stage 2, on the committed Grocery
+                corpus with the CLI defaults (D = 64, history 20) and the
+                sequential models' optimiser flags of docs/
+                benchmark_commands.md (lr 1e-3, l2 1e-6);
+  s3rec_stage1_grocery  developing_grocery's S3Rec stage 1 alone (its dev
+                HR@5 scores the pretrained encoder), for a seed band wider
+                than three seeds.
 A two-stage suite runs its stages one after another in one directory per
 seed: the backbone's checkpoint and a YAML file of its model flags are the
-re-rankers' --ranker_model_file and --ranker_config_file.
+re-rankers' --ranker_model_file and --ranker_config_file; S3Rec's stage 2
+reads the Pre__<dataset>.bin its stage 1 wrote there.
 """
 from __future__ import annotations
 
@@ -72,6 +87,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -81,6 +97,7 @@ from concurrent.futures import ThreadPoolExecutor
 from rechorus_tpu_torch.data import synthetic
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+JAX_PACKAGE = "rechorus_tpu"     # the JAX package's CLI (run in a subprocess; never imported)
 GROCERY = "Grocery_and_Gourmet_Food"
 EPOCHS = 2          # of the topk_grocery and ctr_ml1m suites
 
@@ -237,6 +254,11 @@ IMP_PARITY_RUNS = {
                 "--l2", "1e-6"],
 }
 PARITY_RUN = ["--epoch", "30", "--early_stop", "5", "--num_workers", "0", "--save_final_results", "0"]
+# the developing models: no published command; the CLI defaults with the
+# sequential optimiser flags (docs/benchmark_commands.md:28, :35), two epochs
+DEV_COMMON = ["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"]
+DEV_EPOCHS = 2
+DEV_MODELS = {"CLRec": [], "FourierTA": [], "SRGNN": ["--num_layers", "1"]}
 
 
 def ranker_config(flags) -> str:
@@ -313,6 +335,21 @@ def suite_runs(suite: str):
                    f + ["--emb_size", "32"] + (["--history_max", "10"] if m == "MIR" else [])
                    + IMP_PARITY_METRICS + PARITY_RUN, "SynthImpBig", "BPRMF") for m, f in RERANKERS.items()]
         return [chain]
+    if suite == "imp_jax_init":
+        _, flags, epochs = IMP_MODELS["BPRMF"]
+        flags = flags + IMP_COMMON
+        return [[("init", "BPRMF", "Impression", flags + ["--epoch", "1", "--lr", "0"], "Imp_ML1M", None,
+                  JAX_PACKAGE),
+                 ("BPRMF", "BPRMF", "Impression", flags + ["--epoch", str(epochs), "--load", "1"],
+                  "Imp_ML1M", "init")]]
+    if suite == "developing_grocery":
+        epochs = ["--epoch", str(DEV_EPOCHS)]
+        runs = [(m, "", f + DEV_COMMON + epochs, GROCERY) for m, f in DEV_MODELS.items()]
+        return runs + [[(f"S3Rec_stage{k}", "S3Rec", "", DEV_COMMON + epochs + ["--stage", str(k)],
+                         GROCERY, None) for k in (1, 2)]]
+    if suite == "s3rec_stage1_grocery":
+        return [[("S3Rec_stage1", "S3Rec", "", DEV_COMMON + ["--epoch", str(DEV_EPOCHS), "--stage", "1"],
+                  GROCERY, None)]]
     raise ValueError(f"unknown suite {suite!r}")
 
 
@@ -369,20 +406,28 @@ def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str,
 def run_chain(package: str, work: str, chain, seed: int, cpu: bool) -> list:
     """A two-stage chain in one directory: each backbone run writes
     <run>.bin and <run>.yaml (its model flags), which the re-rankers that
-    name it load as their frozen ranker."""
+    name it load as their frozen ranker. A run with `--load 1` starts from
+    a copy of its backbone's <run>.bin instead; a run may name the package
+    whose CLI it runs (a seventh entry)."""
     run_dir = os.path.join(work, f"chain_{seed}")
     out = []
-    for run, model, mode, flags, dataset, backbone in chain:
-        if backbone is not None:
+    for run, model, mode, flags, dataset, backbone, *own in chain:
+        if backbone is not None and "--load" in flags:
+            os.makedirs(run_dir, exist_ok=True)
+            shutil.copyfile(os.path.join(run_dir, backbone + ".bin"), os.path.join(run_dir, run + ".bin"))
+        elif backbone is not None:
             flags = [*flags, "--ranker_name", backbone,
                      "--ranker_config_file", os.path.join(run_dir, backbone + ".yaml"),
                      "--ranker_model_file", os.path.join(run_dir, backbone + ".bin")]
-        res = run_one(package, work, model, mode, flags, dataset, seed, cpu, run_dir=run_dir, tag=run)
+        res = run_one(own[0] if own else package, work, model, mode, flags, dataset, seed, cpu,
+                      run_dir=run_dir, tag=run)
         text = open(os.path.join(run_dir, run + ".log")).read() if res["rc"] == 0 else ""
-        if backbone is None:
+        if model == "S3Rec":
+            res["pretrain_loaded"] = "Load pretrained S3Rec from" in text
+        elif backbone is None and not own:
             with open(os.path.join(run_dir, run + ".yaml"), "w") as f:
                 f.write(ranker_config(flags))
-        else:
+        elif backbone is not None and "--load" not in flags:
             res["ranker_loaded"] = "Loaded frozen ranker from" in text
         out.append(res)
     return out
@@ -393,7 +438,8 @@ def main(argv=None) -> int:
     parser.add_argument("--suite", required=True,
                         choices=["topk_grocery", "ctr_ml1m", "fm_parity", "seq_topk_grocery", "seq_ctr_ml1m",
                                  "context_seq_parity", "impression_ml1m", "rerank_ml1m",
-                                 "impression_parity", "rerank_parity"])
+                                 "impression_parity", "rerank_parity", "developing_grocery",
+                                 "imp_jax_init", "s3rec_stage1_grocery"])
     parser.add_argument("--seeds", default="0,1,2")
     parser.add_argument("--package", default="rechorus_tpu_torch", help="package whose main.py runs")
     parser.add_argument("--cpu", action="store_true", help="pass --gpu '' (the CPU)")
@@ -404,14 +450,14 @@ def main(argv=None) -> int:
     runs = suite_runs(opts.suite)
     with tempfile.TemporaryDirectory() as tmp:
         work = os.path.abspath(opts.work or tmp)
-        chained = opts.suite.startswith("rerank")
-        for ds in {r[4] for r in runs[0]} if chained else {r[3] for r in runs}:
+        for ds in {r[4] if isinstance(run, list) else r[3] for run in runs
+                   for r in (run if isinstance(run, list) else [run])}:
             make_corpus(os.path.join(work, "_corpora"), ds)
         jobs = [(r, s) for r in runs for s in seeds]
         results = []
 
         def do(job):
-            if chained:
+            if isinstance(job[0], list):
                 return run_chain(opts.package, work, job[0], job[1], opts.cpu)
             model, mode, flags, dataset, *run = job[0]
             tag = f"{run[0]}{mode}_{dataset}_{job[1]}" if run else ""

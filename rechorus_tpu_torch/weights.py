@@ -20,12 +20,20 @@ the kind of each module, which fixes how its leaves cross:
   constant    a top-level leaf of the flax `constants` collection that the
               torch model keeps as a persistent buffer of the same name
               (ETA's and SDIM's LSH rotations)
+  target      a top-level leaf of BUIR's `target` collection, a persistent
+              buffer of the same name here (the EMA tables)
 
 The torch module path is the flax one with '/' -> '.', flax's
 `GRUCell_0` -> `cell`, and a BiLSTM's `OptimizedLSTMCell_0` / `_1` (flax
 names the cells of its two `nn.RNN`s after the cell class) -> `fwd.cell` /
 `bwd.cell`. Every transform is a permutation of axes, so a
 round trip flax -> torch -> flax is exact.
+
+Checkpoints: `write_checkpoint` writes the file the JAX package's
+`BaseRunner.save_model` writes, flax's msgpack of {"params",
+"extra_vars"} (`flax_variables`), and `read_checkpoint` reads it, or a
+`torch.save` state_dict file (told apart by its zip magic), to
+state_dict entries. Every checkpoint read of the port goes through it.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from rechorus_tpu_torch.utils import flax_msgpack
+
 _GRU = r"(ir|iz|in|hr|hz|hn)"
 FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
     "BPRMF": {"u_embeddings": "embed", "i_embeddings": "embed"},
@@ -42,7 +52,7 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
     "NeuMF": {"(mf|mlp)_[ui]_embeddings": "embed", r"mlp_\d+": "dense", "prediction": "dense"},
     "DirectAU": {"u_embeddings": "embed", "i_embeddings": "embed"},
     "LightGCN": {"(user|item)_emb": "param"},
-    "BUIR": {"(user|item)_online": "embed", "predictor": "dense"},
+    "BUIR": {"(user|item)_online": "embed", "predictor": "dense", "(user|item)_target": "target"},
     "CFKG": {"e_embeddings": "embed", "r_embeddings": "embed"},
     "SASRec": {"i_embeddings": "embed", "p_embeddings": "embed",
                r"transformer_\d+/mha/[qkv]": "dense", r"transformer_\d+/ff[12]": "dense",
@@ -74,6 +84,16 @@ FLAX_TO_TORCH: Dict[str, Dict[str, str]] = {
                 "interest_extractor/transformer/ln[12]": "layer_norm",
                 rf"interest_predictor/rnn/GRUCell_0/{_GRU}": "dense", r"proj_(\d+|final)": "dense"},
 }
+_BERT4REC = {"i_embeddings": "embed", "encoder/p_embeddings": "embed",
+             r"encoder/trm_\d+/(mha/[qkv]|ff[12])": "dense", r"encoder/trm_\d+/ln[12]": "layer_norm"}
+FLAX_TO_TORCH.update({
+    "CLRec": _BERT4REC,
+    "S3Rec": {**_BERT4REC, "encoder/layer_norm": "layer_norm", "(mip|sp)_norm": "dense"},
+    "FourierTA": {"(user|item)_embeddings": "param", "item_bias": "param", "freq_(real|imag)": "param",
+                  "(A|A_out|W1|W2)": "dense", "layer_norm": "layer_norm"},
+    "SRGNN": {"i_embeddings": "param", "gnn": "param", "gnn/linear_edge_(in|out)": "dense",
+              "linear(1|2|3|_transform)": "dense"},
+})
 FLAX_TO_TORCH["ContraKDA"] = FLAX_TO_TORCH["KDA"]
 for _name in ("BPRMF", "LightGCN", "SASRec", "GRU4Rec"):
     FLAX_TO_TORCH[_name + "Impression"] = FLAX_TO_TORCH[_name]
@@ -147,6 +167,8 @@ _LEAVES = {
 }
 # flax leaves of the `batch_stats` collection; every other leaf is a param
 _BATCH_STATS = {"mean", "var"}
+# the flax collection of each top-level kind
+_TOP_LEVEL = {"param": "params", "constant": "constants", "target": "target"}
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -166,8 +188,8 @@ def _kind(model: str, module: str) -> str:
 
 def _torch_leaf(model: str, path) -> tuple:
     """(state_dict key, flax -> torch axes) of one flax leaf path."""
-    if len(path) == 1:  # a raw top-level parameter or constant
-        if _kind(model, path[0]) not in ("param", "constant"):
+    if len(path) == 1:  # a raw top-level parameter, constant or target
+        if _kind(model, path[0]) not in _TOP_LEVEL:
             raise KeyError(f"{model}: unmapped flax leaf {path[0]!r}")
         return path[0], None
     module = "/".join(path[:-1])
@@ -193,6 +215,8 @@ def _to_torch(tree: Mapping, model: str) -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in _leaves(tree):
         key, axes = _torch_leaf(model, path)
+        if isinstance(leaf, torch.Tensor):      # a bfloat16 leaf of a checkpoint
+            leaf = leaf.float().numpy()
         arr = np.array(leaf, dtype=np.float32)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr.transpose(axes) if axes else arr))
     return out
@@ -200,28 +224,45 @@ def _to_torch(tree: Mapping, model: str) -> Dict[str, torch.Tensor]:
 
 def from_flax_params(params: Mapping, model: str = "BPRMF") -> Dict[str, torch.Tensor]:
     """torch `state_dict` entries (float32) for `model` from its flax param
-    tree, from its `batch_stats` tree (the BatchNorm running buffers), or
-    from the `constant` leaves of its `constants` tree. A module or leaf
-    that `FLAX_TO_TORCH[model]` does not know raises."""
+    tree, from its `batch_stats` tree (the BatchNorm running buffers), from
+    the `constant` leaves of its `constants` tree or from BUIR's `target`
+    tree. A module or leaf that `FLAX_TO_TORCH[model]` does not know
+    raises."""
     return _to_torch(params, model)
 
 
+def _host(value: torch.Tensor, keep_dtype: bool):
+    """A tensor on the host: numpy float32, or with `keep_dtype` in its own
+    dtype (a bfloat16 one stays a torch tensor: numpy has no bfloat16)."""
+    t = value.detach().cpu()
+    if not keep_dtype:
+        t = t.float()
+    return t if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _transpose(arr, axes):
+    if isinstance(arr, torch.Tensor):
+        return arr.permute(*axes).contiguous()
+    return np.ascontiguousarray(arr.transpose(axes))
+
+
 def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
-                   collection: str = "params") -> dict:
-    """The inverse of `from_flax_params`: the nested flax tree (numpy
-    float32 leaves) of the `collection` ('params', 'batch_stats' or
-    'constants') that a torch `state_dict` holds, so a model trained here
-    can be scored by the JAX package. Entries of the other collections are
-    left out."""
+                   collection: str = "params", keep_dtype: bool = False) -> dict:
+    """The inverse of `from_flax_params`: the nested flax tree of the
+    `collection` ('params', 'batch_stats', 'constants' or 'target') that a
+    torch `state_dict` holds, so a model trained here can be scored by the
+    JAX package. Entries of the other collections are left out. Leaves are
+    numpy float32, or with `keep_dtype` in the tensor's dtype (bfloat16
+    tables as torch tensors)."""
     tree: dict = {}
     for key, value in state_dict.items():
         parts = key.split(".")
-        if len(parts) == 1:  # a raw top-level parameter or constant
+        if len(parts) == 1:  # a raw top-level parameter, constant or target
             kind = _kind(model, key)
-            if kind not in ("param", "constant"):
+            if kind not in _TOP_LEVEL:
                 raise KeyError(f"{model}: unmapped torch parameter {key!r}")
-            if collection == ("params" if kind == "param" else "constants"):
-                tree[key] = value.detach().float().cpu().numpy().copy()
+            if collection == _TOP_LEVEL[kind]:
+                tree[key] = _host(value, keep_dtype)
             continue
         path = _flax_module_path(parts[:-1])
         kind = _kind(model, "/".join(path))
@@ -236,11 +277,11 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
         flax_leaf, axes = match[0]
         if ("batch_stats" if flax_leaf in _BATCH_STATS else "params") != collection:
             continue
-        arr = value.detach().float().cpu().numpy()
+        arr = _host(value, keep_dtype)
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[flax_leaf] = np.ascontiguousarray(arr.transpose(np.argsort(axes)) if axes else arr)
+        node[flax_leaf] = _transpose(arr, tuple(np.argsort(axes))) if axes else arr
     return tree
 
 
@@ -252,3 +293,85 @@ def from_flax_opt_state(count, mu: Mapping, nu: Mapping, model: str = "BPRMF"):
     them into a `DenseOptState` (`slots["mu"]`, `slots["nu"]`) or a
     `LazyAdamState`."""
     return int(count), _to_torch(mu, model), _to_torch(nu, model)
+
+
+# ------------------------------------------------------------ checkpoints
+# the first bytes of a `torch.save` file (a zip archive)
+ZIP_MAGIC = b"PK\x03\x04"
+_EXTRA_COLLECTIONS = ("batch_stats", "constants", "target")
+
+
+def _sorted(tree):
+    """Maps with sorted keys, as the JAX package's trees (jax tree maps
+    sort dict keys) come out of its optimizer step."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def flax_variables(model) -> dict:
+    """{"params": ..., "extra_vars": {collection: tree}}: the tree the JAX
+    package's `save_model` writes for `model`'s registered class, every
+    leaf in the dtype its TrainState holds (f32, bfloat16 tables under
+    --bf16_emb, the corpus matrices' int32). The extra collections are the
+    ones the class has: `batch_stats`, `constants` (those of the
+    state_dict and the corpus-derived ones of the model's `flax_constants`)
+    and BUIR's `target`."""
+    name = model.registered_name
+    state = model.state_dict()
+    extra = {}
+    for collection in _EXTRA_COLLECTIONS:
+        tree = to_flax_params(state, name, collection, keep_dtype=True)
+        if collection == "constants":
+            tree.update(getattr(model, "flax_constants", dict)())
+        if tree:
+            extra[collection] = tree
+    return _sorted({"params": to_flax_params(state, name, "params", keep_dtype=True),
+                    "extra_vars": extra})
+
+
+def write_checkpoint(model, path: str) -> None:
+    """Write `flax_variables(model)` as flax's msgpack (the JAX package's
+    `--ckpt_format flax` file)."""
+    data = flax_msgpack.serialize(flax_variables(model))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def read_checkpoint(path: str, model, device=None) -> Dict[str, torch.Tensor]:
+    """state_dict entries of `model` (a module or its registered class
+    name) from a checkpoint file: a `torch.save` state_dict (the files this
+    package wrote before it wrote flax ones) or flax's msgpack of
+    {"params", "extra_vars"} (`write_checkpoint`'s and the JAX package's),
+    by the file's first bytes. A flax file gives every entry it holds, as
+    float32 (bfloat16 values exactly), except the `constants` a model
+    rebuilds from the corpus (its `flax_constants`); on `device` if given,
+    else on the CPU."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] == ZIP_MAGIC:
+        import io
+
+        return torch.load(io.BytesIO(data), map_location=device or "cpu", weights_only=True)
+    try:
+        tree = flax_msgpack.restore(data)
+        params = tree["params"]
+    except Exception as e:
+        raise ValueError(f"{path} is neither a torch state_dict file nor a flax msgpack "
+                         "checkpoint of {'params', 'extra_vars'}") from e
+    name = model if isinstance(model, str) else model.registered_name
+    out = from_flax_params(params, name)
+    for collection, sub in (tree.get("extra_vars") or {}).items():
+        if collection == "constants":
+            sub = {k: v for k, v in sub.items() if _kind_or_none(name, k) == "constant"}
+        elif collection not in _EXTRA_COLLECTIONS:
+            continue
+        out.update(from_flax_params(sub, name))
+    return {k: v.to(device) for k, v in out.items()} if device is not None else out
+
+
+def _kind_or_none(model: str, module: str):
+    try:
+        return _kind(model, module)
+    except KeyError:
+        return None

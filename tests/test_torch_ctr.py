@@ -274,7 +274,7 @@ def test_dcn_reload_reproduces_the_best_epoch_with_its_batch_stats(data_root, tm
     flags = ["--layers", "[16]", "--cross_layer_num", "2", "--metric", "AUC,LOG_LOSS",
              "--save_final_results", "0"]
     state, text = _run(data_root, tmp_path, "DCN", "CTR", *flags, tag="dcn")
-    saved = torch.load(tmp_path / "dcn.bin")
+    saved = weights.read_checkpoint(str(tmp_path / "dcn.bin"), state.model)
     assert {"deep_layers.bn_0.running_mean", "deep_layers.bn_0.running_var"} <= saved.keys()
     assert not torch.equal(saved["deep_layers.bn_0.running_var"], torch.ones(16))
     assert not any(k in saved for k in ("item_cat", "user_cat", "item_float"))

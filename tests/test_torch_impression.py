@@ -175,6 +175,28 @@ def test_evaluate_impression_equals_jax(ties):
         assert got[k] == want[k], k
 
 
+@pytest.mark.parametrize("topk", [[1, 3, 5], [1, 3, 5, 10, 20, 50], [2, 9, 17], [5, 100]])
+@pytest.mark.parametrize("ties", [False, True])
+def test_evaluate_impression_equals_jax_on_wide_rows(ties, topk):
+    """Full-catalog-like rows (20 positive slots, 700 negatives): the
+    metrics equal the JAX package's bit for bit, for top-k sets from one
+    column to past the row's positive slots."""
+    rng = np.random.default_rng(5)
+    B, P, N = 64, 20, 700
+    pred = rng.normal(size=(B, P + N)).astype(np.float32)
+    if ties:
+        pred = np.round(pred * 2) / 2
+    pos_num = rng.integers(1, P + 1, size=B)
+    neg_num = rng.integers(1, N + 1, size=B)
+    pred[:, :P][np.arange(P)[None, :] >= pos_num[:, None]] = -np.inf
+    pred[:, P:][np.arange(N)[None, :] >= neg_num[:, None]] = -np.inf
+    args = (pred, topk, ["NDCG", "HR", "MAP"], pos_num, neg_num, P)
+    got, want = metrics.evaluate_impression(*args), jmetrics.evaluate_impression(*args)
+    assert got.keys() == want.keys() and len(got) == 3 * len(topk)
+    for k in got:
+        assert got[k] == want[k], k
+
+
 @pytest.mark.parametrize("noise", [0.0, 0.3])
 def test_make_impression_dataset_writes_the_jax_files(tmp_path, noise):
     kw = dict(n_users=40, n_items=30, n_impressions=5, seed=4, noise=noise)

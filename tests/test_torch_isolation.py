@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of rechorus_tpu_torch
-(and chip_smoke.py) loads no jax, flax or rechorus_tpu module, and no
-source of theirs names one in an import or a `rechorus_tpu.` path."""
+(and chip_smoke.py) loads no jax, flax, msgpack or rechorus_tpu module,
+and no source of theirs names one in an import or a `rechorus_tpu.`
+path."""
 import json
 import pathlib
 import re
@@ -9,9 +10,9 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "rechorus_tpu_torch"
-FORBIDDEN_MODULE = re.compile(r"^(jax|jaxlib|flax|rechorus_tpu)(\.|$)")
+FORBIDDEN_MODULE = re.compile(r"^(jax|jaxlib|flax|msgpack|rechorus_tpu)(\.|$)")
 FORBIDDEN_SOURCE = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flax)\b|^\s*(import|from)\s+rechorus_tpu\b(?!_)"
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack)\b|^\s*(import|from)\s+rechorus_tpu\b(?!_)"
     r"|\brechorus_tpu\.", re.M)
 
 PROBE = """
@@ -58,7 +59,12 @@ def test_importing_the_port_loads_no_jax_module():
             "rechorus_tpu_torch.models.reranker.mir",
             "rechorus_tpu_torch.models.context_seq.din", "rechorus_tpu_torch.models.context_seq.dien",
             "rechorus_tpu_torch.models.context_seq.can", "rechorus_tpu_torch.models.context_seq.eta",
-            "rechorus_tpu_torch.models.context_seq.sdim"} <= set(result["imported"])
+            "rechorus_tpu_torch.models.context_seq.sdim",
+            "rechorus_tpu_torch.models.developing.clrec",
+            "rechorus_tpu_torch.models.developing.fourierta",
+            "rechorus_tpu_torch.models.developing.srgnn",
+            "rechorus_tpu_torch.models.developing.s3rec",
+            "rechorus_tpu_torch.exp", "rechorus_tpu_torch.utils.flax_msgpack"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 

@@ -5,8 +5,8 @@ the ranker's scores tie, u_v / i_v / his_v at 1e-5), PRM, SetRank (IMSAB
 and MSAB) and MIR in both modes forward at 1e-5 with the weights carried
 across (`weights.from_flax_params`), the ranker config overlay (the JAX
 package's, value for value), the checkpoint rules (the port's own
-state_dict file; a flax msgpack file names ROADMAP A11; a missing one
-warns), the frozen lane (ranker bit-identical over training) and the
+state_dict file and the JAX package's flax msgpack file load the same
+weights; a file of neither kind raises; a missing one warns), the frozen lane (ranker bit-identical over training) and the
 --tuneranker lane (the loaded ranker injected, then moved, with its own
 optimizer state), the JAX package's --test_all error word for word, and
 the two-stage recipe through the CLI with a learning test per re-ranker.
@@ -250,8 +250,17 @@ def test_checkpoint_rules(data_root, caplog):
     assert not ranker.training and not any(p.requires_grad for p in ranker.parameters())
     want = torch.load(files["BPRMF"][1])
     assert all(torch.equal(v, want[k]) for k, v in ranker.state_dict().items())
-    with pytest.raises(ValueError, match="flax msgpack checkpoint .*ROADMAP A11"):
-        _loader.load_ranker(argparse.Namespace(**{**vars(args), "ranker_model_file": files["BPRMF"][0]}),
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        from_flax = _loader.load_ranker(argparse.Namespace(**{**vars(args), "ranker_model_file":
+                                                              files["BPRMF"][0]}), corpus, torch.device("cpu"))
+    assert f"Loaded frozen ranker from {files['BPRMF'][0]}" in caplog.text
+    assert all(torch.equal(v, want[k]) for k, v in from_flax.state_dict().items())
+    bad = os.path.join(root, "bad.bin")
+    with open(bad, "wb") as f:
+        f.write(b"\x00not a checkpoint")
+    with pytest.raises(ValueError, match="not a checkpoint of BPRMFImpression"):
+        _loader.load_ranker(argparse.Namespace(**{**vars(args), "ranker_model_file": bad}),
                             corpus, torch.device("cpu"))
     caplog.clear()
     missing = argparse.Namespace(**{**vars(args), "ranker_model_file": os.path.join(root, "none.bin")})

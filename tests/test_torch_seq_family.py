@@ -667,9 +667,9 @@ def test_chorus_two_stages_through_the_cli(synth_root, tmp_path, caplog):
     pretrain = tmp_path / "Chorus" / "KG__SynthKG__emb_size=16__margin=1.0.bin"
     assert pretrain.exists() and not (tmp_path / "Chorus" / "x.bin").exists()
     assert len(re.findall(r"^Epoch \d+ .* \*$", text, re.M)) == 3     # saved every epoch
-    saved = torch.load(pretrain)
     state, text = _cli(synth_root, tmp_path, "Chorus", "loaded", *CHORUS, "--stage", "2",
                        "--train", "0", "--model_path", model_path)
+    saved = weights.read_checkpoint(str(pretrain), state.model)
     assert "Load KG model from " + str(pretrain) in text
     got = state.model.state_dict()
     assert got.keys() == saved.keys() and all(torch.equal(got[k], saved[k]) for k in got)
@@ -698,9 +698,9 @@ def test_timirec_two_stages_through_the_cli(synth_root, tmp_path):
                    "--epoch", "4", "--model_path", model_path)
     extractor = tmp_path / "TiMiRec" / "Extractor__SynthKG__7__emb_size=16__K=2__add_pos=1__add_trm=1.bin"
     assert extractor.exists()
-    saved = torch.load(extractor)
     state, text = _cli(synth_root, tmp_path, "TiMiRec", "loaded", *TIMIREC, "--stage", "finetune",
                        "--train", "0", "--model_path", model_path)
+    saved = weights.read_checkpoint(str(extractor), state.model)
     assert "Load extractor from " + str(extractor) in text and "Train from scratch!" not in text
     got = state.model.state_dict()
     assert saved.keys() < got.keys() and all(torch.equal(got[k], saved[k]) for k in saved)
