@@ -213,7 +213,7 @@ SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
     "FPMC": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
 }
 SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
-SEQ_TIMED_EPOCHS = 2            # bench.py:97-127 times five after one warm-up; two here (the time limit)
+SEQ_TIMED_EPOCHS = 1            # bench.py:97-127 times five after one warm-up; one here (the time limit)
 # 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
 SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
 # KDA: bench.py's kda lane flags (bench.py:58-60). Floors from the JAX
@@ -932,6 +932,7 @@ def phase_train_grocery(totals):
         check(launches["ge_count"] == 2 * n_eval + (GROCERY_SHORT_EPOCHS + 1) * n_dev,
               f"ge_count launches of the --test_all run: {launches}")
         out["test_all"] = dict(seconds=secs, launches=launches,
+                               dev=_log_metrics(text3, "Dev  After Training"),
                                test=_log_metrics(text3, "Test After Training"))
 
         # 4. --lazy_emb_adam 1: the packed lane commits through B4's Adam instance
@@ -950,7 +951,7 @@ def phase_train_grocery(totals):
     emit("train_grocery", epochs=GROCERY_EPOCHS, short_epochs=GROCERY_SHORT_EPOCHS,
          dev_hr5_floor=DEV_HR5_FLOOR, lazy_dev_hr5_floor=LAZY_DEV_HR5_FLOOR,
          seconds=round(time.perf_counter() - t0, 3), **out)
-    return trained.eval()
+    return trained.eval(), out["test_all"]
 
 
 def phase_grocery(model):
@@ -1142,11 +1143,40 @@ def phase_train_1m(totals):
     return out
 
 
-def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False, export: bool = False) -> dict:
+# The `--test_all 1` checks of the later phases rank the first this many
+# rows of the test split over the catalog, not all 14,681 (the time limit;
+# PERF.md §4): each batch is the same launch as in a whole evaluation.
+TEST_ALL_ROWS = 1024
+
+
+class _FirstRows:
+    """An evaluation batcher cut to its first `n` rows: the runner reads
+    its rows through `len` and `eval_feed`, everything else is the
+    batcher's."""
+
+    def __init__(self, batcher, n: int):
+        self._batcher, self._n = batcher, min(n, len(batcher))
+
+    def __len__(self):
+        return self._n
+
+    def __getattr__(self, name):
+        return getattr(self._batcher, name)
+
+
+def _test_all_batches(n_test: int, batch: int) -> int:
+    """Eval batches (B1 launches) of a `_saved_catalog_eval` of a test split
+    of `n_test` rows."""
+    return -(-min(n_test, TEST_ALL_ROWS) // batch)
+
+
+def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False, export: bool = False,
+                        rows: int = TEST_ALL_ROWS) -> dict:
     """The `--test_all 1` evaluation of the later phases: the stack the CLI
     builds from `argv` with `--test_all 1`, the weights a dense run saved
     at `model_path` (None: a model with none, POP), and one evaluation of
-    the test split over the catalog, as the CLI's "Test After Training".
+    the first `rows` rows of the test split over the catalog (None: all
+    of them), as the CLI's "Test After Training".
     Returns its seconds, launches, peak device memory and metrics; with
     `export`, the CLI's export of the test split too (`save_rec_results`),
     and the runner, state, test batcher and arrays under "stack"; with
@@ -1163,7 +1193,8 @@ def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False, e
     if model_path is not None:
         state = runner.load_model(state, model_path)
     with counted(totals) as c:
-        test = runner.evaluate(state, batchers["test"], arrays["test"], "test", runner.topk, runner.metrics)
+        test_b = batchers["test"] if rows is None else _FirstRows(batchers["test"], rows)
+        test = runner.evaluate(state, test_b, arrays["test"], "test", runner.topk, runner.metrics)
         if export:
             port_main.save_rec_results(args, corpus, runner, state, batchers, arrays)
     out = dict(seconds=time.perf_counter() - t, launches=c.launches,
@@ -1274,9 +1305,10 @@ def phase_train_grocery_seq(totals):
         n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
         out["sasrec_test_all"] = _saved_catalog_eval(totals, argv("SASRec", "sasrec_test_all", epochs=1),
                                                      os.path.join(tmp, "sasrec_dense.bin"))
-        check(out["sasrec_test_all"]["launches"]["ge_count"] == n_batch["test"],
+        want = _test_all_batches(n_rows["test"], EVAL_BATCH)
+        check(out["sasrec_test_all"]["launches"]["ge_count"] == want,
               f"ge_count launches of the SASRec --test_all run: {out['sasrec_test_all']['launches']} "
-              f"!= {n_batch['test']}")
+              f"!= {want}")
         # 4. --lazy_emb_adam 1: one commit per step, on the item table
         out["sasrec_lazy"], _ = run("SASRec", "sasrec_lazy", "--lazy_emb_adam", "1",
                                     epochs=GROCERY_SHORT_EPOCHS)
@@ -1541,7 +1573,7 @@ def phase_train_grocery_kda(totals):
         n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
         out["test_all"] = _saved_catalog_eval(totals, argv("kda_test_all", epochs=1),
                                               os.path.join(tmp, "kda_dense.bin"))
-        want = n_batch["test"]
+        want = _test_all_batches(n_rows["test"], EVAL_BATCH)
         check(out["test_all"]["launches"]["ge_count"] == want,
               f"ge_count launches of the KDA --test_all run: {out['test_all']['launches']} != {want}")
         # 4. --lazy_emb_adam 1: one commit per lazy table per step
@@ -1763,7 +1795,7 @@ def phase_train_grocery_general(totals):
                                                   os.path.join(tmp, name + ".bin") if epochs else None,
                                                   profile=True)
             res["lane"] = res["test_all"].pop("lane")
-            want = n_batch["test"]
+            want = _test_all_batches(rows["test"], EVAL_BATCH)
             check(res["test_all"]["launches"]["ge_count"] == want,
                   f"ge_count launches of the {name} --test_all run: {res['test_all']['launches']} "
                   f"!= {want}")
@@ -1893,7 +1925,7 @@ def phase_train_grocery_seq2(totals):
                 res["test_all"] = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
                                                       os.path.join(tmp, run_name + ".bin"), profile=True)
                 res["lane"] = res["test_all"].pop("lane")
-                want = n_batch["test"]
+                want = _test_all_batches(n_rows["test"], EVAL_BATCH)
                 check(res["test_all"]["launches"]["ge_count"] == want,
                       f"ge_count launches of the {run_name} --test_all run: "
                       f"{res['test_all']['launches']} != {want}")
@@ -1996,7 +2028,7 @@ def phase_train_grocery_context(totals):
                                       profile=True)
             res["lane"] = cat.pop("lane")
             launches = cat["launches"]
-            want = n_batch["test"]
+            want = _test_all_batches(rows["test"], CONTEXT_EVAL_BATCH)
             check(launches["ge_count"] == want,
                   f"ge_count launches of the {name}TopK --test_all run: {launches} != {want}")
             res["test_all"] = dict(cat, route="dense")
@@ -2151,7 +2183,7 @@ def phase_train_grocery_context_seq(totals):
             cat = _saved_catalog_eval(totals, cat_argv, os.path.join(tmp, name + ".bin"), profile=True)
             res["lane"] = cat.pop("lane")
             n_test = len(pd.read_csv(os.path.join(ROOT, "data", GROCERY, "test.csv"), sep="\t"))
-            want = -(-n_test // args.eval_batch_size)
+            want = _test_all_batches(n_test, args.eval_batch_size)
             check(cat["launches"]["ge_count"] == want,
                   f"ge_count launches of the {name}TopK --test_all run: {cat['launches']} != {want}")
             check(all(np.isfinite(v) for v in cat["test"].values()), f"{name}TopK --test_all metrics {cat['test']}")
@@ -2360,7 +2392,7 @@ def phase_train_impression(totals, tmp):
     # (one evaluation of the test split and the export, on the stack the
     # CLI builds)
     cat = _saved_catalog_eval(totals, _imp_argv(tmp, "BPRMF", "test_all", epochs=0),
-                              os.path.join(tmp, "BPRMF.bin"), export=True)
+                              os.path.join(tmp, "BPRMF.bin"), export=True, rows=None)
     check(all(np.isfinite(v) for v in cat["test"].values()), f"--test_all test metrics {cat['test']}")
     runner, state, b, arr = cat.pop("stack").values()
     preds, pos_num, neg_num = runner.predict(state, b, arr, "test")
@@ -2548,7 +2580,7 @@ def phase_train_grocery_developing(totals):
             cat = _saved_catalog_eval(totals, argv(run_name, "test_all", epochs=1),
                                       os.path.join(tmp, run_name + ".bin"), profile=True)
             res["lane"] = cat.pop("lane")
-            want = -(-n_rows["test"] // DEV_EVAL_BATCH)
+            want = _test_all_batches(n_rows["test"], DEV_EVAL_BATCH)
             check(cat["launches"]["ge_count"] == want,
                   f"ge_count launches of the {run_name} --test_all run: {cat['launches']} != {want}")
             check(all(np.isfinite(v) for v in cat["test"].values()), f"{run_name} --test_all metrics {cat['test']}")
@@ -2947,6 +2979,165 @@ def phase_catalog(gen):
     return idx, ut, it, users, target
 
 
+def phase_parallel(totals, plain_test_all: dict, ut, it, users, target):
+    """The scaling layer (rechorus_tpu_torch/parallel/) on the one card:
+
+    1. the flagship's `--test_all 1` command at GROCERY_SHORT_EPOCHS
+       through the multi-process start, a world of one NCCL rank at a
+       coordinator on 127.0.0.1, with the sharded checkpoint
+       (--ckpt_format orbax): its dev and test metrics equal the same
+       seed's run without the flags (phase_train_grocery's), and a reload
+       from the directory through the same start reproduces the test ones;
+    2. `--data_parallel 2` refused before anything is built;
+    3. the 1M serve shape (scripts/prod_bench.py's [4096, 64] users x
+       [1,000,001, 64] table: the catalog table and one more row)
+       row-sharded over a model axis of 4 (pad_rows with 4: 1,000,004 rows,
+       four blocks of 250,001 at their global offsets, n_valid masking the
+       three dead rows): each shard's top-100 (B2,
+       the bucket select, the rescore) and >=-count (B3 through
+       `tiled_ge_count`) on the card, merged by `merge_topk` and sums where
+       a mesh would call its collectives, held to the one-shard route and
+       to dense references; the 4-shard batch's ms beside the 1-shard one's
+       (four shards on one card, not a multi-GPU time)."""
+    import torch.distributed as dist
+
+    from rechorus_tpu_torch.parallel import distributed as D
+    from rechorus_tpu_torch.parallel import mesh as M
+    from rechorus_tpu_torch.parallel import topk as PT
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _grocery_dir(tmp)
+        model_path = os.path.join(tmp, "dist.bin")
+
+        def run(tag, *extra):
+            log = os.path.join(tmp, tag + ".log")
+            argv = ["--model_name", "BPRMF", "--emb_size", str(EMB), "--lr", "1e-3", "--l2", "1e-6",
+                    "--batch_size", str(EVAL_BATCH), "--dataset", GROCERY,
+                    "--path", os.path.join(tmp, "data"), "--epoch", str(GROCERY_SHORT_EPOCHS),
+                    "--random_seed", str(SEED), "--log_file", log, "--model_path", model_path,
+                    "--test_all", "1", "--ckpt_format", "orbax", "--dist_coordinator",
+                    f"127.0.0.1:{D.free_port()}", "--dist_num_processes", "1",
+                    "--dist_process_id", "0", *extra]
+            t = time.perf_counter()
+            with counted(totals) as c:
+                port_main.build_parser_and_run(argv)
+            check(not dist.is_initialized(), f"{tag}: main destroyed its process group")
+            return open(log).read(), c.launches, time.perf_counter() - t
+
+        # 1. the world of one, its sharded checkpoint, and the reload
+        text, launches, secs = run("dist")
+        m = re.search(r"torch\.distributed: backend (\w+), rank 0/(\d+)", text)
+        check(m is not None and m.group(1) == "nccl" and m.group(2) == "1",
+              f"a world of one NCCL rank: {m and m.groups()}")
+        dev, test = _log_metrics(text, "Dev  After Training"), _log_metrics(text, "Test After Training")
+        check(dev == plain_test_all["dev"] and test == plain_test_all["test"],
+              f"the world of one's metrics equal the plain run's: {dev} {test} vs {plain_test_all}")
+        check(launches["ge_count"] == plain_test_all["launches"]["ge_count"],
+              f"B1 launches as the plain run's: {launches}")
+        check(os.path.exists(os.path.join(model_path + ".orbax", ".metadata")),
+              "the sharded checkpoint directory was written")
+        text2, launches2, secs2 = run("reload", "--load", "1", "--train", "0", "--save_final_results", "0")
+        check(_log_metrics(text2, "Test Before Training") == test
+              and _log_metrics(text2, "Test After Training") == test,
+              "the reload from the sharded checkpoint reproduces the test metrics")
+        out["world_of_one"] = dict(backend=m.group(1), world=int(m.group(2)), seconds=round(secs, 3),
+                                   reload_seconds=round(secs2, 3), dev=dev, test=test,
+                                   launches=launches, reload_launches=launches2)
+
+        # 2. the refusal, before anything is built
+        log = os.path.join(tmp, "refused.log")
+        try:
+            port_main.build_parser_and_run(["--model_name", "BPRMF", "--dataset", GROCERY, "--path",
+                                            os.path.join(tmp, "data"), "--log_file", log,
+                                            "--data_parallel", "2"])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        want = f"mesh 2x1 needs 2 devices, have {torch.cuda.device_count()}"
+        check(refused == want, f"--data_parallel 2 refused: {refused!r}")
+        check("Reading data" not in open(log).read() and "Load corpus" not in open(log).read(),
+              "refused before the corpus is built")
+        out["refused"] = refused
+
+    # 3. the 1M serve shape over four row shards on the card
+    m_axis = 4
+    dev_ = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    clicked = torch.from_numpy(_clicked_matrix(rng)[users]).to(dev_)
+    cl_rank = torch.cat([target[:, None], clicked.to(target.dtype)], 1)
+    u = ut[torch.from_numpy(users).to(dev_)].contiguous()
+    extra = torch.randn(1, it.shape[1], generator=torch.Generator(device="cuda").manual_seed(SEED),
+                        device=dev_) * it.std()
+    it = torch.cat([it, extra])                       # 1,000,001 rows
+    n_valid = it.shape[0]
+    M.set_table_row_pad(m_axis)
+    try:
+        rows = M.pad_rows(n_valid)
+    finally:
+        M.set_table_row_pad(1)
+    padded = torch.cat([it, it.new_zeros(rows - n_valid, it.shape[1])])
+    n_local = rows // m_axis
+    shards = [padded[j * n_local: (j + 1) * n_local].contiguous() for j in range(m_axis)]
+    check(all(s.shape[0] >= PT.MIN_ROWS_FOR_TILED for s in shards), "every shard takes the tiled branch")
+
+    def four_shards():
+        parts = [PT.local_catalog_topk(u, s, TOPK, j * n_local, n_valid, clicked)
+                 for j, s in enumerate(shards)]
+        v, i = PT.merge_topk(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
+                             TOPK)
+        t = sum(PT.local_target_score(u, s, target, j * n_local) for j, s in enumerate(shards))
+        ge = sum(PT.local_ge_count(u, s, t, target, cl_rank, j * n_local, n_valid)
+                 for j, s in enumerate(shards))
+        return v, i, ge + 1
+
+    def one_shard():
+        v, i = TT.tiled_catalog_topk(u, it, TOPK, clicked_rows=clicked, n_valid=n_valid)
+        return v, i, TT.tiled_catalog_ranks(u, it, target, cl_rank, n_valid=n_valid)
+
+    with torch.no_grad():
+        with counted(totals) as c:
+            v4, i4, r4 = four_shards()
+        check(c.launches["fused_bucket_max"] == m_axis and c.launches["fused_ge_count"] == m_axis,
+              f"one B2 and one B3 launch a shard: {c.launches}")
+        v1, i1, r1 = one_shard()
+        check(torch.allclose(v4, v1, rtol=1e-5, atol=1e-9), "4-shard top-100 values = the 1-shard route's")
+        close = (v1[:, :, None] - v1[:, None, :]).abs() <= 1e-5 * v1[:, :, None].abs()
+        distinct = close.sum(-1) == 1
+        check(bool((i4[distinct] == i1[distinct]).all()), "4-shard ids = the 1-shard route's off ties")
+        check(bool((i4 < n_valid).all() & (i4 > 0).all()), "no dead padded row or id 0 served")
+        vs_one = (r4 - r1).abs()
+        # dense references on the checked users
+        chk = slice(0, N_CHECK)
+        s = u[chk] @ it.T
+        excl = torch.zeros_like(s, dtype=torch.bool)
+        excl[:, 0] = True
+        excl.scatter_(1, clicked[chk].long(), True)
+        ref_v, ref_i = torch.topk(s.masked_fill(excl, float("-inf")), TOPK, dim=1)
+        check(torch.allclose(v4[chk], ref_v, rtol=1e-5, atol=1e-9), "4-shard top-100 values = dense")
+        check(bool((i4[chk][distinct[chk]] == ref_i[distinct[chk]]).all()),
+              "4-shard top-100 ids = dense off ties")
+        ok = ~excl
+        ok.scatter_(1, target[chk, None].long(), False)     # the target's clicked copy
+        ts = s.gather(1, target[chk, None].long())
+        dense_rank = ((s >= ts) & ok).sum(1) + 1
+        s64 = u[chk].double() @ it.double().T
+        ties = near_ties(s64, ts[:, 0], ok)
+        diff = (r4[chk].long() - dense_rank).abs()
+        check(bool((diff <= ties).all()), "4-shard ranks = dense ranks within the near-tie rule")
+        check(bool((vs_one[chk] <= ties).all()) and bool(((r4 >= 1) & (r4 <= n_valid)).all()),
+              "4-shard ranks = the 1-shard route's within the near-tie rule")
+        del s, s64, ok, excl, close
+        ms4, ms1 = cuda_ms(four_shards, 5), cuda_ms(one_shard, 5)
+    out["sharded_1m"] = dict(model_axis=m_axis, rows=rows, shard_rows=n_local, batch=BATCH, k=TOPK,
+                             launches=c.launches, rank_diff_vs_1_shard=int(vs_one.max()),
+                             rank_max_abs_diff_dense=int(diff.max()),
+                             rank_near_ties=int(ties.sum()), ms_4_shards=round(ms4, 3),
+                             ms_1_shard=round(ms1, 3))
+    emit("parallel", seconds=round(time.perf_counter() - t0, 3), **out)
+
+
 def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
     """Kernel ms (CUDA events) beside bound, plain and one-call yardstick
     (the yardstick's device time too, so kernel and call compare device to
@@ -3138,7 +3329,7 @@ def main() -> int:
     # the main paths: each is driven with every count at 0 just before it
     # and read just after; `totals` adds them up
     totals = {}
-    g_model = phase_train_grocery(totals)
+    g_model, g_test_all = phase_train_grocery(totals)
     phase_train_1m(totals)
     phase_train_grocery_seq(totals)
     corpus_1m = phase_train_1m_seq(totals)
@@ -3164,6 +3355,7 @@ def main() -> int:
     check(all(serving.launches[k] > 0 for k in ("ge_count", "fused_bucket_max", "fused_ge_count")),
           f"the serving path ran B1-B3: {serving.launches}")
     phase_approx(totals, idx, ut, it, users)
+    phase_parallel(totals, g_test_all, ut, it, users, target)
     emit("main_path_launches", serving=serving.launches, all_paths=totals)
     check(all(n > 0 for k, n in totals.items() if k not in OFF_PATH),
           f"every kernel of the main paths ran: {totals}")

@@ -45,6 +45,51 @@ def get_batcher(name: str):
     return BATCHER_REGISTRY[name]
 
 
+class LazyRows:
+    """Deferred per-row array (port of rechorus_tpu/data/batching.py:41-83):
+    `build(lo, hi)` returns rows [lo, hi) as numpy. Under
+    `--host_shard_input` the history arrays stay in this form until
+    `BaseRunner.place_arrays`, which builds only this rank's 'data' row
+    block (a one-process run builds the whole range): a host's corpus
+    memory scales 1 / number of hosts."""
+
+    __slots__ = ("shape", "dtype", "build")
+
+    def __init__(self, shape, dtype, build):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.build = build
+
+    def __getitem__(self, key) -> np.ndarray:
+        # a contiguous [lo:hi] slice materializes the range (host-side
+        # precomputes such as SLRC's and Chorus's intervals stream row chunks)
+        if not (isinstance(key, slice) and key.step in (None, 1)):
+            raise TypeError("LazyRows supports only contiguous [lo:hi] slices")
+        lo, hi, _ = key.indices(self.shape[0])
+        return self.materialize(lo, hi)
+
+    def materialize(self, lo: int = 0, hi: int | None = None) -> np.ndarray:
+        """Rows [lo, hi); rows past the logical end (divisibility padding)
+        are zeros."""
+        hi = self.shape[0] if hi is None else hi
+        real_hi = min(hi, self.shape[0])
+        out = np.asarray(self.build(lo, real_hi), dtype=self.dtype)
+        if hi > real_hi:
+            out = np.concatenate([out, np.zeros((hi - real_hi,) + self.shape[1:], self.dtype)])
+        return out
+
+    def tensor(self, device, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+        return to_tensor(self.materialize(lo, hi), device)
+
+
+def to_tensor(v: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`; integer arrays widen to int64."""
+    t = torch.from_numpy(np.ascontiguousarray(v))
+    if not t.is_floating_point():
+        t = t.long()
+    return t.to(device)
+
+
 class Batcher:
     """Base: one instance per (corpus, phase)."""
 
@@ -65,14 +110,10 @@ class Batcher:
 
     def device_arrays(self, device) -> Dict[str, torch.Tensor]:
         """The host arrays as tensors on `device`; integer arrays widen to
-        int64 there."""
-        out = {}
-        for k, v in self.arrays.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if not t.is_floating_point():
-                t = t.long()
-            out[k] = t.to(device)
-        return out
+        int64 there. Deferred arrays (`LazyRows`) stay deferred for
+        `BaseRunner.place_arrays`."""
+        return {k: (v if isinstance(v, LazyRows) else to_tensor(v, device))
+                for k, v in self.arrays.items()}
 
     def train_feed(self, arrays, idx, gen):
         raise NotImplementedError
@@ -440,8 +481,9 @@ class ContextCTRBatcher(CTRBatcher):
 class SequentialBatcher(GeneralBatcher):
     """Adds history_items / history_times / lengths to every feed and keeps
     only the rows with position > 0. Parity: reference
-    SequentialModel.Dataset (BaseModel.py:226-245). The deferred
-    `--host_shard_input` arrays come with the sharded path (ROADMAP A12)."""
+    SequentialModel.Dataset (BaseModel.py:226-245). Under
+    `--host_shard_input` the three history arrays are `LazyRows`, each
+    row range built once for the three."""
 
     HISTORY_KEYS = ("history_items", "history_times", "lengths")
 
@@ -451,11 +493,27 @@ class SequentialBatcher(GeneralBatcher):
         return self._df
 
     def _extra_arrays(self, df) -> None:
-        if getattr(self.args, "host_shard_input", 0):
-            raise NotImplementedError("--host_shard_input: not ported yet "
-                                      "(ROADMAP A12: host-sharded corpus loading)")
-        his = self.corpus.history_arrays(df, self.model.history_max)
-        self.arrays.update(zip(self.HISTORY_KEYS, his))
+        H = self.model.history_max
+        if not getattr(self.args, "host_shard_input", 0):
+            self.arrays.update(zip(self.HISTORY_KEYS, self.corpus.history_arrays(df, H)))
+            return
+        cache = {}
+
+        def part(lo, hi, j):
+            # the three keys ask for the same ranges: build each once, and
+            # drop it after its third read
+            ent = cache.get((lo, hi))
+            if ent is None:
+                ent = cache[(lo, hi)] = [self.corpus.history_arrays(df.iloc[lo:hi], H), 0]
+            ent[1] += 1
+            if ent[1] >= 3:
+                cache.pop((lo, hi), None)
+            return ent[0][j]
+
+        n = len(df)
+        for j, (key, shape, dt) in enumerate(zip(self.HISTORY_KEYS, ((n, H), (n, H), (n,)),
+                                                 (np.int32, np.int64, np.int32))):
+            self.arrays[key] = LazyRows(shape, dt, lambda lo, hi, j=j: part(lo, hi, j))
 
     def _with_history(self, feed, arrays, idx):
         for k in self.HISTORY_KEYS:

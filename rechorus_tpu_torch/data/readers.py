@@ -754,8 +754,12 @@ class KDAReader(KGReader):
             out[relation] = np.concatenate(parts) if parts else np.empty(0, np.int64)
         self.interval_dict = out
         try:
-            with open(self.interval_file, "wb") as f:
+            # renamed into place: the ranks of a mesh build it at once, and
+            # none may read another's half-written file
+            tmp = "{}.{}.tmp".format(self.interval_file, os.getpid())
+            with open(tmp, "wb") as f:
                 pickle.dump(self.interval_dict, f)
+            os.replace(tmp, self.interval_file)
         except OSError:
             logging.warning("Could not cache interval.torch.pkl (read-only data dir?)")
 

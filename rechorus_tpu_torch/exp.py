@@ -53,9 +53,11 @@ def parse_args(argv=None):
 
 def run_inproc(cmd: str, seeds: List[int]) -> List[dict]:
     """All seeds of one command in this process: the stack is built once
-    (the seed only affects the init and the shuffling)."""
+    (the seed only affects the init and the shuffling). A mesh command
+    (--data_parallel / --model_parallel, --dist_coordinator) runs the seeds
+    on its ranks as `main` does; global rank 0's trailers come back."""
     from rechorus_tpu_torch import main as main_mod
-    from rechorus_tpu_torch.ops.layers import set_dense_init
+    from rechorus_tpu_torch.parallel import distributed as D
     from rechorus_tpu_torch.utils import io as utils
 
     tokens = shlex.split(cmd)
@@ -64,9 +66,34 @@ def run_inproc(cmd: str, seeds: List[int]) -> List[dict]:
         tokens.pop(0)
     args, model_cls, reader_cls, runner_cls = main_mod.parse_cli(tokens)
     utils.init_logging(args.log_file, args.verbose)
-    if getattr(args, "dist_coordinator", ""):
-        raise NotImplementedError("--dist_coordinator: multi-process runs are not ported "
-                                  "yet (ROADMAP A12: parallel/)")
+    p = D.start_plan(args)
+    if p is not None and p.local > 1:
+        import json
+        import tempfile
+
+        import torch
+        import torch.multiprocessing as mp
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "infos.json")
+            mp.spawn(_rank_seeds, nprocs=p.local, args=(p, torch.get_num_threads(), args, model_cls,
+                                                       reader_cls, runner_cls, seeds, out))
+            if not os.path.exists(out):   # another host's process holds rank 0
+                return []
+            with open(out) as f:
+                return json.load(f)
+    started = D.maybe_initialize(args)
+    try:
+        return _seeds(args, model_cls, reader_cls, runner_cls, seeds)
+    finally:
+        if started:
+            D.shutdown()
+
+
+def _seeds(args, model_cls, reader_cls, runner_cls, seeds: List[int]) -> List[dict]:
+    from rechorus_tpu_torch import main as main_mod
+    from rechorus_tpu_torch.ops.layers import set_dense_init
+
     set_dense_init(getattr(args, "dense_init", "reference"))
     stack = main_mod.build_stack(args, model_cls, reader_cls, runner_cls)
     infos = []
@@ -77,6 +104,24 @@ def run_inproc(cmd: str, seeds: List[int]) -> List[dict]:
               flush=True)
         infos.append(info)
     return infos
+
+
+def _rank_seeds(local_rank, p, threads, args, model_cls, reader_cls, runner_cls, seeds, out):
+    """One started rank of a mesh command: the seeds; global rank 0 writes
+    their trailers to `out`."""
+    import json
+
+    from rechorus_tpu_torch import main as main_mod
+    from rechorus_tpu_torch.parallel import distributed as D
+
+    main_mod.init_rank(p, local_rank, threads, args)
+    try:
+        infos = _seeds(args, model_cls, reader_cls, runner_cls, seeds)
+        if D.is_rank0():
+            with open(out, "w") as f:
+                json.dump(infos, f)
+    finally:
+        D.shutdown()
 
 
 def find_info(result: List[str]) -> dict:

@@ -10,6 +10,13 @@ parses. Class names resolve through explicit registries.
 `--gpu` selects the device as in the reference: the default '0' is CUDA
 device 0 and raises when there is none; `--gpu ''` runs on the CPU.
 
+A mesh (`--data_parallel dp --model_parallel mp`, dp * mp > 1) runs one
+process per mesh position: without `--dist_coordinator` this process
+starts the dp * mp ranks on this host (rank i on cuda:i, or on the CPU
+with `--gpu ''`); with it, one CLI per host starts its share
+(parallel/distributed.py). Global rank 0 writes the log, the model and
+the export; every rank runs the same program on its shard.
+
 Usage:
   python -m rechorus_tpu_torch.main --model_name BPRMF --emb_size 64 \
       --dataset Grocery_and_Gourmet_Food --path data/
@@ -28,6 +35,7 @@ from rechorus_tpu_torch import registry
 from rechorus_tpu_torch.data.batching import get_batcher
 from rechorus_tpu_torch.models.base import count_variables
 from rechorus_tpu_torch.ops.layers import set_dense_init
+from rechorus_tpu_torch.parallel import distributed as D
 from rechorus_tpu_torch.utils import io as utils
 from rechorus_tpu_torch.utils.rng import init_seed
 
@@ -37,13 +45,7 @@ def parse_global_args(parser):
                         help="CUDA device id; '' runs on the CPU.")
     parser.add_argument("--xla_cache_dir", type=str, default="",
                         help="Kept for CLI parity; nothing is compiled ahead of time here.")
-    parser.add_argument("--dist_coordinator", type=str, default="",
-                        help="host:port of process 0 (multi-process runs are "
-                             "not ported yet: a non-empty value raises).")
-    parser.add_argument("--dist_num_processes", type=int, default=0,
-                        help="Total processes in the job (with --dist_coordinator).")
-    parser.add_argument("--dist_process_id", type=int, default=-1,
-                        help="This process's id (with --dist_coordinator).")
+    D.parse_dist_args(parser)
     parser.add_argument("--verbose", type=int, default=logging.INFO, help="Logging Level, 0, 10, ..., 50")
     parser.add_argument("--log_file", type=str, default="", help="Logging file path (default: log/<model>/<run>.txt under the working directory)")
     parser.add_argument("--random_seed", type=int, default=0, help="Random seed of numpy and torch.")
@@ -75,8 +77,12 @@ def build_corpus(args, reader_cls):
     corpus = reader_cls(args)
     try:
         logging.info("Save corpus to {}".format(corpus_path))
-        with open(corpus_path, "wb") as f:
+        # through a file of its own, renamed into place: the ranks of a
+        # mesh build and save at once, and a reader never sees a half file
+        tmp = "{}.{}.tmp".format(corpus_path, os.getpid())
+        with open(tmp, "wb") as f:
             pickle.dump(corpus, f)
+        os.replace(tmp, corpus_path)
     except OSError:
         logging.warning("Could not cache corpus (read-only data dir?)")
     return corpus
@@ -142,7 +148,8 @@ def save_rec_results(args, corpus, runner, state, batchers, arrays, topk: int = 
             "rec_items": [list(map(int, r)) for r in items],
             "rec_predictions": [list(np.round(r, 4)) for r in scores],
         })
-    out.to_csv(result_path, sep=args.sep, index=False)
+    if D.is_rank0():  # every rank predicts (collectives); one writes
+        out.to_csv(result_path, sep=args.sep, index=False)
     logging.info("test Prediction results saved!")
 
 
@@ -158,7 +165,8 @@ def build_stack(args, model_cls, reader_cls, runner_cls):
     logging.info(model_cls.__name__)
     batcher_cls = get_batcher(model_cls.batcher)
     batchers = {phase: batcher_cls(corpus, model, phase, args) for phase in ["train", "dev", "test"]}
-    arrays = {phase: b.device_arrays(runner.device) for phase, b in batchers.items()}
+    arrays = {phase: runner.place_arrays(b.device_arrays(runner.device))
+              for phase, b in batchers.items()}
     return corpus, runner, model, batchers, arrays
 
 
@@ -190,6 +198,7 @@ def train_and_eval(args, corpus, runner, model, batchers, arrays, seed: int):
         save_rec_results(args, corpus, runner, state, batchers, arrays)
 
     model.actions_after_train()
+    runner.finalize_ckpt()
     info = {"Test": test_res.strip("()"), "Seed": str(seed), "Time": "%.1f" % (_now() - t0)}
     if getattr(runner, "last_best_epoch", None) is not None:
         info["Best Iter"] = str(runner.last_best_epoch)
@@ -202,16 +211,55 @@ def main(args, model_cls, reader_cls, runner_cls):
                "regenerate", "sep", "train", "verbose", "metric", "test_epoch", "buffer"]
     logging.info(utils.format_arg_str(args, exclude_lst=exclude))
 
-    if getattr(args, "dist_coordinator", ""):
-        raise NotImplementedError("--dist_coordinator: multi-process runs are not ported "
-                                  "yet (ROADMAP A12: parallel/)")
+    p = D.start_plan(args)     # refuses a mesh the devices cannot hold
+    if p is not None and p.local > 1:
+        import torch
+        import torch.multiprocessing as mp
+
+        mp.spawn(_rank_main, nprocs=p.local,
+                 args=(p, torch.get_num_threads(), args, model_cls, reader_cls, runner_cls))
+        logging.info(os.linesep + "-" * 45 + " END: " + utils.get_time() + " " + "-" * 45)
+        return None
+    started = D.maybe_initialize(args)   # before the corpus and the model
+    try:
+        state = _run(args, model_cls, reader_cls, runner_cls)
+    finally:
+        if started:
+            D.shutdown()
+    logging.info(os.linesep + "-" * 45 + " END: " + utils.get_time() + " " + "-" * 45)
+    return state
+
+
+def _run(args, model_cls, reader_cls, runner_cls):
     # process-global, read when the model's dense layers are built
     set_dense_init(getattr(args, "dense_init", "reference"))
     init_seed(args.random_seed)
     corpus, runner, model, batchers, arrays = build_stack(args, model_cls, reader_cls, runner_cls)
     state, _ = train_and_eval(args, corpus, runner, model, batchers, arrays, args.random_seed)
-    logging.info(os.linesep + "-" * 45 + " END: " + utils.get_time() + " " + "-" * 45)
     return state
+
+
+def init_rank(p, local_rank: int, threads: int, args) -> None:
+    """A started rank: its share of the starting process's `threads` CPU
+    threads, its logging (global rank 0 writes the log file; each host's
+    first rank logs to stdout, the others only warnings), then
+    init_process_group."""
+    import torch
+
+    torch.set_num_threads(max(1, threads // p.local))
+    rank = p.global_rank(local_rank)
+    utils.init_logging(args.log_file if rank == 0 else "",
+                       args.verbose if local_rank == 0 else logging.WARNING)
+    D.initialize(p, local_rank, args.gpu)
+
+
+def _rank_main(local_rank: int, p, threads: int, args, model_cls, reader_cls, runner_cls):
+    """One started rank of a mesh run (torch.multiprocessing.spawn)."""
+    init_rank(p, local_rank, threads, args)
+    try:
+        _run(args, model_cls, reader_cls, runner_cls)
+    finally:
+        D.shutdown()
 
 
 def parse_cli(argv=None):

@@ -25,6 +25,7 @@ from torch import nn
 
 from rechorus_tpu_torch.ops import losses
 from rechorus_tpu_torch.ops.layers import param_init
+from rechorus_tpu_torch.parallel.mesh import full_table, shard_of
 
 
 class BaseModel(nn.Module):
@@ -45,6 +46,15 @@ class BaseModel(nn.Module):
     supports_catalog: ClassVar[bool] = False
     catalog_table: ClassVar[tuple] = ("i_embeddings",)
     catalog_raw_table: ClassVar[bool] = True
+    # A loss that couples the rows of a batch (in-batch negatives, batch
+    # uniformity) is not the mean of per-row terms: on a mesh such a model
+    # trains every data rank on the whole batch instead of its slice
+    # (runners/base.py), as do models with BatchNorm (batch statistics).
+    batch_coupled: ClassVar[bool] = False
+    # How the training loss reduces the rows of a batch: "mean" or "sum" of
+    # per-row terms. A data-parallel step averages or sums the data ranks'
+    # gradients (and losses) by it.
+    loss_reduction: ClassVar[str] = "mean"
 
     @staticmethod
     def parse_model_args(parser):
@@ -87,14 +97,25 @@ class BaseModel(nn.Module):
             for name, p in mod.named_parameters(recurse=False):
                 p.copy_(param_init(mod, name)(p.shape, gen))
 
-    def catalog_item_table(self) -> torch.Tensor:
-        """The [N, d] f32 table the catalog protocol scores `u_v` against.
-        A bf16 table is cast here, once per call (bf16 -> f32 is exact):
-        the rank and top-k kernels take f32 tables."""
+    def catalog_item_table(self, local: bool = False) -> torch.Tensor:
+        """The [N, d] f32 table the catalog protocol scores `u_v` against
+        (gathered over 'model' when row-sharded), or with `local` this
+        rank's row block of it (the sharded catalog route). A bf16 table is
+        cast here, once per call (bf16 -> f32 is exact): the rank and top-k
+        kernels take f32 tables."""
         node = self
         for name in self.catalog_table:
             node = getattr(node, name)
-        return node.weight.detach().float().contiguous()
+        table = node.weight if local else full_table(node.weight)
+        return table.detach().float().contiguous()
+
+    def catalog_shard(self):
+        """The ShardInfo of the catalog table's rows on this rank when it
+        row-shards over 'model' (the sharded catalog route), else None."""
+        node = self
+        for name in self.catalog_table:
+            node = getattr(node, name, None)
+        return shard_of(getattr(node, "weight", None))
 
     def loss(self, out_dict: Dict[str, torch.Tensor], feed: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError

@@ -21,6 +21,7 @@ from rechorus_tpu_torch.models.base import ContextCTRModel, ContextModel
 from rechorus_tpu_torch.models.context._modes import ContextHead, fm_interaction
 from rechorus_tpu_torch.ops.feature_bank import FeatureEmbeddingBank
 from rechorus_tpu_torch.ops.layers import Dense, MLPBlock, _constant
+from rechorus_tpu_torch.parallel.mesh import full_table
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -104,7 +105,7 @@ class XDeepFMBase(ContextHead):
         for i in range(deep.n_hidden):
             reg = reg + torch.sqrt((getattr(deep, f"dense_{i}").weight ** 2).sum())
         reg = reg + torch.sqrt((deep.head.weight ** 2).sum())
-        lin = self.bank.fused_linear.weight
+        lin = full_table(self.bank.fused_linear.weight)
         offs = list(self.feature_offsets) + [self.total_vocab]
         for a, b in zip(offs[:-1], offs[1:]):
             reg = reg + torch.sqrt((lin[a:b] ** 2).sum())

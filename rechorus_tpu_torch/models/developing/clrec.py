@@ -26,6 +26,7 @@ from rechorus_tpu_torch.registry import register_model
 
 @register_model("CLRec")
 class CLRec(SequentialModel):
+    batch_coupled: ClassVar[bool] = True   # in-batch InfoNCE
     train_with_neg: ClassVar[bool] = False
     extra_log_args: ClassVar[list] = ["batch_size", "temp"]
 

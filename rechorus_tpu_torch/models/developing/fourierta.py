@@ -25,6 +25,7 @@ from torch import nn
 from rechorus_tpu_torch.models.base import SequentialModel
 from rechorus_tpu_torch.ops import losses
 from rechorus_tpu_torch.ops.layers import Dense, LayerNorm, dropout
+from rechorus_tpu_torch.parallel.mesh import take_rows
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -59,9 +60,9 @@ class FourierTA(SequentialModel):
 
     def forward(self, feed, training: bool = False, gen=None):
         items, history = feed["item_id"], feed["history_items"]
-        u_vectors = self.user_embeddings[feed["user_id"]]                  # [B, d]
-        i_vectors = self.item_embeddings[items]                            # [B, C, d]
-        his_vectors = self.item_embeddings[history]                        # [B, H, d]
+        u_vectors = take_rows(self.user_embeddings, feed["user_id"])                  # [B, d]
+        i_vectors = take_rows(self.item_embeddings, items)                           # [B, C, d]
+        his_vectors = take_rows(self.item_embeddings, history)                        # [B, H, d]
         valid = history > 0                                                # [B, H]
 
         # MLP target attention (FourierTA.py:110-115)

@@ -106,6 +106,11 @@ class S3Rec(SequentialModel):
         i_vectors = self.i_embeddings(feed["item_id"])
         return {"prediction": (his_vector[:, None, :] * i_vectors).sum(-1)}
 
+    @property
+    def loss_reduction(self) -> str:
+        # stage 1 sums its MIP and SP terms over the batch
+        return "sum" if self.stage == 1 else "mean"
+
     def loss(self, out_dict, feed):
         if self.stage == 1:
             mip = -torch.log(out_dict["mip_dis"].clamp(1e-7, 1.0))

@@ -28,6 +28,7 @@ from torch import nn
 
 from rechorus_tpu_torch.models.base import SequentialModel
 from rechorus_tpu_torch.ops.layers import Dense, _uniform
+from rechorus_tpu_torch.parallel.mesh import take_rows
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -125,7 +126,7 @@ class SRGNN(SequentialModel):
     def _rows(self, ids):
         """Item table rows with row 0 (padding_idx, reference :36) read as
         zeros: a functional zeroing, so row 0 gets no gradient."""
-        return torch.where(ids[..., None] > 0, self.i_embeddings[ids], 0.0)
+        return torch.where(ids[..., None] > 0, take_rows(self.i_embeddings, ids), 0.0)
 
     def forward(self, feed, training: bool = False, gen=None):
         history, lengths = feed["history_items"], feed["lengths"]

@@ -23,6 +23,7 @@ import torch
 
 from rechorus_tpu_torch.models.base import GeneralModel
 from rechorus_tpu_torch.ops.layers import Dense, _glorot_normal, _unit_normal, embed
+from rechorus_tpu_torch.parallel.mesh import pad_rows
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -44,8 +45,11 @@ class BUIR(GeneralModel):
         # reference init_weights: Linear weight xavier_normal, bias N(0, 1)
         self.predictor = Dense(emb_size, emb_size, kernel_init=_glorot_normal,
                                bias_init=_unit_normal)
-        self.register_buffer("user_target", torch.zeros(self.user_num, emb_size))
-        self.register_buffer("item_target", torch.zeros(self.item_num, emb_size))
+        # the targets are replicated (the JAX package's `target` collection
+        # is no parameter, so it never row-shards) at the online tables' rows
+        self.register_buffer("user_target", torch.zeros(pad_rows(self.user_num), emb_size))
+        self.register_buffer("item_target", torch.zeros(pad_rows(self.item_num), emb_size))
+        self.live_rows = {"user_target": self.user_num, "item_target": self.item_num}
 
     @staticmethod
     def parse_model_args(parser):
@@ -83,13 +87,13 @@ class BUIR(GeneralModel):
     def post_init_state(self) -> None:
         """The targets start as copies of the online tables (reference
         BUIR.py:50-56); the runner calls this after drawing the weights."""
-        self.user_target = self.user_online.weight.detach().clone()
-        self.item_target = self.item_online.weight.detach().clone()
+        self.user_target = self.user_online.full().detach().clone()
+        self.item_target = self.item_online.full().detach().clone()
 
     @torch.no_grad()
     def ema_update(self) -> None:
         """target <- target * m + online * (1 - m), in place."""
         m = self.momentum
-        for target, online in ((self.user_target, self.user_online.weight),
-                               (self.item_target, self.item_online.weight)):
+        for target, online in ((self.user_target, self.user_online.full()),
+                               (self.item_target, self.item_online.full())):
             target.mul_(m).add_(online * (1.0 - m))

@@ -21,6 +21,7 @@ from rechorus_tpu_torch.registry import register_model
 
 @register_model("DirectAU")
 class DirectAU(GeneralModel):
+    batch_coupled: ClassVar[bool] = True   # uniformity over the batch
     train_with_neg: ClassVar[bool] = False
     extra_log_args: ClassVar[list] = ["emb_size", "gamma"]
 

@@ -162,7 +162,7 @@ class LightGCN(GeneralModel, LightGCNBase):
         # whole table anyway
         return {}
 
-    def catalog_item_table(self) -> torch.Tensor:
+    def catalog_item_table(self, local: bool = False) -> torch.Tensor:
         return self._propagated()[1].detach().float().contiguous()
 
     def forward(self, feed, catalog: bool = False, training: bool = False, gen=None):

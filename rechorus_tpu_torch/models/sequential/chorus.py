@@ -33,6 +33,7 @@ from torch import nn
 
 from rechorus_tpu_torch.models.base import SequentialModel, stage_path
 from rechorus_tpu_torch.ops import losses
+from rechorus_tpu_torch.parallel.mesh import take_rows
 from rechorus_tpu_torch.registry import register_model
 from rechorus_tpu_torch.weights import read_checkpoint
 
@@ -103,14 +104,14 @@ class Chorus(SequentialModel):
 
     def forward(self, feed, training: bool = False, gen=None):
         if "head_id" in feed:  # a stage-1 KG batch
-            head = self.i_embeddings[feed["head_id"]]
-            tail = self.i_embeddings[feed["tail_id"]]
+            head = take_rows(self.i_embeddings, feed["head_id"])
+            tail = take_rows(self.i_embeddings, feed["tail_id"])
             relation = self.r_embeddings[feed["relation_id"]]
             return {"prediction": -((head + relation - tail) ** 2).sum(-1)}
         u_ids, i_ids, c_ids = feed["user_id"], feed["item_id"], feed["category_id"]
         r_interval = feed["relational_interval"]                           # [B, C, R]
-        u_vectors = self.u_embeddings[u_ids]
-        i_vectors = self.i_embeddings[i_ids]
+        u_vectors = take_rows(self.u_embeddings, u_ids)
+        i_vectors = take_rows(self.i_embeddings, i_ids)
         b = (self.betas[c_ids] + 1.0).clamp(1e-10, 10.0)
         s = (self.sigmas[c_ids] + 1.0).clamp(1e-10, 10.0)
         m = self.mus[c_ids] + 1.0

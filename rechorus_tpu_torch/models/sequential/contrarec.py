@@ -119,6 +119,7 @@ class CaserEncoder(nn.Module):
 
 @register_model("ContraRec")
 class ContraRec(SequentialModel):
+    batch_coupled: ClassVar[bool] = True   # in-batch contrast
     batcher: ClassVar[str] = "contra"
     extra_log_args: ClassVar[list] = ["gamma", "num_neg", "batch_size", "ctc_temp", "ccc_temp", "encoder"]
 

@@ -14,6 +14,7 @@ import torch
 
 from rechorus_tpu_torch.models.base import SequentialModel
 from rechorus_tpu_torch.ops.layers import embed
+from rechorus_tpu_torch.parallel.mesh import shard_of
 from rechorus_tpu_torch.registry import register_model
 
 
@@ -45,11 +46,16 @@ class FPMC(SequentialModel):
             "li_embeddings.weight": ("history_items",),
         }
 
-    def catalog_item_table(self) -> torch.Tensor:
+    def catalog_item_table(self, local: bool = False) -> torch.Tensor:
         """[N, 2D] = [iu | il] over all items: score = ui . iu[i] + li .
-        il[i] = [ui | li] . [iu | il][i] (the JAX model's `i_table`)."""
-        return torch.cat([self.iu_embeddings.weight.detach().float(),
-                          self.il_embeddings.weight.detach().float()], dim=1).contiguous()
+        il[i] = [ui | li] . [iu | il][i] (the JAX model's `i_table`). With
+        `local`, this rank's row block of it (both tables row-shard alike)."""
+        get = (lambda t: t.weight) if local else (lambda t: t.full())
+        return torch.cat([get(self.iu_embeddings).detach().float(),
+                          get(self.il_embeddings).detach().float()], dim=1).contiguous()
+
+    def catalog_shard(self):
+        return shard_of(self.iu_embeddings.weight)
 
     def forward(self, feed, catalog: bool = False, training: bool = False, gen=None):
         history, lengths = feed["history_items"], feed["lengths"]

@@ -217,6 +217,7 @@ class ContraKDA(KDA):
     conditioned on the true target, and pulled together by `infonce`."""
 
     batcher: ClassVar[str] = "contra_kda"
+    batch_coupled: ClassVar[bool] = True   # in-batch context-context contrast
     extra_log_args: ClassVar[list] = [
         "num_layers", "num_heads", "gamma", "contra_gamma", "ccc_temp", "freq_rand"]
 

@@ -28,6 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rechorus_tpu_torch.parallel.mesh import (full_table, masked_local_rows, pad_rows, shard_of,
+                                             sum_over)
+
 INIT_STD = 0.01
 
 
@@ -165,8 +168,32 @@ def dropout(x: torch.Tensor, rate: float, training: bool, gen: Optional[torch.Ge
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    if _BATCH_SLICE is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    else:
+        # a data-parallel step: draw the global batch's mask, keep our rows
+        parts, index = _BATCH_SLICE
+        b = x.shape[0]
+        keep = torch.rand((b * parts,) + tuple(x.shape[1:]), generator=gen,
+                          device=x.device)[index * b: (index + 1) * b] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# the data-parallel step's slice of the global batch, (parts, index), or
+# None: while set, dropout draws its mask at the global batch's shape and
+# keeps rows [index * b, (index + 1) * b), so a mesh run draws the masks a
+# one-process run draws
+_BATCH_SLICE = None
+
+
+@contextmanager
+def batch_slice(parts: int, index: int):
+    global _BATCH_SLICE
+    prev, _BATCH_SLICE = _BATCH_SLICE, ((parts, index) if parts > 1 else None)
+    try:
+        yield
+    finally:
+        _BATCH_SLICE = prev
 
 
 class BatchNorm(nn.Module):
@@ -346,8 +373,19 @@ class TableEmbed(nn.Module):
         out_dtype = torch.float32 if table.dtype in (torch.bfloat16, torch.float16) \
             else table.dtype
         entry = _SPARSE_LOOKUP.get(id(table)) if _SPARSE_LOOKUP else None
+        info = shard_of(table)
+        if info is None:
+            return self._lookup(inputs, table, entry).to(out_dtype)
+        # row-sharded over 'model': this shard's rows by local id, zeros for
+        # the other shards' ids, summed over the group
+        out = masked_local_rows(lambda loc: self._lookup(loc, table, entry).to(out_dtype),
+                                inputs, info.lo, info.n_local)
+        return sum_over(out, info.group, info.parts)
+
+    @staticmethod
+    def _lookup(inputs, table, entry):
         if entry is None:
-            return F.embedding(inputs, table).to(out_dtype)
+            return F.embedding(inputs, table)
         # the packed-carry lane passes the [N, 3D] [p|mu|nu] block as the
         # fallback source: its first D lanes are the current parameters,
         # while this module's own `weight` is stale for the epoch
@@ -363,18 +401,26 @@ class TableEmbed(nn.Module):
             pos = torch.searchsorted(rows, inputs).clamp(0, R - 1)
             hit = rows[pos] == inputs
         fallback = fb_table.detach()[:, :D][inputs]  # packed: param lanes first
-        out = torch.where(hit[..., None], F.embedding(pos, vals), fallback.to(vals.dtype))
-        return out.to(out_dtype)
+        return torch.where(hit[..., None], F.embedding(pos, vals), fallback.to(vals.dtype))
+
+    def full(self) -> torch.Tensor:
+        """The whole [N, D] table (gathered over 'model' when row-sharded;
+        the gradient of the gathered table is this rank's block). Every
+        read of a whole table goes through here or `parallel.mesh.full_table`."""
+        return full_table(self.weight)
 
 
 def embed(num: int, dim: int, init=None) -> TableEmbed:
-    """[num, dim] embedding table, N(0, 0.01) init from torch's global RNG,
+    """[pad_rows(num), dim] embedding table (num rows rounded up to the
+    mesh's row pad, parallel/mesh.py; the dead tail rows are never
+    gathered), N(0, 0.01) init from torch's global RNG,
     stored in the dtype of `set_table_dtype` (f32 unless --bf16_emb); `init`
     names the initialiser `BaseModel.init_weights` draws it from (default
     N(0, 0.01)). Every model-level table gather should go through this: a
     raw `weight[ids]` bypasses the bf16 storage cast AND the sparse-lookup
     context."""
-    table = TableEmbed(num, dim, dtype=_TABLE_DTYPE)
+    table = TableEmbed(pad_rows(num), dim, dtype=_TABLE_DTYPE)
+    table.live_rows = {"weight": num}       # parallel.mesh.load_full_state_dict
     if init is not None:
         table.PARAM_INITS = {"weight": init}
     return table

@@ -204,14 +204,36 @@ def row_pos_map(rows_sorted: torch.Tensor, scatter: torch.Tensor, num_rows: int)
     return pos[:num_rows]
 
 
-def sparse_rows_and_vals(params: Params, rows_map):
+def unique_rows_sorted(ids: torch.Tensor, num_rows: int):
+    """`unique_rows_hashed`'s outputs from the sort lane: the same slot of
+    an id on every device (a data-parallel step sums the slots' gradients
+    over ranks, so their layout must agree)."""
+    rows, scatter = unique_rows(ids, num_rows)
+    return rows, scatter, row_pos_map(rows, scatter, num_rows)
+
+
+def _dedup(ids, n_rows: int, sentinel: bool, deterministic: bool):
+    """(rows, scatter, pos_map) of a table of n_rows rows. With `sentinel`
+    the ids are a row-sharded table's local rows and n_rows stands for the
+    other shards' ids: that id is dropped at commit (its write id n_rows is
+    out of range) and its read row is clamped into the table."""
+    fn = unique_rows_sorted if deterministic else unique_rows_hashed
+    rows, scatter, pos_map = fn(ids, n_rows + 1 if sentinel else n_rows)
+    if sentinel:
+        rows = rows.clamp(max=n_rows - 1)
+    return rows, scatter, pos_map
+
+
+def sparse_rows_and_vals(params: Params, rows_map, sentinel=(), deterministic: bool = False):
     """For each lazy table: unique-ify the touched ids and gather their
     current values (f32 compute even for bf16 storage). Returns
-    (rows_info {key: (rows, scatter_rows, pos_map)}, vals {key: [R, D]})."""
+    (rows_info {key: (rows, scatter_rows, pos_map)}, vals {key: [R, D]}).
+    Keys in `sentinel` hold row-sharded local ids (`_dedup`);
+    `deterministic` takes the sort lane."""
     rows_info, vals = {}, {}
     for path, ids in rows_map.items():
         p = params[path]
-        rows, scatter, pos_map = unique_rows_hashed(ids, p.shape[0])
+        rows, scatter, pos_map = _dedup(ids, p.shape[0], path in sentinel, deterministic)
         rows_info[path] = (rows, scatter, pos_map)
         vals[path] = p.detach()[rows].float()
     return rows_info, vals
@@ -383,7 +405,7 @@ def unpack_lazy_leaves(params: Params, state: LazyAdamState, dtypes):
     return params, LazyAdamState(state.count, mu, nu)
 
 
-def packed_rows_and_vals(params: Params, rows_map):
+def packed_rows_and_vals(params: Params, rows_map, sentinel=(), deterministic: bool = False):
     """Packed-carry analogue of sparse_rows_and_vals: ONE [R, 3D] row
     gather per table serves the forward pass (param lanes) AND the
     optimizer (moment lanes). Returns (rows_info, gathered {key: [R, 3D]},
@@ -391,7 +413,7 @@ def packed_rows_and_vals(params: Params, rows_map):
     rows_info, gathered, vals = {}, {}, {}
     for path, ids in rows_map.items():
         packed = params[path]
-        rows, scatter, pos_map = unique_rows_hashed(ids, packed.shape[0])
+        rows, scatter, pos_map = _dedup(ids, packed.shape[0], path in sentinel, deterministic)
         rows_info[path] = (rows, scatter, pos_map)
         g = packed[rows]
         gathered[path] = g

@@ -252,3 +252,38 @@ def _ranks_epilogue(u, table, bias, target_col, tscore, clicked_rows, total):
     # target's column contributes 1 to the count and its clicked copy 1 to
     # clicked_ge_dense; the fused count excludes col 0 and the target
     return (total + 2 - clicked_ge - target_in_clicked).to(torch.int32)
+
+
+def tiled_ge_count(u, table, tscore, bias=None, clicked_rows=None,
+                   n_valid: int | None = None, col_offset: int = 0, target_col=None):
+    """#{rows: score >= tscore[b]} over a table that holds global rows
+    [col_offset, col_offset + N), excluding by GLOBAL id row 0, dead rows
+    (>= n_valid), the clicked ids and `target_col[b]`, the column whose
+    score defines tscore (port of the kernel branch of JAX
+    ops/topk.py::tiled_ge_count): the building block of the sharded ranks
+    (parallel/topk.py). Returns [B] int32.
+
+    The fused count (B3, `fused_ge_count`) excludes row 0, dead rows and
+    the target; the clicked rows it counted are then subtracted by a
+    gathered correction: the clicked rows that lie in this table, are
+    above 0, below n_valid and not the target, scored by a [B, M, D]
+    product. Clicked ids are unique per row by contract."""
+    tc = None if target_col is None else target_col.to(torch.int32).contiguous()
+    total = CT.fused_ge_count(u, table, tscore.contiguous(), target_col=tc, bias=bias,
+                              n_valid=n_valid, col_offset=col_offset)
+    if clicked_rows is None:
+        return total
+    N = table.shape[0]
+    clicked = clicked_rows.long()
+    local = clicked - col_offset
+    in_shard = (local >= 0) & (local < N)
+    rows = local.clamp(0, N - 1)
+    cs = torch.matmul(table[rows], u[:, :, None])[:, :, 0]             # [B, M]
+    if bias is not None:
+        cs = cs + bias[rows]
+    ok = in_shard & (clicked > 0)
+    if n_valid is not None:
+        ok &= clicked < n_valid
+    if tc is not None:
+        ok &= clicked != tc.long()[:, None]
+    return total - ((cs >= tscore[:, None]) & ok).sum(1).to(torch.int32)

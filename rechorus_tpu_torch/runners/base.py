@@ -1,5 +1,4 @@
-"""Top-k train/eval runner (port of rechorus_tpu/runners/base.py, the
-single-device branches).
+"""Top-k train/eval runner (port of rechorus_tpu/runners/base.py).
 
 Parity surface: reference src/helpers/BaseRunner.py (flags, train loop
 control: best-dev checkpointing, early stop, log-line grammar, metric
@@ -20,9 +19,14 @@ semantics). PyTorch internals:
     sparse lazy Adam, three-scatter sparse lazy Adam (both commit through
     the `adam_commit` kernel, one launch per table per step), dense-grad
     lazy Adam, dense optimizer.
+  * On a ('data', 'model') mesh (--data_parallel / --model_parallel, one
+    process per position, parallel/): tables row-shard over 'model', each
+    step's and each evaluation batch's rows split over 'data', gradients
+    are averaged over 'data', and catalog top-k / ranks run shard by shard.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -39,6 +43,9 @@ from rechorus_tpu_torch.ops import metrics as metrics_ops
 from rechorus_tpu_torch.ops import sampling
 from rechorus_tpu_torch.ops import topk as topk_ops
 from rechorus_tpu_torch.ops.cuda_kernels import catalog_ranks, ge_count
+from rechorus_tpu_torch.parallel import distributed as D
+from rechorus_tpu_torch.parallel import mesh as M
+from rechorus_tpu_torch.parallel import topk as PT
 from rechorus_tpu_torch.serve import dense_catalog_scores, resolve_device
 from rechorus_tpu_torch.utils import io as utils
 
@@ -149,16 +156,10 @@ def device_of_gpu_flag(gpu: str) -> torch.device:
     gpu = str(gpu).strip()
     if gpu == "":
         return torch.device("cpu")
+    if D.backend_initialized("nccl"):
+        # a rank of a multi-process run: its card (parallel/distributed.py)
+        return resolve_device(f"cuda:{D.card()}")
     return resolve_device(f"cuda:{int(gpu.split(',')[0])}")
-
-
-# flags whose machinery waits for a later slice: (flag, default, ROADMAP item)
-_LATER_FLAGS = [
-    ("data_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
-    ("model_parallel", 1, "ROADMAP A12: parallel/ (the device mesh)"),
-    ("ckpt_format", "flax", "ROADMAP A12: sharded orbax checkpoints, with parallel/"),
-    ("host_shard_input", 0, "ROADMAP A12: parallel/ (host-sharded corpus loading)"),
-]
 
 
 @registry.register_runner("BaseRunner")
@@ -204,7 +205,10 @@ class BaseRunner:
                                  "{params, extra_vars}, which the JAX package reads "
                                  "and writes too (a torch.save state_dict file also "
                                  "loads). 'orbax': sharded checkpoint directory "
-                                 "(not ported yet: it raises).")
+                                 "<model_path>.orbax, each rank writing its own "
+                                 "shards while training goes on (torch.distributed."
+                                 "checkpoint's format: the JAX package's orbax "
+                                 "directory does not cross).")
         parser.add_argument("--lazy_emb_adam", type=int, default=0,
                             help="Touched-rows-only Adam for embedding tables "
                                  "(tf LazyAdam / torch SparseAdam semantics). "
@@ -240,21 +244,23 @@ class BaseRunner:
                                  "memory; gathered rows cast to f32, Adam moments "
                                  "stay f32). Requires --lazy_emb_adam.")
         parser.add_argument("--data_parallel", type=int, default=1,
-                            help="Devices on the 'data' mesh axis (not ported yet: >1 raises).")
+                            help="Devices (ranks) on the 'data' mesh axis: each step's "
+                                 "batch splits over them.")
         parser.add_argument("--model_parallel", type=int, default=1,
-                            help="Devices on the 'model' mesh axis (not ported yet: >1 raises).")
+                            help="Devices (ranks) on the 'model' mesh axis: embedding "
+                                 "tables of >= 1024 rows row-shard over them.")
         parser.add_argument("--shard_input_mb", type=int, default=16,
-                            help="Kept for CLI parity; it only acts on a device mesh.")
+                            help="On a mesh with a data axis > 1, corpus arrays of at "
+                                 "least this many MB keep only their 'data' row block "
+                                 "on each rank (-1 = never).")
         parser.add_argument("--host_shard_input", type=int, default=0,
-                            help="Per-host corpus shards (not ported yet: 1 raises).")
+                            help="Build the history arrays of a sequential corpus per "
+                                 "'data' row block, only this host's (with a mesh).")
         return parser
 
     def __init__(self, args):
         self.args = args
-        for flag, default, item in _LATER_FLAGS:
-            value = getattr(args, flag, default)
-            if value != default:
-                raise NotImplementedError(f"--{flag} {value}: not ported yet ({item})")
+        dp, mp = D.mesh_size(args)
         self.device = device_of_gpu_flag(getattr(args, "gpu", "0"))
         # full f32 in cuDNN's GRU and convolution too (GRU4Rec, NARM, Caser):
         # the arithmetic chip_smoke.py checks, not TF32
@@ -294,6 +300,22 @@ class BaseRunner:
         self.time = None
         self._lazy_specs = {}
         self._tx = None
+        self.shard_input_mb = int(getattr(args, "shard_input_mb", 16))
+        self.ckpt_format = getattr(args, "ckpt_format", "flax")
+        if self.ckpt_format == "flax" and D.num_processes() > 1:
+            logging.warning("multi-process run: flax-bytes checkpoints cannot "
+                            "serialize non-addressable (host-sharded) arrays; "
+                            "switching to --ckpt_format orbax")
+            self.ckpt_format = "orbax"
+        self._ckpt_future = None
+        self._warned_replicated = False
+        self.mesh = None
+        if dp * mp > 1:
+            self.mesh = M.make_mesh(dp * mp, mp, self.device)
+            # tables built after this point round rows to a multiple of mp
+            M.set_table_row_pad(mp)
+            logging.info("Mesh: data=%d model=%d over %d ranks (%s)", dp, mp, dp * mp,
+                         self.device.type)
 
     # ------------------------------------------------------------------ #
     def _check_time(self, start=False):
@@ -353,6 +375,11 @@ class BaseRunner:
         params = dict(model.named_parameters())
         if batcher is not None and hasattr(batcher, "post_init_state"):
             batcher.post_init_state(TrainState(model=model, params=params, opt_state=None))
+        if self.mesh is not None:
+            # every rank drew the whole tables from one seed; keep our
+            # blocks, and build the moments from them
+            M.shard_model(model, self.mesh)
+            params = dict(model.named_parameters())
         if lazy_specs:
             tx = LA.LazyAdamTx(self.learning_rate, self.l2, decay_mask=_decay_mask)
         else:
@@ -362,16 +389,79 @@ class BaseRunner:
         return TrainState(model=model, params=params, opt_state=tx.init(params), step=0)
 
     def save_model(self, state: TrainState, model_path: str = None):
-        """The JAX package's checkpoint file (`weights.write_checkpoint`)."""
+        """The JAX package's checkpoint file (`weights.write_checkpoint`),
+        with row-sharded tables gathered whole and written by global rank
+        0; or with --ckpt_format orbax the sharded directory
+        `<path>.orbax`, written in the background (`finalize_ckpt`)."""
         path = model_path or self.model_path
         utils.check_dir(path)
-        weights.write_checkpoint(state.model, path)
+        if self.ckpt_format == "orbax":
+            self._save_sharded(state, os.path.abspath(path) + ".orbax")
+            return
+        if not D.is_distributed():
+            weights.write_checkpoint(state.model, path)
+            return
+        full = M.full_state_dict(state.model)
+        if D.is_rank0():
+            weights.write_checkpoint(state.model, path, state_dict=full)
+        D.barrier()
+
+    def _save_sharded(self, state: TrainState, ckpt_dir: str) -> None:
+        """torch.distributed.checkpoint.async_save of the model's state: a
+        row-sharded table as a DTensor (each rank writes its own rows), the
+        rest once. The device-to-host copy happens here; the disk write
+        overlaps what follows. One save is in flight at a time."""
+        import torch.distributed.checkpoint as dcp
+
+        self.finalize_ckpt()
+        sd = self._dcp_state(state.model)
+        if D.is_distributed():
+            fut = dcp.async_save(sd, checkpoint_id=ckpt_dir, process_group=M.cpu_group())
+        else:
+            fut = dcp.async_save(sd, checkpoint_id=ckpt_dir, no_dist=True)
+        self._ckpt_future = getattr(fut, "upload_completion", fut)
+
+    def finalize_ckpt(self):
+        """Block until an in-flight sharded checkpoint write is durable."""
+        if self._ckpt_future is not None:
+            fut, self._ckpt_future = self._ckpt_future, None
+            fut.result()
+
+    def _dcp_state(self, model) -> dict:
+        """The model's state for torch.distributed.checkpoint: its own
+        tensors (a load writes into them), a row-sharded table wrapped as a
+        DTensor sharded over the mesh's 'model' dimension."""
+        sd = model.state_dict(keep_vars=True)
+        out = {}
+        for key, t in sd.items():
+            t = t.detach()
+            info = M.shard_of(sd[key])
+            if info is not None:
+                from torch.distributed.tensor import DTensor, Replicate, Shard
+
+                shape = torch.Size((info.n_global,) + tuple(t.shape[1:]))
+                t = DTensor.from_local(t, self.mesh.device_mesh, [Replicate(), Shard(0)],
+                                       run_check=False, shape=shape, stride=t.stride())
+            out[key] = t
+        return out
 
     def load_model(self, state: TrainState, model_path: str = None) -> TrainState:
         """A flax checkpoint of either package, or a state_dict file
-        (`weights.read_checkpoint`)."""
+        (`weights.read_checkpoint`), each rank keeping its blocks of the
+        row-sharded tables; or with --ckpt_format orbax the sharded
+        directory, restored straight onto the live shards."""
         path = model_path or self.model_path
-        state.model.load_state_dict(weights.read_checkpoint(path, state.model, self.device))
+        if self.ckpt_format == "orbax":
+            import torch.distributed.checkpoint as dcp
+
+            self.finalize_ckpt()
+            sd = self._dcp_state(state.model)
+            kw = {"process_group": M.cpu_group()} if D.is_distributed() else {"no_dist": True}
+            dcp.load(sd, checkpoint_id=os.path.abspath(path) + ".orbax", **kw)
+            state.model.load_state_dict({k: (v.to_local() if hasattr(v, "to_local") else v)
+                                         for k, v in sd.items()})
+            return state
+        M.load_full_state_dict(state.model, weights.read_checkpoint(path, state.model, self.device))
         return state
 
     # ------------------------------------------------------------------ #
@@ -409,9 +499,124 @@ class BaseRunner:
                 own[path].copy_(params[path])
         state.params, state.packed_dtypes = own, {}
 
+    # ------------------------------------------------------------------ #
+    # the mesh
+    def _splits_batch(self, model, B: int, training: bool) -> bool:
+        """Whether a batch of B rows splits over 'data': on a mesh with a
+        data axis > 1 that divides B. A training batch of a model whose loss
+        couples rows (`batch_coupled`, BatchNorm's batch statistics) stays
+        whole on every data rank, as does a batch that does not divide
+        (the JAX package's "replicating batches")."""
+        m = self.mesh
+        if m is None or m.dp == 1:
+            return False
+        coupled = training and (getattr(model, "batch_coupled", False) or any(
+            isinstance(x, layers_ops.BatchNorm) for x in model.modules()))
+        if B % m.dp == 0 and not coupled:
+            return True
+        if not self._warned_replicated:
+            self._warned_replicated = True
+            logging.warning("batch %d %s data axis %d; replicating batches", B,
+                            "of a batch-coupled loss on" if coupled else "not divisible by", m.dp)
+        return False
+
+    def _rows_of(self, tensors: dict, B: int) -> dict:
+        """This rank's 'data' block of a feed of B rows: every tensor whose
+        leading axis is the batch's."""
+        b = B // self.mesh.dp
+        lo = self.mesh.data_index * b
+        return {k: (v[lo: lo + b] if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == B
+                    else v) for k, v in tensors.items()}
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' blocks of a result, whole on every rank."""
+        return M.all_gather_cat(x, self.mesh.data_group, self.mesh.dp)
+
+    def _localize_rows(self, model, rows_map: dict, keep_only: bool) -> set:
+        """Row-sharded lazy tables take only this rank's rows, as local
+        ids: with `keep_only` the other shards' ids are dropped, else they
+        become the sentinel id n_local (`lazy_adam._dedup`). Returns the
+        keys of the sharded tables. IN PLACE on rows_map."""
+        own = dict(model.named_parameters())
+        sharded = set()
+        for path, ids in rows_map.items():
+            info = M.shard_of(own.get(path))
+            if info is None:
+                continue
+            loc = ids.long() - info.lo
+            inside = (loc >= 0) & (loc < info.n_local)
+            rows_map[path] = loc[inside] if keep_only else torch.where(
+                inside, loc, torch.full_like(loc, info.n_local))
+            sharded.add(path)
+        return sharded
+
+    def place_arrays(self, arrays: dict) -> dict:
+        """Corpus arrays for this rank (port of JAX runners/base.py:949-1014).
+        Without a mesh (or with a 1-wide data axis) deferred arrays build
+        whole and the rest stay as they are. On a mesh with a data axis > 1,
+        an array of at least --shard_input_mb MB keeps only this rank's
+        'data' row block (zero-padded to divide; `ShardedRows` gathers a
+        feed's rows from the blocks), and a deferred one (`LazyRows`,
+        --host_shard_input) builds only that block."""
+        from rechorus_tpu_torch.data.batching import LazyRows
+
+        m = self.mesh
+        dp = m.dp if m is not None else 1
+        out, built = {}, []
+        for k, v in arrays.items():
+            if isinstance(v, LazyRows):
+                if dp <= 1:
+                    out[k] = v.tensor(self.device)
+                    continue
+                lo, hi = M.data_block(v.shape[0], m)
+                out[k] = M.sharded_input_from_block(v.tensor(self.device, lo, hi), v.shape[0], m)
+                built.append((k, v.shape[0], lo, min(hi, v.shape[0])))
+                continue
+            big = (torch.is_tensor(v) and self.shard_input_mb >= 0 and dp > 1 and v.dim() >= 1
+                   and v.numel() * v.element_size() >= self.shard_input_mb * 2 ** 20)
+            if big:
+                logging.info("sharding input array %r %s over 'data'", k, tuple(v.shape))
+                v = M.shard_input(v, m)
+            out[k] = v
+        if built:
+            self._log_host_blocks(built)
+        return out
+
+    def _log_host_blocks(self, built) -> None:
+        """Log, on each host's first rank, the rows of every deferred array
+        that the host's ranks built (the union of their blocks)."""
+        import torch.distributed as dist
+
+        mine = (D.process_id(), built)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        if D.local_rank() != 0:
+            return
+        for j, (k, n, _, _) in enumerate(built):
+            spans = sorted({(b[j][2], b[j][3]) for pid, b in every if pid == D.process_id()})
+            covered = sum(hi - lo for lo, hi in spans)
+            logging.info("host-sharded input array %r: this host built %d of %d rows", k,
+                         covered, n)
+
+    def _use_sharded_catalog(self, model) -> bool:
+        """The catalog table row-shards over 'model' (`param_spec`'s rule):
+        score it through the sharded route (parallel/topk.py)."""
+        return self.mesh is not None and self.mesh.mp > 1 and model.catalog_shard() is not None
+
+    @staticmethod
+    def _local_bias(bias, info):
+        if bias is None or bias.shape[0] != info.n_global:
+            return bias
+        return bias[info.lo: info.lo + info.n_local].contiguous()
+
     def train_step(self, state: TrainState, batcher, arrays, idx, gen) -> torch.Tensor:
         """One optimizer step on the rows `idx`; returns the loss (a device
-        scalar). Updates `state` in place."""
+        scalar), on a mesh this rank's share of it: summed over 'data', it
+        is the step's loss. Updates `state` in place. On a mesh every rank
+        builds the global batch's feed (the same random draws everywhere),
+        keeps its 'data' block of it, and averages the gradients over
+        'data', or sums them for a loss that sums its rows
+        (`loss_reduction`)."""
         model = state.model
         feed = batcher.train_feed(arrays, idx, gen)
         # anti-position-leak permutation (ranking tasks only)
@@ -428,8 +633,33 @@ class BaseRunner:
             # where the true target (original column 0) landed
             feed["_target_col"] = inv[:, 0]
 
+        B = idx.shape[0]
+        split = self._splits_batch(model, B, training=True)
+        tx = self._tx
+        # lazy rows come from the GLOBAL feed: the same slots on every data rank
+        rows_map = LA.resolve_lazy_rows(self._lazy_specs, state.params, feed) \
+            if self._lazy_specs else {}
+        sentinel = set()
+        if self.mesh is not None and rows_map:
+            sentinel = self._localize_rows(model, rows_map, keep_only=not self.sparse_emb_grad)
+        deterministic = self.mesh is not None and self.mesh.dp > 1
+        if split:
+            feed = self._rows_of(feed, B)
+            if inv is not None:
+                inv = self._rows_of({"inv": inv}, B)["inv"]
+        sliced = layers_ops.batch_slice(self.mesh.dp, self.mesh.data_index) if split \
+            else contextlib.nullcontext()
+
+        summed = split and model.loss_reduction == "sum"
+
+        def mean_grads(*dicts):
+            if split:
+                M.reduce_over_data([g for d in dicts for g in d.values()], self.mesh,
+                                   mean=not summed)
+
         def loss_fn():
-            out = model(feed, training=True, gen=gen)
+            with sliced:
+                out = model(feed, training=True, gen=gen)
             if inv is not None and out["prediction"].dim() == 2:
                 out["prediction"] = sampling.restore_predictions(out["prediction"], inv)
             return model.loss(out, feed)
@@ -441,9 +671,6 @@ class BaseRunner:
             return {k: (torch.zeros_like(p) if g is None else g)
                     for (k, p), g in zip(leaves.items(), got)}
 
-        tx = self._tx
-        rows_map = LA.resolve_lazy_rows(self._lazy_specs, state.params, feed) \
-            if self._lazy_specs else {}
         packed_paths = set(state.packed_dtypes)
         if rows_map and self.sparse_emb_grad:
             # sparse-grad lanes: differentiate w.r.t. the gathered rows only.
@@ -460,9 +687,11 @@ class BaseRunner:
                     # the lazy entries of state.params hold [N, 3D] =
                     # [p | mu | nu]; one gather feeds both the forward row
                     # block and the Adam moments, one scatter commits all
-                    rows_info, gathered, vals0 = LA.packed_rows_and_vals(state.params, rows_map)
+                    rows_info, gathered, vals0 = LA.packed_rows_and_vals(
+                        state.params, rows_map, sentinel, deterministic)
                 else:
-                    rows_info, vals0 = LA.sparse_rows_and_vals(state.params, rows_map)
+                    rows_info, vals0 = LA.sparse_rows_and_vals(state.params, rows_map, sentinel,
+                                                               deterministic)
             vals = {p: v.detach().requires_grad_(True) for p, v in vals0.items()}
             rest, _ = LA.split_params(state.params, list(rows_map))
             layers_ops.set_sparse_lookup({
@@ -475,6 +704,7 @@ class BaseRunner:
             grads = grads_of(loss, {**{("vals", p): v for p, v in vals.items()}, **rest})
             g_vals = {p: grads[("vals", p)] for p in vals}
             g_rest = {k: grads[k] for k in rest}
+            mean_grads(g_vals, g_rest)
             with torch.no_grad():
                 if packed:
                     LA.lazy_adam_sparse_step_packed(tx, state.params, state.opt_state, rows_info,
@@ -485,6 +715,7 @@ class BaseRunner:
         elif rows_map:
             loss = loss_fn()
             grads = grads_of(loss, state.params)
+            mean_grads(grads)
             with torch.no_grad():
                 LA.lazy_adam_step(tx, state.params, grads, state.opt_state, rows_map)
         else:
@@ -495,11 +726,13 @@ class BaseRunner:
                     "the model's lazy_table_specs()")
             loss = loss_fn()
             grads = grads_of(loss, state.params)
+            mean_grads(grads)
             with torch.no_grad():
                 tx.update(state.params, grads, state.opt_state)
         state.step += 1
         self._post_update(state)
-        return loss.detach()
+        loss = loss.detach()
+        return loss if summed or self.mesh is None else loss / self.mesh.dp
 
     def fit(self, state: TrainState, batcher, arrays, epoch: int,
             max_steps: Optional[int] = None) -> float:
@@ -526,6 +759,9 @@ class BaseRunner:
                 loss_sum += self.train_step(state, batcher, arrays, perm[s: s + B], gen)
         finally:
             self._unpack(state)
+        if self.mesh is not None and self.mesh.dp > 1:
+            # each data rank's steps report their shares of the step's loss
+            loss_sum = M.sum_over(loss_sum, self.mesh.data_group, self.mesh.dp)
         return float(loss_sum) / max(1, len(starts))
 
     def _profiled_fit(self, state: TrainState, batcher, arrays, epoch: int) -> float:
@@ -678,7 +914,8 @@ class BaseRunner:
         test_all = getattr(batcher, "test_all", False)
         catalog = test_all and getattr(model, "supports_catalog", False)
         tiled = self._use_tiled_forward(model, batcher, arrays)
-        table = model.catalog_item_table() if catalog else None
+        sharded = catalog and self._use_sharded_catalog(model)
+        table = model.catalog_item_table(local=sharded) if catalog else None
         n_items = batcher.corpus.n_items
         ranks = []
         for idx in self._eval_batches(len(batcher)):
@@ -686,7 +923,15 @@ class BaseRunner:
                 ranks.append(self._tiled_forward_ranks(model, batcher, arrays, idx))
                 continue
             feed = batcher.eval_feed(arrays, idx)
-            if catalog:
+            split = self._splits_batch(model, idx.shape[0], training=False)
+            if split:
+                feed = self._rows_of(feed, idx.shape[0])
+            if sharded:
+                u, bias = self._catalog_parts(model, feed)
+                r = PT.sharded_catalog_ranks(
+                    u, table, feed["_target"], self.mesh, feed["_clicked_rows"],
+                    self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
+            elif catalog:
                 # catalog protocol: u . table as one product instead of a
                 # [B, N, d] embedding gather through the model
                 u, bias = self._catalog_parts(model, feed)
@@ -703,7 +948,7 @@ class BaseRunner:
                 r = catalog_ranks(pred, feed["_target"], feed["_clicked_rows"])
             else:
                 r = metrics_ops.gt_rank(self._apply_eval(model, feed)["prediction"])
-            ranks.append(r)
+            ranks.append(self._gather_rows(r) if split else r)
         return torch.cat(ranks).cpu().numpy()
 
     @torch.no_grad()
@@ -718,11 +963,13 @@ class BaseRunner:
         tiled = self._use_tiled_forward(model, batcher, arrays)
         n_items = batcher.corpus.n_items
         table = grouped = None
+        sharded = catalog and self._use_sharded_catalog(model)
         if catalog:
-            table = model.catalog_item_table()
+            table = model.catalog_item_table(local=sharded)
             # grouped-slice rescore copy, built ONCE per call outside the
             # batch loop, like the table itself
-            if table.shape[0] >= max(topk_ops.MIN_ROWS_FOR_TILED, topk_ops.DEFAULT_BUCKET * 128):
+            if not sharded and table.shape[0] >= max(topk_ops.MIN_ROWS_FOR_TILED,
+                                                     topk_ops.DEFAULT_BUCKET * 128):
                 grouped = topk_ops.group_table_for_rescore(table)
         all_items, all_scores = [], []
         for idx in self._eval_batches(len(batcher)):
@@ -732,8 +979,16 @@ class BaseRunner:
                 all_scores.append(scores)
                 continue
             feed = batcher.eval_feed(arrays, idx)
+            split = self._splits_batch(model, idx.shape[0], training=False)
+            if split:
+                feed = self._rows_of(feed, idx.shape[0])
             approx = dict(approx=self.approx_topk, recall_target=self.approx_topk_recall)
-            if catalog:
+            if sharded:
+                u, bias = self._catalog_parts(model, feed)
+                scores, items = PT.sharded_catalog_topk(
+                    u, table, k, self.mesh, clicked_rows=feed["_clicked_rows"],
+                    item_bias=self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
+            elif catalog:
                 u, bias = self._catalog_parts(model, feed)
                 if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED and (
                         not self.approx_topk
@@ -756,7 +1011,10 @@ class BaseRunner:
                 pred = self._apply_eval(model, feed)["prediction"]
                 scores, cols = torch.topk(pred, min(k, pred.shape[1]), dim=1)
                 items = feed["item_id"].gather(1, cols) if "item_id" in feed else cols
-            all_items.append(items.to(torch.int32))
+            items = items.to(torch.int32)
+            if split:
+                items, scores = self._gather_rows(items), self._gather_rows(scores)
+            all_items.append(items)
             all_scores.append(scores)
         return torch.cat(all_items).cpu().numpy(), torch.cat(all_scores).cpu().numpy()
 
@@ -866,8 +1124,10 @@ class BaseRunner:
         candidate chunk, never a [B, N] one."""
         model = state.model
         groups: Dict[str, List[float]] = {}
-        for name, p in model.named_parameters():
-            groups.setdefault(name.split(".")[0], []).append(float(p.detach().float().abs().mean()))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                w = M.full_table(p)
+                groups.setdefault(name.split(".")[0], []).append(float(w.float().abs().mean()))
         lines = ["{:<20} mean|w|={:.4f}".format(name, float(np.mean(vals)))
                  for name, vals in groups.items()]
         if batcher is not None and len(batcher) and \

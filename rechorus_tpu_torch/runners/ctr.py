@@ -35,9 +35,13 @@ class CTRRunner(BaseRunner):
         preds, labels = [], []
         for idx in self._eval_batches(len(batcher)):
             feed = batcher.eval_feed(arrays, idx)
+            split = self._splits_batch(model, idx.shape[0], training=False)
+            if split:   # the data ranks' blocks, gathered whole on every rank
+                feed = self._rows_of(feed, idx.shape[0])
             out = self._apply_eval(model, feed)
-            preds.append(out["prediction"].reshape(-1))
-            labels.append(feed["label"].reshape(-1))
+            pred, label = out["prediction"].reshape(-1), feed["label"].reshape(-1)
+            preds.append(self._gather_rows(pred) if split else pred)
+            labels.append(self._gather_rows(label) if split else label)
         return torch.cat(preds).cpu().numpy(), torch.cat(labels).cpu().numpy()
 
     # print_res is inherited: BaseRunner.print_res routes through evaluate

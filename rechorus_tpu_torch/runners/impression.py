@@ -31,10 +31,16 @@ class ImpressionRunner(BaseRunner):
         preds, pos_num, neg_num = [], [], []
         for idx in self._eval_batches(len(batcher)):
             feed = batcher.eval_feed(arrays, idx)
+            split = self._splits_batch(model, idx.shape[0], training=False)
+            if split:   # the data ranks' blocks, gathered whole on every rank
+                feed = self._rows_of(feed, idx.shape[0])
             pred = self._apply_eval(model, feed)["prediction"]
-            preds.append(torch.where(feed["target"] != -1, pred, float("-inf")))
-            pos_num.append(feed["pos_num"])
-            neg_num.append(feed["neg_num"])
+            got = [torch.where(feed["target"] != -1, pred, float("-inf")), feed["pos_num"],
+                   feed["neg_num"]]
+            if split:
+                got = [self._gather_rows(x) for x in got]
+            for out, x in zip((preds, pos_num, neg_num), got):
+                out.append(x)
         return (torch.cat(preds).cpu().numpy(), torch.cat(pos_num).cpu().numpy(),
                 torch.cat(neg_num).cpu().numpy())
 

@@ -285,6 +285,25 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor], model: str = "BPRMF",
     return tree
 
 
+def flax_leaf_path(model: str, key: str, value) -> tuple | None:
+    """The flax path of the `params` leaf that the torch parameter `key`
+    (of shape value.shape) crosses to, or None when it crosses to another
+    collection: what the JAX package's sharding rule reads."""
+    parts = key.split(".")
+    if len(parts) == 1:
+        return (key,) if _TOP_LEVEL.get(_kind(model, key)) == "params" else None
+    path = _flax_module_path(parts[:-1])
+    kind = _kind(model, "/".join(path))
+    if kind == "param":
+        return tuple(path) + (parts[-1],)
+    match = [f for f, (t, _) in _LEAVES[kind].items() if t == parts[-1]]
+    if len(match) > 1:  # embed_or_dense: a Dense(1 -> d) weight is [d, 1]
+        match = [f for f in match if (f == "kernel") == (value.shape[-1] == 1)]
+    if not match or match[0] in _BATCH_STATS:
+        return None
+    return tuple(path) + (match[0],)
+
+
 def from_flax_opt_state(count, mu: Mapping, nu: Mapping, model: str = "BPRMF"):
     """(count, mu, nu) of an Adam state for the port: `count` as int, the
     two moment trees (those of optax's `ScaleByAdamState` or of the JAX
@@ -309,16 +328,17 @@ def _sorted(tree):
     return tree
 
 
-def flax_variables(model) -> dict:
+def flax_variables(model, state_dict=None) -> dict:
     """{"params": ..., "extra_vars": {collection: tree}}: the tree the JAX
     package's `save_model` writes for `model`'s registered class, every
     leaf in the dtype its TrainState holds (f32, bfloat16 tables under
     --bf16_emb, the corpus matrices' int32). The extra collections are the
     ones the class has: `batch_stats`, `constants` (those of the
     state_dict and the corpus-derived ones of the model's `flax_constants`)
-    and BUIR's `target`."""
+    and BUIR's `target`. `state_dict` stands in for the model's own (a
+    mesh run's tables gathered whole, parallel.mesh.full_state_dict)."""
     name = model.registered_name
-    state = model.state_dict()
+    state = model.state_dict() if state_dict is None else state_dict
     extra = {}
     for collection in _EXTRA_COLLECTIONS:
         tree = to_flax_params(state, name, collection, keep_dtype=True)
@@ -330,10 +350,10 @@ def flax_variables(model) -> dict:
                     "extra_vars": extra})
 
 
-def write_checkpoint(model, path: str) -> None:
-    """Write `flax_variables(model)` as flax's msgpack (the JAX package's
-    `--ckpt_format flax` file)."""
-    data = flax_msgpack.serialize(flax_variables(model))
+def write_checkpoint(model, path: str, state_dict=None) -> None:
+    """Write `flax_variables(model, state_dict)` as flax's msgpack (the JAX
+    package's `--ckpt_format flax` file)."""
+    data = flax_msgpack.serialize(flax_variables(model, state_dict))
     with open(path, "wb") as f:
         f.write(data)
 

@@ -4,8 +4,10 @@ lanes, the sequential models (SASRec, GRU4Rec, NARM, Caser, FPMC) in the
 dense and packed lanes, the checkpoint round trip, the top-100 export, the
 log grammar the JAX package's multi-seed harness parses, `check()`'s
 attention lines, `--dense_init glorot`, the corpus cache, the approx
-lane's export (`--approx_topk 1`), the flags that wait for a later slice,
-and the copies of the jax-free helper modules.
+lane's export (`--approx_topk 1`), the flags of the scaling layer (a CPU
+mesh, the sharded checkpoint, a world of one at a coordinator; a mesh
+larger than the cards refused), and the copies of the jax-free helper
+modules.
 """
 import argparse
 import ast
@@ -228,10 +230,47 @@ def test_check_under_test_all_runs_no_full_catalog_forward(large_catalog_root, t
 @pytest.mark.parametrize("flag,value", [("--data_parallel", "2"),
                                         ("--model_parallel", "2"), ("--ckpt_format", "orbax"),
                                         ("--host_shard_input", "1"),
-                                        ("--dist_coordinator", "localhost:1234")])
+                                        ("--dist_coordinator", "127.0.0.1:<free port>")])
 def test_flags_of_later_slices_raise(data_root, tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(data_root, tmp_path, "later", flag, value, epochs=1)
+    """The flags of the scaling layer (parallel/), which earlier slices
+    refused, now run: a mesh of two CPU ranks that this process starts, the
+    sharded checkpoint directory, host-sharded history arrays (here on one
+    process, so built whole), and a world of one process at a coordinator
+    (a free port). The log, written by global rank 0, reads as a
+    one-process run's."""
+    from rechorus_tpu_torch.parallel import distributed as D
+
+    if flag == "--dist_coordinator":
+        value = f"127.0.0.1:{D.free_port()}"
+    extra = ("--dist_num_processes", "1", "--dist_process_id", "0") \
+        if flag == "--dist_coordinator" else ()
+    _, text = _run(data_root, tmp_path, "later", flag, value, *extra, "--save_final_results", "0",
+                   epochs=1)
+    assert len(_epochs(text)) == 1
+    assert re.search(r"^Test After Training: \(HR@5:", text, re.M)
+    if flag in ("--data_parallel", "--model_parallel"):
+        assert "Mesh: data=%s model=%s over 2 ranks (cpu)" % (
+            ("2", "1") if flag == "--data_parallel" else ("1", "2")) in text
+    if flag == "--ckpt_format":
+        assert (tmp_path / "later.bin.orbax" / ".metadata").exists()
+    if flag == "--dist_coordinator":
+        assert "backend gloo, rank 0/1" in text
+        assert not D.is_distributed()                  # main destroyed the process group
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")
+@pytest.mark.parametrize("flags", [("--data_parallel", "2"), ("--model_parallel", "2"),
+                                   ("--data_parallel", "2", "--model_parallel", "2")])
+def test_mesh_on_cuda_needs_as_many_cards(data_root, tmp_path, flags):
+    """--gpu 0 (the default) puts each rank on a card: a mesh larger than the
+    cards at hand raises the JAX package's error before anything is built,
+    and no rank falls back to the CPU."""
+    n = int(np.prod([int(v) for v in flags[1::2]]))
+    argv = ["--model_name", "BPRMF", "--dataset", "Synth", "--path", str(data_root), "--epoch", "1",
+            "--log_file", str(tmp_path / "x.log"), "--model_path", str(tmp_path / "x.bin"), *flags]
+    with pytest.raises(ValueError, match=rf"mesh \dx\d needs {n} devices, have 0"):
+        port_main.build_parser_and_run(argv)
+    assert "Reading data" not in (tmp_path / "x.log").read_text()
 
 
 @pytest.mark.parametrize("route,recall", [("dense", 0.9), ("dense", 1.0), ("tiled", 0.5)])

@@ -67,6 +67,30 @@ def test_inproc_multi_seed(tmp_path, prefix):
     assert seed_rows.iloc[0]["Test"] != seed_rows.iloc[1]["Test"]
 
 
+@pytest.mark.parametrize("flags", ["--model_parallel 2", "--dist_coordinator 127.0.0.1:{port} "
+                                   "--dist_num_processes 1 --dist_process_id 0"])
+def test_inproc_seeds_on_a_mesh_and_at_a_coordinator(tmp_path, flags):
+    """A mesh command's seeds run on the ranks `exp` starts (two CPU ranks
+    here), a coordinator's in a world of one; global rank 0's trailers make
+    the rows, equal to the plain command's."""
+    from rechorus_tpu_torch.parallel import distributed as D
+
+    flags = flags.format(port=D.free_port())
+    (tmp_path / "run.sh").write_text(_command(tmp_path) + "\n")
+    port_exp.main(["--log_dir", str(tmp_path), "--cmd_dir", str(tmp_path), "--in_f", "run.sh",
+                   "--out_f", "plain.csv", "--n", "2", "--inproc", "1"])
+    (tmp_path / "run.sh").write_text(_command(tmp_path, extra=" " + flags) + "\n")
+    port_exp.main(["--log_dir", str(tmp_path), "--cmd_dir", str(tmp_path), "--in_f", "run.sh",
+                   "--out_f", "mesh.csv", "--n", "2", "--inproc", "1"])
+    plain, mesh = (_seed_rows(pd.read_csv(tmp_path / f)) for f in ("plain.csv", "mesh.csv"))
+    assert len(mesh) == 2 and list(mesh["Seed"]) == list(plain["Seed"])
+    if "coordinator" in flags:
+        assert list(mesh["Test"]) == list(plain["Test"])
+        assert not D.is_distributed()
+    else:   # the tables are padded for the model axis: another draw
+        assert all("HR@5" in str(t) for t in mesh["Test"])
+
+
 def test_commands_that_name_their_seed_run_as_subprocesses(tmp_path, monkeypatch):
     """A command with ${random_seed} runs once per seed in a subprocess, its
     seed substituted, and the rows come from each run's printed log."""

@@ -122,7 +122,22 @@ def test_sequential_batcher_equals_jax(readers, test_all):
 
 
 def test_host_shard_input_raises(readers):
+    """--host_shard_input (which earlier slices refused) defers the three
+    history arrays (`LazyRows`): any row range, and the whole, builds what
+    the eager batcher holds."""
+    from rechorus_tpu_torch.data.batching import LazyRows
+
     corpus, _ = readers
     model = argparse.Namespace(num_neg=1, test_all=0, history_max=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        SequentialBatcher(corpus, model, "train", _args(host_shard_input=1))
+    eager = SequentialBatcher(corpus, model, "train", _args(host_shard_input=0))
+    lazy = SequentialBatcher(corpus, model, "train", _args(host_shard_input=1))
+    n = len(eager)
+    for k in SequentialBatcher.HISTORY_KEYS:
+        assert isinstance(lazy.arrays[k], LazyRows) and lazy.arrays[k].shape == eager.arrays[k].shape
+        np.testing.assert_array_equal(lazy.arrays[k].materialize(), eager.arrays[k])
+        np.testing.assert_array_equal(lazy.arrays[k][n // 3: n // 2], eager.arrays[k][n // 3: n // 2])
+        pad = lazy.arrays[k].materialize(n - 2, n + 3)       # rows past the end are zeros
+        np.testing.assert_array_equal(pad[:2], eager.arrays[k][n - 2:])
+        assert not pad[2:].any()
+    tensors = lazy.device_arrays("cpu")
+    assert isinstance(tensors["history_items"], LazyRows) and tensors["user_id"].dtype == torch.int64
