@@ -5,8 +5,9 @@
     python3 chip_smoke.py --train_windows 5   # only the training lanes' timing windows
 
 It builds the CUDA kernels from rechorus_tpu_torch/csrc with nvcc for
-sm_90a, holds each kernel against its plain PyTorch version at the
-shapes the main path gives it, and drives the port's main paths:
+sm_90a and the corpus kernels of rechorus_tpu_torch/native with g++,
+holds each CUDA kernel against its plain PyTorch version at the shapes
+the main path gives it, and drives the port's main paths:
 
   * training: the flagship BPRMF command through the CLI on the committed
     Grocery corpus (dense Adam with sampled evaluation, `--test_all 1`,
@@ -82,9 +83,20 @@ shapes the main path gives it, and drives the port's main paths:
     S3Rec dense), then `python -m rechorus_tpu_torch.exp` in process over
     two seeds and a `--profile` run's trace; every checkpoint the phases
     write and reload is the JAX package's flax msgpack file;
+  * the native corpus kernels (host C++, built with g++) against their
+    plain numpy versions in turns, each output bit-equal: the 1M
+    sequential corpus's 2M history rows and clicked matrices, and the
+    impression corpus's dual histories;
   * serving and full-catalog ranking: the Grocery weights just trained,
     then a seeded 1M-item catalog at D=64, exact and approx (the bin max),
     and the runner's approx lane at 100,000 items (dense scores).
+
+Eight of the small-corpus CLI phases (the general family after BPRMF,
+TiSASRec to TiMiRec, the context and CTR phases, the context-sequential
+ones but SynthCTRLong, impression with re-rank, and developing) run in four worker processes on the
+same card (`--worker`, WORKER_GROUPS), beside the main process's own
+phases; the native-against-plain builds, the training windows and the
+kernels' times run after the workers end, alone.
 
 It checks what comes out (loss falls, dev HR@5 above a band taken from the
 JAX package, reload reproduces, lanes bit-equal, served ids and ranks equal
@@ -101,7 +113,9 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import dataclasses
+import fcntl
 import itertools
 import json
 import math
@@ -119,10 +133,11 @@ import pandas as pd
 
 from rechorus_tpu_torch import exp as port_exp
 from rechorus_tpu_torch import main as port_main
-from rechorus_tpu_torch import weights
+from rechorus_tpu_torch import native, weights
 from rechorus_tpu_torch.data import synthetic
 from rechorus_tpu_torch.data.batching import GeneralBatcher, get_batcher
-from rechorus_tpu_torch.data.readers import BaseReader, SeqReader
+from rechorus_tpu_torch.data.csr import csr_fill_matrix
+from rechorus_tpu_torch.data.readers import BaseReader, SeqReader, csr_history
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
 from rechorus_tpu_torch.models.general.lightgcn import LightGCN, build_edges
 from rechorus_tpu_torch.models.sequential.fpmc import FPMC
@@ -213,9 +228,12 @@ SEQ_MODELS = {  # model: (flags, dense epochs, dev HR@5 floor)
     "FPMC": (["--emb_size", "64", "--lr", "1e-3", "--l2", "1e-6", "--history_max", "20"], 2, 0.26),
 }
 SEQ_LAZY_DEV_HR5_FLOOR = 0.26   # SASRec, --lazy_emb_adam 1, 2 epochs
-SEQ_TIMED_EPOCHS = 1            # bench.py:97-127 times five after one warm-up; one here (the time limit)
+# the lazy-lane checks of runs without a lazy floor take the first
+# LAZY_STEPS steps of an epoch (`_lazy_steps`)
+LAZY_STEPS = 50
 # 1M-item sequential training: N_USERS users x SEQ_PER_USER interactions
 SEQ_PER_USER, SEQ_HISTORY, SEQ_TRAIN_STEPS = 10, 20, 100
+NATIVE_ROUNDS = 2     # native / plain corpus builds in turns (phase_native_corpus)
 # KDA: bench.py's kda lane flags (bench.py:58-60). Floors from the JAX
 # package run on a CPU with the same command and --random_seed 0, 1, 2
 # (its CLI, --save_final_results 0): dev HR@5 after 2 dense epochs 0.3643,
@@ -617,10 +635,43 @@ def ptxas_usage(log: str) -> dict:
 
 
 # ------------------------------------------------------------------ phases
-def phase_device():
+def _full_precision():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+# the lock file of `card_memory` while worker processes share the card,
+# and whether this process holds it
+_MEMORY_LOCK, _MEMORY_HELD = None, False
+
+
+@contextlib.contextmanager
+def card_memory():
+    """Held around a section that may take tens of GB of device memory (a
+    `--test_all` evaluation: up to 36 GB for DINTopK; a catalog-scale
+    phase) while worker processes share the card: one such section at a
+    time over all the processes, its cached blocks returned to the card
+    before the next one starts. Without workers, or inside another such
+    section, it does nothing."""
+    global _MEMORY_HELD
+    if _MEMORY_LOCK is None or _MEMORY_HELD:
+        yield
+        return
+    with open(_MEMORY_LOCK, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        _MEMORY_HELD = True
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            _MEMORY_HELD = False
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def phase_device():
+    _full_precision()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
@@ -634,11 +685,20 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels' library (nvcc), then the native corpus kernels'
+    (g++); each is compiled here when this tree's library is missing."""
     t0 = time.perf_counter()
     path, log = _build.build()
     _build.load()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=os.path.relpath(path, ROOT),
-         nvcc=_build.nvcc_path(), flags=_build.NVCC_FLAGS, kernels=ptxas_usage(log))
+    cuda_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    cached = native.library_path().exists()
+    lib = native.build()
+    native.load()
+    emit("build", seconds=round(cuda_s, 3), library=os.path.relpath(path, ROOT),
+         nvcc=_build.nvcc_path(), flags=_build.NVCC_FLAGS, kernels=ptxas_usage(log),
+         native=dict(seconds=round(time.perf_counter() - t, 3), library=os.path.relpath(lib, ROOT),
+                     compiler=native.compiler_path(), flags=native.CXX_FLAGS, was_built=not cached))
 
 
 def phase_kernels(gen):
@@ -1176,29 +1236,31 @@ def _saved_catalog_eval(totals, argv: list, model_path, profile: bool = False, e
     builds from `argv` with `--test_all 1`, the weights a dense run saved
     at `model_path` (None: a model with none, POP), and one evaluation of
     the first `rows` rows of the test split over the catalog (None: all
-    of them), as the CLI's "Test After Training".
+    of them), as the CLI's "Test After Training", under `card_memory`.
     Returns its seconds, launches, peak device memory and metrics; with
     `export`, the CLI's export of the test split too (`save_rec_results`),
     and the runner, state, test batcher and arrays under "stack"; with
     `profile`, then also the steady training step's profile on the same
     stack (its train feeds do not depend on --test_all), after WARM_STEPS
     steps, as `_grocery_lane` takes it."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv + ["--test_all", "1"])
-    init_seed(args.random_seed)
-    corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
-    state = runner.init_state(model, args.random_seed, batchers["train"])
-    if model_path is not None:
-        state = runner.load_model(state, model_path)
-    with counted(totals) as c:
-        test_b = batchers["test"] if rows is None else _FirstRows(batchers["test"], rows)
-        test = runner.evaluate(state, test_b, arrays["test"], "test", runner.topk, runner.metrics)
-        if export:
-            port_main.save_rec_results(args, corpus, runner, state, batchers, arrays)
-    out = dict(seconds=time.perf_counter() - t, launches=c.launches,
-               peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
+    with card_memory():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv + ["--test_all", "1"])
+        init_seed(args.random_seed)
+        corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls,
+                                                                        runner_cls)
+        state = runner.init_state(model, args.random_seed, batchers["train"])
+        if model_path is not None:
+            state = runner.load_model(state, model_path)
+        with counted(totals) as c:
+            test_b = batchers["test"] if rows is None else _FirstRows(batchers["test"], rows)
+            test = runner.evaluate(state, test_b, arrays["test"], "test", runner.topk, runner.metrics)
+            if export:
+                port_main.save_rec_results(args, corpus, runner, state, batchers, arrays)
+        out = dict(seconds=time.perf_counter() - t, launches=c.launches,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(), test=test)
     if export:
         out["stack"] = dict(runner=runner, state=state, batcher=batchers["test"], arrays=arrays["test"])
     if profile:
@@ -1226,37 +1288,52 @@ def _cli_run(argv: list, stack: dict = None):
     return state
 
 
-def _grocery_lane(model_name: str, stack: dict, timed_epochs: int) -> dict:
+def _lazy_steps(totals, argv: list, steps: int = LAZY_STEPS) -> tuple:
+    """The `--lazy_emb_adam 1` check of a run without a lazy floor: the
+    stack the CLI builds from `argv` (init_state names the optimizer lane
+    in the run's log), then the first `steps` steps of its first epoch
+    through BaseRunner.fit, as the CLI's training runs them. Returns
+    (seconds, launches, the steps' mean loss) and the log's text."""
+    t = time.perf_counter()
+    args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
+    port_io.init_logging(args.log_file, args.verbose)
+    port_main.set_dense_init(args.dense_init)
+    init_seed(args.random_seed)
+    corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls, runner_cls)
+    runner.random_seed = args.random_seed
+    state = runner.init_state(model, args.random_seed, batchers["train"])
+    with counted(totals) as c:
+        loss = runner.fit(state, batchers["train"], arrays["train"], 1, max_steps=steps)
+    check(np.isfinite(loss), f"{model_cls.__name__} --lazy_emb_adam 1, {steps} steps: loss {loss}")
+    return dict(seconds=time.perf_counter() - t, steps=steps, launches=c.launches, loss=loss), \
+        open(args.log_file).read()
+
+
+def _grocery_lane(stack: dict) -> dict:
     """A Grocery training lane, going on from the trained state of a CLI
-    run's `stack` (`_cli_run`), whose epochs were its warm-up: the step
-    profile of its steady step, after WARM_STEPS more steps; with
-    `timed_epochs`, first its s/train-epoch as bench.py's Grocery lane
-    measures it (bench.py:97-127): `timed_epochs` epochs timed one by one
-    on the host clock, each ending in the read of its mean loss (a device
-    sync)."""
+    run's `stack` (`_cli_run`): the step profile of its steady step, after
+    WARM_STEPS more steps."""
     runner, batchers, arrays, state = (stack[k] for k in ("runner", "batchers", "arrays", "state"))
     lane = (runner, state, batchers["train"], arrays["train"])
-    out = dict(examples=len(batchers["train"]), batch=runner.batch_size)
-    if timed_epochs:
-        times = []
-        for e in range(1, timed_epochs + 1):
-            t = time.perf_counter()
-            loss = runner.fit(*lane[1:], e)
-            times.append(time.perf_counter() - t)
-            check(np.isfinite(loss), f"{model_name} timed epoch {e}: loss {loss}")
-        out["epoch_s"] = dict(median=float(np.median(times)), min=min(times), max=max(times),
-                              epochs=times)
-    else:
-        runner.fit(*lane[1:], 0, max_steps=WARM_STEPS)
-    out["step_profile"] = _step_profile(lane, runner.batch_size)
-    return out
+    runner.fit(*lane[1:], 0, max_steps=WARM_STEPS)
+    return dict(examples=len(batchers["train"]), batch=runner.batch_size,
+                step_profile=_step_profile(lane, runner.batch_size))
+
+
+def _timed_epochs(epoch_s: list) -> dict:
+    """s/train-epoch as bench.py's Grocery lanes measure it (bench.py:97-127:
+    epochs after one warm-up epoch, each ending in the read of its mean
+    loss, a device sync): a dense CLI run's epochs after its first, as its
+    log lines time them (to 0.1 s)."""
+    times = epoch_s[1:]
+    return dict(median=float(np.median(times)), min=min(times), max=max(times), epochs=times)
 
 
 def phase_train_grocery_seq(totals):
     """The sequential models through the CLI on the card, on the committed
     Grocery corpus: SASRec with bench.py's lane flags (dense Adam for
     SEQ_MODELS' epochs with its dev HR@5 floor, bench.py's s/train-epoch
-    after them, `--test_all 1` on the saved weights (B1) and a
+    from their log lines, `--test_all 1` on the saved weights (B1) and a
     `--lazy_emb_adam 1` run (the packed lane's Adam commit on the item
     table, history ids included)), then
     GRU4Rec, NARM, Caser and FPMC with their benchmark flags, 2 dense
@@ -1293,9 +1370,9 @@ def phase_train_grocery_seq(totals):
         out["sasrec_dense"], _ = run("SASRec", "sasrec_dense", epochs=epochs, stack=stack)
         check(out["sasrec_dense"]["dev"]["HR@5"] > floor,
               f"SASRec dev HR@5 {out['sasrec_dense']['dev']['HR@5']} above {floor}")
-        # 2. its s/train-epoch as bench.py measures it (the dense run's epochs
-        # the warm-up), and its step profile
-        out["sasrec_lane"] = _grocery_lane("SASRec", stack, SEQ_TIMED_EPOCHS)
+        # 2. its s/train-epoch as bench.py measures it, and its step profile
+        out["sasrec_lane"] = dict(_grocery_lane(stack),
+                                  epoch_s=_timed_epochs(out["sasrec_dense"]["epoch_s"]))
         del stack
         # 3. --test_all 1 on the dense run's weights: the catalog route ranks
         # the test split through B1
@@ -1325,7 +1402,7 @@ def phase_train_grocery_seq(totals):
             out[name], _ = run(name, name, epochs=epochs, stack=stack)
             check(out[name]["dev"]["HR@5"] > floor,
                   f"{name} dev HR@5 {out[name]['dev']['HR@5']} above {floor}")
-            out[name]["lane"] = _grocery_lane(name, stack, 0)
+            out[name]["lane"] = _grocery_lane(stack)
             del stack
     emit("train_grocery_seq", floors={k: v[2] for k, v in SEQ_MODELS.items()},
          lazy_floor=SEQ_LAZY_DEV_HR5_FLOOR, rows=dict(train=n_train, **n_rows),
@@ -1355,6 +1432,73 @@ def seq_corpus_1m(n_items: int = N_ITEMS) -> SeqReader:
     corpus._build_clicked_sets()
     corpus._append_his_info()
     return corpus
+
+
+def _in_turns_s(fns: dict, rounds: int = NATIVE_ROUNDS) -> tuple:
+    """({name: [host s of each call]}, {name: last result}) of calling each
+    of `fns` in turns, `rounds` times."""
+    secs, res = {k: [] for k in fns}, {}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t = time.perf_counter()
+            res[k] = fn()
+            secs[k].append(round(time.perf_counter() - t, 4))
+    return secs, res
+
+
+def _bit_equal(a, b) -> bool:
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_native_corpus(corpus_1m):
+    """The native corpus kernels (rechorus_tpu_torch/native, host C++)
+    against their plain numpy versions on the same host, in turns (native,
+    then plain, NATIVE_ROUNDS times), each output bit-equal: the history
+    arrays of every row of the 1M sequential corpus (`seq_corpus_1m`, the
+    rows its batchers build), its clicked matrix with and without the
+    residual rows, and the dual histories of the impression cell's requests
+    (the ImpressionSeqReader of SASRecImpression's command, built here on
+    the impression cell written under a temporary directory)."""
+    t0 = time.perf_counter()
+    out = {}
+    df = pd.concat([corpus_1m.data_df[k] for k in ("train", "dev")])
+    users, positions = df["user_id"].to_numpy(), df["position"].to_numpy()
+    secs, res = _in_turns_s({
+        "native": lambda: corpus_1m.history_arrays(df, SEQ_HISTORY),
+        "plain": lambda: csr_history(corpus_1m.user_his, users, positions, SEQ_HISTORY)})
+    check(_bit_equal(res["native"], res["plain"]) and res["native"][2].max() == SEQ_PER_USER - 1,
+          "1M history arrays: native = plain, bit for bit")
+    out["history_1m"] = dict(rows=len(df), history_max=SEQ_HISTORY, s=secs, bit_equal=True)
+    for residual in (False, True):
+        flat, offsets = corpus_1m.clicked_csr(residual)
+        max_len = max(1, int(np.diff(offsets).max()))
+        secs, res = _in_turns_s({"native": lambda: native.fill_clicked_matrix(flat, offsets, max_len),
+                                 "plain": lambda: csr_fill_matrix(flat, offsets, max_len)})
+        check(_bit_equal(res["native"], res["plain"])
+              and _bit_equal(corpus_1m.clicked_matrix(include_residual=residual), res["plain"]),
+              f"1M clicked matrix (residual {residual}): native = plain = the reader's")
+        out["clicked_1m" + ("_with_residual" if residual else "")] = dict(
+            shape=list(res["native"].shape), s=secs, bit_equal=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.make_impression_dataset(os.path.join(tmp, "data", IMP_DATASET), **CB.IMP_ML1M)
+        args, _, reader_cls, _ = port_main.parse_cli(_imp_argv(tmp, "SASRec", "native"))
+        t = time.perf_counter()
+        imp = port_main.build_corpus(args, reader_cls)
+        build_s = time.perf_counter() - t
+    check(type(imp).__name__ == "ImpressionSeqReader", f"the impression cell's reader: {type(imp)}")
+    for split in ("train", "dev", "test"):
+        d = imp.data_df[split]
+        u = d["user_id"].to_numpy()
+        plain = (lambda d=d, u=u: csr_history(imp.user_his.pos, u, d["position"].to_numpy(), args.history_max)
+                 + csr_history(imp.user_his.neg, u, d["neg_position"].to_numpy(), args.history_max))
+        secs, res = _in_turns_s({"native": lambda d=d: imp.dual_history_arrays(d, args.history_max),
+                                 "plain": plain})
+        check(_bit_equal(res["native"], res["plain"]) and res["native"][2].max() > 0,
+              f"impression {split} dual histories: native = plain")
+        out[f"dual_history_{split}"] = dict(rows=len(d), history_max=args.history_max, s=secs, bit_equal=True)
+    emit("native_corpus", rounds=NATIVE_ROUNDS, impression_reader_build_s=round(build_s, 3),
+         seconds=round(time.perf_counter() - t0, 3), **out)
 
 
 def _seq_lane(corpus, model_cls, flags, **kw):
@@ -1490,7 +1634,7 @@ def phase_train_1m_seq(totals):
     t = time.perf_counter()
     lane = _seq_lane(corpus, TiSASRec, [], num_layers=1, num_heads=1)
     runner, state, batcher, arrays = lane[:4]
-    build_s = time.perf_counter() - t
+    lane_build_s = time.perf_counter() - t
     check(int(arrays["user_min_intervals"].min()) == 60 == int(arrays["user_min_intervals"].max()),
           "every 1M user's minimum gap is the corpus's 60 s")
     warm = runner.fit(state, batcher, arrays, 1, max_steps=2)
@@ -1501,7 +1645,7 @@ def phase_train_1m_seq(totals):
     check(np.isfinite(loss), f"1M TiSASRec dense: loss {warm} -> {loss}")
     out["tisasrec"] = dict(steps=WARM_STEPS, ms_per_step=secs * 1e3 / WARM_STEPS,
                            examples_per_s=WARM_STEPS * BATCH / secs, loss=loss, warm_loss=warm,
-                           lane_build_s=build_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
+                           lane_build_s=lane_build_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
     out["tisasrec_eval"] = _catalog_eval_vs_dense(totals, lane)
     corpus = out.pop("corpus")
     emit("train_1m_seq", n_users=N_USERS, n_items=N_ITEMS, per_user=SEQ_PER_USER, emb_size=EMB,
@@ -1515,8 +1659,8 @@ def phase_train_grocery_kda(totals):
     """KDA through the CLI on the card with bench.py's kda lane flags, on
     the committed Grocery corpus and its item_meta.csv: KDA_EPOCHS dense
     epochs (the loss falls, dev HR@5 over its floor), bench.py's
-    s/train-epoch and the steady step's profile, a `--test_all 1` run
-    (the dense route: B1 over [256, 8714] predictions of the model's own
+    s/train-epoch from their log lines and the steady step's profile, a
+    `--test_all 1` run (the dense route: B1 over [256, 8714] predictions of the model's own
     forward; peak device memory), the tiled route on the trained weights,
     and a `--lazy_emb_adam 1` run (the packed lane's Adam commit on the
     user, item-bias and entity tables). The KDAReader build (triplets,
@@ -1563,9 +1707,8 @@ def phase_train_grocery_kda(totals):
         # 1b. the tiled route with the trained weights
         out["tiled_trained"] = _kda_trained_tiled(totals, argv(
             "kda_dense", "--test_all", "1", "--eval_candidate_chunk", str(KDA_TRAINED_CHUNK), epochs=1))
-        # 2. its s/train-epoch as bench.py measures it (the dense run's
-        # epochs the warm-up), and its step profile
-        out["lane"] = _grocery_lane("KDA", stack, SEQ_TIMED_EPOCHS)
+        # 2. its s/train-epoch as bench.py measures it, and its step profile
+        out["lane"] = dict(_grocery_lane(stack), epoch_s=_timed_epochs(out["dense"]["epoch_s"]))
         del stack
         # 3. --test_all 1 on the dense run's weights: the dense route ranks
         # the test split through B1
@@ -1609,18 +1752,18 @@ def _dense_forward_ranks(model, b, arr, idx):
 
 def _kda_trained_tiled(totals, argv) -> dict:
     """KDA's tiled ranks with trained weights, where many targets rank 1:
-    Grocery's test rows at a chunk small enough for the runner's rule to
-    tile, every rank at least 1, held against the dense forward's ranks of
-    the same weights up to near-ties. Also counts the rows whose target
-    the one-candidate forward (the tiled route's t) scores apart from the
-    dense forward."""
+    the first TEST_ALL_ROWS of Grocery's test rows at a chunk small enough
+    for the runner's rule to tile, every rank at least 1, held against the
+    dense forward's ranks of the same weights up to near-ties. Also counts
+    the rows whose target the one-candidate forward (the tiled route's t)
+    scores apart from the dense forward."""
     args, model_cls, reader_cls, runner_cls = port_main.parse_cli(argv)
     init_seed(SEED)
     corpus, runner, model, batchers, arrays = port_main.build_stack(args, model_cls, reader_cls,
                                                                     runner_cls)
     state = runner.load_model(runner.init_state(model, SEED))
     model.eval()
-    b, arr = batchers["test"], arrays["test"]
+    b, arr = _FirstRows(batchers["test"], TEST_ALL_ROWS), arrays["test"]
     check(runner._use_tiled_forward(model, b, arr),
           f"{corpus.n_items} items at chunk {KDA_TRAINED_CHUNK} take the tiled route")
     torch.cuda.synchronize()
@@ -1840,12 +1983,12 @@ def phase_train_grocery_seq2(totals):
     falls, dev HR@5 over its floor), a `--test_all 1` run (B1 over the
     catalog: TiSASRec's catalog protocol, the others' [256, 8714] forward)
     and the steady step's profile on its stack, and, for the four models with lazy
-    tables, a `--lazy_emb_adam 1` run (the packed lane's Adam commit, one
-    launch per table per step). The second stages start from the first
-    stages' files (the log line, and the weights equal to the file's);
+    tables, the first LAZY_STEPS steps of a `--lazy_emb_adam 1` run (the
+    packed lane's Adam commit, one launch per table per step). The second
+    stages start from the first stages' files (the log line, and the weights equal to the file's);
     without the file Chorus stage 2 raises and TiMiRec's finetune trains
     from scratch. Chorus stage 2 under --lazy_emb_adam 1 warns and trains
-    dense."""
+    dense (LAZY_STEPS steps)."""
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1877,14 +2020,13 @@ def phase_train_grocery_seq2(totals):
                         epoch_s=[float(x) for x in re.findall(r"^Epoch \d+ .*?\[([\d.]+) s\]\tdev",
                                                               text, re.M)]), text
 
-        n_rows = n_batch = None
+        n_rows = None
         for run_name, (name, flags, epochs, floor, commits, test_all) in SEQ2_MODELS.items():
             res = out[run_name] = {}
             if n_rows is None:
                 rargs, _, reader_cls, _ = port_main.parse_cli(argv(run_name, "reader", epochs=1))
                 corpus = port_main.build_corpus(rargs, reader_cls)
                 n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
-                n_batch = {k: -(-n // EVAL_BATCH) for k, n in n_rows.items()}
                 del corpus
             if run_name == "Chorus_stage2":
                 # without the stage-1 file, stage 2 raises the JAX package's error
@@ -1930,16 +2072,18 @@ def phase_train_grocery_seq2(totals):
                       f"ge_count launches of the {run_name} --test_all run: "
                       f"{res['test_all']['launches']} != {want}")
             else:
-                res["lane"] = _grocery_lane(name, stack, 0)
+                res["lane"] = _grocery_lane(stack)
             del stack
             # 3. --lazy_emb_adam 1: one commit per lazy table per step
             if commits is not None:
-                res["lazy"], _ = run(run_name, run_name + "_lazy", "--lazy_emb_adam", "1", epochs=1)
-                check(res["lazy"]["launches"]["adam_commit"] == commits * n_batch["train"],
-                      f"adam_commit launches of the {run_name} lazy run: {res['lazy']['launches']} "
-                      f"!= {commits} x {n_batch['train']}")
+                res["lazy"], _ = _lazy_steps(totals, argv(run_name, run_name + "_lazy", "--lazy_emb_adam", "1",
+                                                          epochs=1))
+                check(res["lazy"]["launches"]["adam_commit"] == commits * LAZY_STEPS,
+                      f"adam_commit launches of the {run_name} lazy steps: {res['lazy']['launches']} "
+                      f"!= {commits} x {LAZY_STEPS}")
             if run_name == "Chorus_stage2":
-                res["lazy_refused"], text = run(run_name, "chorus_lazy", "--lazy_emb_adam", "1", epochs=1)
+                res["lazy_refused"], text = _lazy_steps(totals, argv(run_name, "chorus_lazy", "--lazy_emb_adam",
+                                                                     "1", epochs=1))
                 check("--lazy_emb_adam needs plain Adam without lr scales" in text
                       and res["lazy_refused"]["launches"]["adam_commit"] == 0,
                       f"Chorus stage 2 refuses the lazy lane: {res['lazy_refused']['launches']}")
@@ -2126,7 +2270,7 @@ def phase_train_ctr(totals):
                 res["reload"] = dict(seconds=secs2, batch_norm_buffers=len(stats))
             # the steady step's profile, on the run's stack (after the checks
             # of its trained weights: the profile trains on)
-            res["lane"] = _grocery_lane(name + "CTR", stack, 0)
+            res["lane"] = _grocery_lane(stack)
             del stack
             del state
         # FMCTR with --lazy_emb_adam 1: no lazy tables, the dense optimizer
@@ -2386,7 +2530,7 @@ def phase_train_impression(totals, tmp):
             del runner, b
         # the steady step's profile, on the run's stack (after the checks of
         # its trained weights: the profile trains on)
-        res["lane"] = _grocery_lane(run, stack, 0)
+        res["lane"] = _grocery_lane(stack)
         del state, stack
     # --test_all 1 on the BPR run's weights: the negative block is the catalog
     # (one evaluation of the test split and the export, on the stack the
@@ -2476,7 +2620,7 @@ def phase_train_rerank(totals, tmp, chance: dict):
                             test=_log_metrics(text, "Test After Training"), launches=launches,
                             peak_memory_bytes=peak)
         _impression_quality(run, dev["NDCG@3"], res["train"]["losses"][-1], floor, chance)
-        res["lane"] = _grocery_lane(run, stack, 0)
+        res["lane"] = _grocery_lane(stack)
         del stack
     # the frozen and the tuned lane of PRMGeneral, a few steps each
     want = weights.read_checkpoint(os.path.join(tmp, "BPRMF.bin"), "BPRMFImpression", "cuda")
@@ -2532,10 +2676,11 @@ def phase_train_grocery_developing(totals):
     [eval batch, 8714] forward: one launch a test batch) with its peak
     memory, and the steady step's profile on that stack. `--lazy_emb_adam
     1` as the JAX CLI runs it: CLRec's item table through the B4 Adam
-    commit, each commit of the run held bit-equal to the plain commit on
-    the same inputs (a CLRec run is not reproducible bit for bit on the
-    card, so two whole runs cannot be compared); SRGNN and FourierTA raise
-    the JAX package's error with no commit; S3Rec trains dense. Then `python -m rechorus_tpu_torch.exp` in
+    commit over the first LAZY_STEPS steps of an epoch (`_lazy_steps`), each
+    commit held bit-equal to the plain commit on the same inputs (a CLRec
+    run is not reproducible bit for bit on the card, so two runs cannot be
+    compared); SRGNN and FourierTA raise the JAX package's error with no
+    commit; S3Rec trains dense. Then `python -m rechorus_tpu_torch.exp` in
     process on a 1-epoch BPRMF command with 2 seeds (two parsed seed rows
     and their mean row), and a 2-epoch BPRMF run with `--profile` (a Chrome
     trace of epoch 2 that holds CUDA kernel events)."""
@@ -2556,7 +2701,6 @@ def phase_train_grocery_developing(totals):
         corpus = port_main.build_corpus(rargs, reader_cls)
         n_rows = {k: int((corpus.data_df[k]["position"] > 0).sum()) for k in ("train", "dev", "test")}
         del corpus
-        steps = -(-n_rows["train"] // EVAL_BATCH)
         pre = os.path.join(tmp, f"Pre__{GROCERY}.bin")
         for run_name, (name, _, floor, lazy) in DEV_RUNS.items():
             res = out[run_name] = {}
@@ -2604,20 +2748,18 @@ def phase_train_grocery_developing(totals):
             commits = {"n": 0}
             kernel_commit, LA.adam_commit = LA.adam_commit, _plain_checked_commit(LA.adam_commit, commits)
             try:
-                state, text, launches, secs, _ = _context_run(totals, tmp, lazy_argv, run_name + "_lazy")
+                res["lazy"], text = _lazy_steps(totals, lazy_argv + ["--log_file",
+                                                                     os.path.join(tmp, run_name + "_lazy.log")])
             finally:
                 LA.adam_commit = kernel_commit
-            losses = _context_checked(text, 1, run_name + "_lazy")
-            res["lazy"] = dict(seconds=secs, launches=launches, losses=losses,
-                               dev=_log_metrics(text, "Dev  After Training"))
+            launches = res["lazy"]["launches"]
             if lazy == "dense":
                 check(f"--lazy_emb_adam: {name} declares no lazy tables; dense optimizer" in text
                       and launches["adam_commit"] == 0, f"{run_name} --lazy_emb_adam 1 trains dense: {launches}")
                 continue
-            check(launches["adam_commit"] == lazy * steps == commits["n"],
-                  f"{run_name} lazy: adam_commit launches {launches} != {lazy} x {steps}")
+            check(launches["adam_commit"] == lazy * LAZY_STEPS == commits["n"],
+                  f"{run_name} lazy: adam_commit launches {launches} != {lazy} x {LAZY_STEPS}")
             res["lazy"].update(commits_checked=commits["n"], kernel_commit_equals_plain_commit=True)
-            del state
         out["exp"] = _exp_two_seeds(totals, tmp)
         out["profile"] = _profiled_run(totals, tmp)
     emit("train_grocery_developing", flags={k: v[1] for k, v in DEV_RUNS.items()}, common=CB.DEV_COMMON,
@@ -3308,15 +3450,125 @@ def phase_launch_path():
     emit("launch_path", **got, seconds=round(time.perf_counter() - t0, 3))
 
 
+def phase_train_impression_rerank(totals):
+    """phase_train_impression, then phase_train_rerank over its checkpoints."""
+    with tempfile.TemporaryDirectory() as tmp:
+        imp = phase_train_impression(totals, tmp)
+        phase_train_rerank(totals, tmp, imp["chance"])
+
+
+# The small-corpus CLI phases: host-bound runs at batch 256 or 1024 that
+# leave the card idle most of the time. Each group runs in a worker process
+# of its own (`--worker`), beside the other groups and the main process's
+# catalog-scale phases; a group's phases run one after another. Run one
+# after another in one process, the groups took 168-218 s each on an H100
+# machine's host.
+WORKER_PHASES = {
+    "train_grocery_seq2": phase_train_grocery_seq2,
+    "train_ctr_seq": phase_train_ctr_seq,
+    "train_impression_rerank": phase_train_impression_rerank,
+    "train_ctr": phase_train_ctr,
+    "train_grocery_context_seq": phase_train_grocery_context_seq,
+    "train_grocery_general": phase_train_grocery_general,
+    "train_grocery_context": phase_train_grocery_context,
+    "train_grocery_developing": phase_train_grocery_developing,
+}
+WORKER_GROUPS = (
+    ("train_grocery_seq2", "train_ctr_seq"),
+    ("train_impression_rerank", "train_ctr"),
+    ("train_grocery_context_seq", "train_grocery_general"),
+    ("train_grocery_context", "train_grocery_developing"),
+)
+WORKER_TIMEOUT_S = 900   # from their start; the whole script has 1200 s
+
+
+def run_worker(names: list, totals_path: str) -> int:
+    """A worker process: the phases `names` one after another, their lines
+    on stdout, then the launch counts they added up, as JSON at
+    `totals_path`."""
+    t0 = time.perf_counter()
+    _full_precision()
+    _build.load()
+    native.load()
+    totals = {}
+    for name in names:
+        WORKER_PHASES[name](totals)
+    with open(totals_path, "w") as f:
+        json.dump(totals, f)
+    emit("worker", phases=names, threads=torch.get_num_threads(), seconds=round(time.perf_counter() - t0, 3))
+    return 0
+
+
+class Workers:
+    """The WORKER_GROUPS, each started in a process of its own on the same
+    card, with its share of the host's CPU threads (as is the main process
+    until `join`) and `card_memory`'s lock file; `join` waits for them,
+    prints their lines in the groups' order, adds their launch counts to
+    `totals` and fails if one failed. `stop` ends any still running."""
+
+    def __init__(self, tmp: str):
+        global _MEMORY_LOCK
+        _MEMORY_LOCK = os.path.join(tmp, "card_memory.lock")
+        self.threads = torch.get_num_threads()
+        share = max(1, (os.cpu_count() or 1) // (len(WORKER_GROUPS) + 1))
+        torch.set_num_threads(share)
+        env = dict(os.environ, OMP_NUM_THREADS=str(share), MKL_NUM_THREADS=str(share),
+                   OPENBLAS_NUM_THREADS=str(share))
+        self.t0, self.procs = time.perf_counter(), []
+        for i, group in enumerate(WORKER_GROUPS):
+            log, out = (os.path.join(tmp, f"worker{i}.{ext}") for ext in ("log", "json"))
+            with open(log, "w") as f:
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", ",".join(group),
+                                         "--worker_totals", out, "--memory_lock", _MEMORY_LOCK],
+                                        stdout=f, env=env, cwd=ROOT)
+            self.procs.append((group, log, out, proc))
+
+    def join(self, totals: dict) -> None:
+        failed = []
+        for group, log, out, proc in self.procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, self.t0 + WORKER_TIMEOUT_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                rc = f"still running after {WORKER_TIMEOUT_S} s"
+            with open(log) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+            if rc == 0:
+                with open(out) as f:
+                    for name, n in json.load(f).items():
+                        totals[name] = totals.get(name, 0) + n
+            else:
+                failed.append((group, rc))
+        torch.set_num_threads(self.threads)
+        emit("workers", groups=[list(g) for g in WORKER_GROUPS], seconds=round(time.perf_counter() - self.t0, 3))
+        check(not failed, f"worker phases failed: {failed}")
+
+    def stop(self) -> None:
+        for *_, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main() -> int:
+    global _MEMORY_LOCK
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train_windows", type=int, default=0, metavar="ROUNDS",
                         help="run only the interleaved timing windows of the training lanes, "
                              "ROUNDS rounds, and print their line (to compare two trees in turn)")
+    parser.add_argument("--worker", default="", metavar="PHASES",
+                        help="run only these phases (names of WORKER_PHASES, comma-separated), as one of "
+                             "the worker processes that the whole run starts")
+    parser.add_argument("--worker_totals", default="", help="with --worker: where to write the launch counts")
+    parser.add_argument("--memory_lock", default=None, help="with --worker: card_memory's lock file")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if opts.worker:
+        _MEMORY_LOCK = opts.memory_lock
+        return run_worker(opts.worker.split(","), opts.worker_totals)
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -3327,36 +3579,42 @@ def main() -> int:
     err = phase_kernels(gen)
 
     # the main paths: each is driven with every count at 0 just before it
-    # and read just after; `totals` adds them up
+    # and read just after; `totals` adds them up, the workers' included.
+    # The flagship and the 1M training lanes run first, alone on the card;
+    # the timing phases (native against plain, the training windows, the
+    # kernels' times) run last, after the workers
     totals = {}
     g_model, g_test_all = phase_train_grocery(totals)
     phase_train_1m(totals)
-    phase_train_grocery_seq(totals)
-    corpus_1m = phase_train_1m_seq(totals)
-    phase_train_grocery_kda(totals)
-    phase_kda_tiled(totals)
-    phase_train_grocery_general(totals)
-    phase_train_grocery_seq2(totals)
-    phase_train_grocery_context(totals)
-    phase_train_ctr(totals)
-    phase_train_grocery_context_seq(totals)
-    phase_train_ctr_seq(totals)
-    phase_ctr_long(totals)
     with tempfile.TemporaryDirectory() as tmp:
-        imp = phase_train_impression(totals, tmp)
-        phase_train_rerank(totals, tmp, imp["chance"])
-    phase_train_grocery_developing(totals)
-    phase_lightgcn_1m(totals, corpus_1m)
+        workers = Workers(tmp)
+        try:
+            phase_train_grocery_seq(totals)
+            with card_memory():
+                corpus_1m = phase_train_1m_seq(totals)
+            phase_train_grocery_kda(totals)
+            with card_memory():
+                phase_kda_tiled(totals)
+            phase_ctr_long(totals)
+            with card_memory():
+                phase_lightgcn_1m(totals, corpus_1m)
+            with card_memory(), counted(totals) as serving:
+                g_model, g_corpus = phase_grocery(g_model)
+                idx, ut, it, users, target = phase_catalog(gen)
+            check(all(serving.launches[k] > 0 for k in ("ge_count", "fused_bucket_max", "fused_ge_count")),
+                  f"the serving path ran B1-B3: {serving.launches}")
+            with card_memory():
+                phase_approx(totals, idx, ut, it, users)
+            with card_memory():
+                phase_parallel(totals, g_test_all, ut, it, users, target)
+            workers.join(totals)
+        finally:
+            workers.stop()
+            _MEMORY_LOCK = None
+    emit("main_path_launches", serving=serving.launches, all_paths=totals)
+    phase_native_corpus(corpus_1m)
     del corpus_1m
     phase_train_windows()
-    with counted(totals) as serving:
-        g_model, g_corpus = phase_grocery(g_model)
-        idx, ut, it, users, target = phase_catalog(gen)
-    check(all(serving.launches[k] > 0 for k in ("ge_count", "fused_bucket_max", "fused_ge_count")),
-          f"the serving path ran B1-B3: {serving.launches}")
-    phase_approx(totals, idx, ut, it, users)
-    phase_parallel(totals, g_test_all, ut, it, users, target)
-    emit("main_path_launches", serving=serving.launches, all_paths=totals)
     check(all(n > 0 for k, n in totals.items() if k not in OFF_PATH),
           f"every kernel of the main paths ran: {totals}")
 

@@ -8,8 +8,11 @@ Contract parity with the reference (src/helpers/BaseReader.py): the
 reader exposes `data_df{train,dev,test}` (pandas), `n_users`/`n_items`
 (= max id + 1) and `train_clicked_set` / `residual_clicked_set` per user,
 plus the fixed-shape `clicked_matrix()` the catalog paths take. The
-corpus arrays are built with vectorised numpy only (no native fast path
-and no per-row loop); the corpus pickle cache lives in
+fixed-shape history arrays and the padded clicked matrices come from the
+C++ kernels of `rechorus_tpu_torch.native` (built with g++ at first use;
+no numpy fallback), the rest from vectorised numpy with no per-row loop.
+`csr_history` here and `csr.csr_fill_matrix` are the kernels' plain
+versions, which the tests hold them to. The corpus pickle cache lives in
 main.build_corpus.
 """
 from __future__ import annotations
@@ -22,7 +25,8 @@ import warnings
 import numpy as np
 import pandas as pd
 
-from rechorus_tpu_torch.data.csr import CSRRows, DualCSRRows, csr_fill_matrix, pairs_to_csr
+from rechorus_tpu_torch import native
+from rechorus_tpu_torch.data.csr import CSRRows, DualCSRRows, pairs_to_csr
 from rechorus_tpu_torch.ops import kg as kg_ops
 from rechorus_tpu_torch.registry import register_reader
 
@@ -73,7 +77,8 @@ def csr_history(his: CSRRows, users, positions, history_max: int, chunk: int = 1
     takes his[users[r]][:positions[r]][-H:] of a CSR of [item, time] rows,
     left-aligned and zero-padded; a row with position <= 0 is empty.
     Gathered from the CSR offsets in row chunks of `chunk`, with no per-row
-    loop."""
+    loop: the plain version of `native.build_history_arrays`, which the
+    readers call."""
     users = np.asarray(users).astype(np.int64)
     positions = np.asarray(positions).astype(np.int64)
     flat, offsets = his.flat, his.offsets
@@ -173,32 +178,37 @@ class BaseReader:
             '"# user": {}, "# item": {}, "# entry": {}'.format(self.n_users - 1, self.n_items - 1, len(self.all_df))
         )
 
-    def history_arrays(self, df: pd.DataFrame, history_max: int, chunk: int = 1 << 20):
+    def history_arrays(self, df: pd.DataFrame, history_max: int):
         """Fixed-shape ([n, history_max] int32 items, [n, history_max]
         int64 times, [n] int32 lengths) of the rows of `df`: row r's
         history is user_his[u][:position][-history_max:], left-aligned and
-        zero-padded (reference BaseModel.py:236-245). Needs `user_his` (a
-        CSR of [item, time] rows in time order, from SeqReader)."""
-        return csr_history(self.user_his, df["user_id"].to_numpy(), df["position"].to_numpy(),
-                           history_max, chunk)
+        zero-padded (reference BaseModel.py:236-245), by the native kernel.
+        Needs `user_his` (a CSR of [item, time] rows in time order, from
+        SeqReader)."""
+        return native.build_history_arrays(self.user_his.flat, self.user_his.offsets,
+                                           df["user_id"].to_numpy(), df["position"].to_numpy(), history_max)
 
     def clicked_matrix(self, include_residual: bool = False) -> np.ndarray:
         """Padded per-user clicked-item matrix [n_users, max_clicked]
         int32, pad 0 (item ids are >= 1): the exclusion rows of the
-        catalog top-k and rank paths (reference BaseRunner.py:244-251)."""
-        train = self.train_clicked_set
-        if include_residual:
-            res = self.residual_clicked_set
-            users = np.concatenate([
-                np.repeat(np.arange(self.n_users), np.diff(train.offsets)),
-                np.repeat(np.arange(self.n_users), np.diff(res.offsets)),
-            ])
-            flat, offsets = pairs_to_csr(users, np.concatenate([train.flat, res.flat]),
-                                         self.n_users, unique=True)
-        else:
-            flat, offsets = train.flat, train.offsets
+        catalog top-k and rank paths (reference BaseRunner.py:244-251),
+        filled from `clicked_csr` by the native kernel."""
+        flat, offsets = self.clicked_csr(include_residual)
         max_len = max(1, int(np.diff(offsets).max()))
-        return csr_fill_matrix(flat, offsets, max_len)
+        return native.fill_clicked_matrix(flat, offsets, max_len)
+
+    def clicked_csr(self, include_residual: bool = False) -> tuple:
+        """(flat, offsets) of each user's sorted clicked items: train's, or
+        with `include_residual` the union with dev's and test's."""
+        train = self.train_clicked_set
+        if not include_residual:
+            return train.flat, train.offsets
+        res = self.residual_clicked_set
+        users = np.concatenate([
+            np.repeat(np.arange(self.n_users), np.diff(train.offsets)),
+            np.repeat(np.arange(self.n_users), np.diff(res.offsets)),
+        ])
+        return pairs_to_csr(users, np.concatenate([train.flat, res.flat]), self.n_users, unique=True)
 
 
 @register_reader("ContextReader")
@@ -449,7 +459,7 @@ class ImpressionReader(BaseReader):
         flat, offsets = pairs_to_csr(pos["user_id"].to_numpy(), pos["item_id"].to_numpy(),
                                      self.n_users, unique=True)
         max_len = max(1, int(np.diff(offsets).max()))
-        return csr_fill_matrix(flat.astype(np.int32), offsets, max_len)
+        return native.fill_clicked_matrix(flat, offsets, max_len)
 
 
 def _flat_lists(lists, count: int) -> tuple:
@@ -524,8 +534,10 @@ class ImpressionSeqReader(ImpressionReader):
         """Fixed-shape positive and negative histories of the requests of
         `df`: (his, his_t, len, neg_his, neg_his_t, neg_len)."""
         users = df["user_id"].to_numpy()
-        return (csr_history(self.user_his.pos, users, df["position"].to_numpy(), history_max)
-                + csr_history(self.user_his.neg, users, df["neg_position"].to_numpy(), history_max))
+        pos, neg = self.user_his.pos, self.user_his.neg
+        return (native.build_history_arrays(pos.flat, pos.offsets, users, df["position"].to_numpy(), history_max)
+                + native.build_history_arrays(neg.flat, neg.offsets, users, df["neg_position"].to_numpy(),
+                                              history_max))
 
 
 @register_reader("KGReader")

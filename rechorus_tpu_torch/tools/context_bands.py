@@ -49,6 +49,8 @@ Suites (the flags are docs/benchmark_commands.md's, D = 64):
                 at ML-1M's 6,040 users and 3,706 items, 10 requests a user
                 at noise 0.3 (D = 64, lr 1e-3, l2 1e-6, batch 256, caps
                 20 / 20);
+  imp_bprmf     impression_ml1m's BPRMFImpression BPR run alone (its seed
+                spread against the JAX package's);
   rerank_ml1m   per seed, the two-stage recipe on that corpus: the
                 BPRMFImpression and SASRecImpression backbones (as above),
                 then one epoch each of PRM, SetRank (IMSAB) and MIR in
@@ -68,6 +70,9 @@ Suites (the flags are docs/benchmark_commands.md's, D = 64):
                 no parameter, saves the initial ones as the best epoch's
                 file), then --package's CLI loads the file (--load 1) and
                 trains the run's epochs;
+  imp_stream    imp_jax_init with every seed's run started from the JAX
+                package's initial parameters of seed 0: only the seed's
+                epoch stream (permutations, draws) varies;
   developing_grocery  two epochs of CLRec, FourierTA and SRGNN, and of
                 S3Rec's stage 1 then its stage 2, on the committed Grocery
                 corpus with the CLI defaults (D = 64, history 20) and the
@@ -317,6 +322,9 @@ def suite_runs(suite: str):
     if suite == "impression_ml1m":
         return [(m, "Impression", f + IMP_COMMON + ["--epoch", str(e)], "Imp_ML1M", run)
                 for run, (m, f, e) in IMP_MODELS.items()]
+    if suite == "imp_bprmf":
+        m, f, e = IMP_MODELS["BPRMF"]
+        return [(m, "Impression", f + IMP_COMMON + ["--epoch", str(e)], "Imp_ML1M", "BPRMF")]
     if suite == "impression_parity":
         return [(m, "Impression", f + IMP_PARITY_METRICS + PARITY_RUN, "SynthImpBig")
                 for m, f in IMP_PARITY_RUNS.items()]
@@ -342,6 +350,10 @@ def suite_runs(suite: str):
                   JAX_PACKAGE),
                  ("BPRMF", "BPRMF", "Impression", flags + ["--epoch", str(epochs), "--load", "1"],
                   "Imp_ML1M", "init")]]
+    if suite == "imp_stream":
+        (chain,) = suite_runs("imp_jax_init")
+        (run, model, mode, flags, *rest), train = chain
+        return [[(run, model, mode, flags + ["--random_seed", "0"], *rest), train]]
     if suite == "developing_grocery":
         epochs = ["--epoch", str(DEV_EPOCHS)]
         runs = [(m, "", f + DEV_COMMON + epochs, GROCERY) for m, f in DEV_MODELS.items()]
@@ -380,8 +392,10 @@ def run_one(package: str, work: str, model: str, mode: str, flags, dataset: str,
                 os.symlink(os.path.realpath(os.path.join(shared, name)), os.path.join(target, name))
     log = os.path.join(run_dir, (stem or "run") + ".log")
     argv = [sys.executable, "-m", f"{package}.main", "--model_name", model, "--model_mode", mode,
-            *flags, "--dataset", dataset, "--path", data_root, "--random_seed", str(seed),
+            *flags, "--dataset", dataset, "--path", data_root,
             "--log_file", log, "--model_path", os.path.join(run_dir, (stem or "model") + ".bin")]
+    if "--random_seed" not in flags:      # a run may fix its own
+        argv += ["--random_seed", str(seed)]
     if "--save_final_results" not in flags:
         argv += ["--save_final_results", "0"]
     if cpu:
@@ -437,9 +451,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--suite", required=True,
                         choices=["topk_grocery", "ctr_ml1m", "fm_parity", "seq_topk_grocery", "seq_ctr_ml1m",
-                                 "context_seq_parity", "impression_ml1m", "rerank_ml1m",
+                                 "context_seq_parity", "impression_ml1m", "imp_bprmf", "rerank_ml1m",
                                  "impression_parity", "rerank_parity", "developing_grocery",
-                                 "imp_jax_init", "s3rec_stage1_grocery"])
+                                 "imp_jax_init", "imp_stream", "s3rec_stage1_grocery"])
     parser.add_argument("--seeds", default="0,1,2")
     parser.add_argument("--package", default="rechorus_tpu_torch", help="package whose main.py runs")
     parser.add_argument("--cpu", action="store_true", help="pass --gpu '' (the CPU)")

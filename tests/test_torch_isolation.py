@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax_module():
             "rechorus_tpu_torch.models.developing.fourierta",
             "rechorus_tpu_torch.models.developing.srgnn",
             "rechorus_tpu_torch.models.developing.s3rec",
-            "rechorus_tpu_torch.exp", "rechorus_tpu_torch.utils.flax_msgpack"} <= set(result["imported"])
+            "rechorus_tpu_torch.exp", "rechorus_tpu_torch.utils.flax_msgpack",
+            "rechorus_tpu_torch.native"} <= set(result["imported"])
     leaked = [m for m in result["loaded"] if FORBIDDEN_MODULE.match(m)]
     assert not leaked, leaked
 

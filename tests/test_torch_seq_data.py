@@ -17,7 +17,7 @@ from rechorus_tpu.data.batching import SequentialBatcher as JaxBatcher
 from rechorus_tpu.data.readers import SeqReader as JaxReader
 from rechorus_tpu.data.synthetic import make_topk_dataset
 from rechorus_tpu_torch.data.batching import SequentialBatcher, get_batcher
-from rechorus_tpu_torch.data.readers import SeqReader
+from rechorus_tpu_torch.data.readers import SeqReader, csr_history
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
@@ -75,11 +75,14 @@ def test_history_arrays_equal_jax(readers, history_max):
     corpus, jcorpus = readers
     for split in ("train", "dev", "test"):
         df = corpus.data_df[split]
-        got = corpus.history_arrays(df, history_max, chunk=997)    # several chunks
+        got = corpus.history_arrays(df, history_max)                # the native kernel
+        plain = csr_history(corpus.user_his, df["user_id"].to_numpy(), df["position"].to_numpy(),
+                            history_max, chunk=997)                 # several chunks
         want = jcorpus.history_arrays(jcorpus.data_df[split], history_max)
-        for name, g, w in zip(("items", "times", "lengths"), got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape, (split, name)
+        for name, g, p, w in zip(("items", "times", "lengths"), got, plain, want):
+            assert g.dtype == p.dtype == w.dtype and g.shape == p.shape == w.shape, (split, name)
             np.testing.assert_array_equal(g, w, err_msg=f"{split}/{name}")
+            np.testing.assert_array_equal(p, w, err_msg=f"{split}/{name}")
 
 
 def _args(**kw):
