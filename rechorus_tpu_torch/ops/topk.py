@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from rechorus_tpu_torch.ops import cuda_topk as CT
+from rechorus_tpu_torch.utils.spans import span
 
 # route serving through the tiled path at this table size (JAX package,
 # rechorus_tpu/ops/topk.py:50)
@@ -194,28 +195,32 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
             f"grouped_table {tuple(grouped_table.shape)} does not match bucket={bucket}, "
             f"N={N}; rebuild it with group_table_for_rescore(table, bucket=...)")
 
-    bm = CT.fused_bucket_max(u, table, bucket=bucket, bias=bias, n_valid=n_valid,
-                             col_offset=col_offset)
-    kk = min(k_wide, bm.shape[1])
-    if approx:
-        gv, gb = approx_max_k(bm, kk, recall_target)
-    elif bm.shape[1] >= TWO_LEVEL_MIN_G:
-        gv, gb = two_level_bucket_select(bm, kk)
-    else:
-        gv, gb = torch.topk(bm, kk, dim=1)
-    del bm
-    raw_cand = CT.expand_bucket_items(gb, bucket)
-    # a -inf selected bucket is a pad slot (fewer than kk finite buckets):
-    # the strided expansion can alias it onto REAL items, so force its
-    # expansion out of range for the rescore to mask
-    pad_mask = torch.isneginf(gv).repeat_interleave(bucket, dim=1)
-    raw_cand = raw_cand.masked_fill(pad_mask, N)
-    if grouped_table is not None:
-        cs, cand = _exact_rescore_grouped(u, grouped_table, bias, gb, raw_cand,
-                                          col_offset, n_valid, N)
-    else:
-        cs, cand = _exact_rescore(u, table, bias, raw_cand, col_offset, n_valid, N)
-    return _final_select(cs, cand, k, k_wide, clicked_rows, col_offset)
+    with span("topk.bucket_max"):
+        bm = CT.fused_bucket_max(u, table, bucket=bucket, bias=bias, n_valid=n_valid,
+                                 col_offset=col_offset)
+    with span("topk.select"):
+        kk = min(k_wide, bm.shape[1])
+        if approx:
+            gv, gb = approx_max_k(bm, kk, recall_target)
+        elif bm.shape[1] >= TWO_LEVEL_MIN_G:
+            gv, gb = two_level_bucket_select(bm, kk)
+        else:
+            gv, gb = torch.topk(bm, kk, dim=1)
+        del bm
+        raw_cand = CT.expand_bucket_items(gb, bucket)
+        # a -inf selected bucket is a pad slot (fewer than kk finite
+        # buckets): the strided expansion can alias it onto REAL items, so
+        # force its expansion out of range for the rescore to mask
+        pad_mask = torch.isneginf(gv).repeat_interleave(bucket, dim=1)
+        raw_cand = raw_cand.masked_fill(pad_mask, N)
+    with span("topk.rescore"):
+        if grouped_table is not None:
+            cs, cand = _exact_rescore_grouped(u, grouped_table, bias, gb, raw_cand,
+                                              col_offset, n_valid, N)
+        else:
+            cs, cand = _exact_rescore(u, table, bias, raw_cand, col_offset, n_valid, N)
+    with span("topk.final"):
+        return _final_select(cs, cand, k, k_wide, clicked_rows, col_offset)
 
 
 def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,

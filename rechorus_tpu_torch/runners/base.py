@@ -48,6 +48,7 @@ from rechorus_tpu_torch.parallel import mesh as M
 from rechorus_tpu_torch.parallel import topk as PT
 from rechorus_tpu_torch.serve import dense_catalog_scores, resolve_device
 from rechorus_tpu_torch.utils import io as utils
+from rechorus_tpu_torch.utils.spans import span, spanned
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,6 +112,7 @@ class DenseOptimizer:
             s: {k: torch.full_like(p, fill) for k, p in params.items()}
             for s in self.SLOTS[self.name]})
 
+    @spanned("optim.update")
     def update(self, params: Params, grads: Params, state: DenseOptState) -> DenseOptState:
         state.count += 1
         mask = _decay_mask(params)
@@ -609,6 +611,7 @@ class BaseRunner:
             return bias
         return bias[info.lo: info.lo + info.n_local].contiguous()
 
+    @spanned("train.step")
     def train_step(self, state: TrainState, batcher, arrays, idx, gen) -> torch.Tensor:
         """One optimizer step on the rows `idx`; returns the loss (a device
         scalar), on a mesh this rank's share of it: summed over 'data', it
@@ -618,20 +621,21 @@ class BaseRunner:
         'data', or sums them for a loss that sums its rows
         (`loss_reduction`)."""
         model = state.model
-        feed = batcher.train_feed(arrays, idx, gen)
-        # anti-position-leak permutation (ranking tasks only)
-        inv = None
-        if ("item_id" in feed and feed["item_id"].dim() == 2
-                and getattr(model, "permute_candidates", True)):
-            pidx, inv = sampling.candidate_permutation(gen, feed["item_id"].shape, self.device)
-            feed["item_id"] = feed["item_id"].gather(-1, pidx)
-            # candidate-ALIGNED extras must ride the same permutation
-            for k in getattr(model, "candidate_aligned_keys", ()):
-                if k in feed:
-                    ix = pidx.reshape(pidx.shape + (1,) * (feed[k].dim() - 2))
-                    feed[k] = feed[k].gather(1, ix.expand(pidx.shape + feed[k].shape[2:]))
-            # where the true target (original column 0) landed
-            feed["_target_col"] = inv[:, 0]
+        with span("train.feed"):
+            feed = batcher.train_feed(arrays, idx, gen)
+            # anti-position-leak permutation (ranking tasks only)
+            inv = None
+            if ("item_id" in feed and feed["item_id"].dim() == 2
+                    and getattr(model, "permute_candidates", True)):
+                pidx, inv = sampling.candidate_permutation(gen, feed["item_id"].shape, self.device)
+                feed["item_id"] = feed["item_id"].gather(-1, pidx)
+                # candidate-ALIGNED extras must ride the same permutation
+                for k in getattr(model, "candidate_aligned_keys", ()):
+                    if k in feed:
+                        ix = pidx.reshape(pidx.shape + (1,) * (feed[k].dim() - 2))
+                        feed[k] = feed[k].gather(1, ix.expand(pidx.shape + feed[k].shape[2:]))
+                # where the true target (original column 0) landed
+                feed["_target_col"] = inv[:, 0]
 
         B = idx.shape[0]
         split = self._splits_batch(model, B, training=True)
@@ -652,24 +656,27 @@ class BaseRunner:
 
         summed = split and model.loss_reduction == "sum"
 
-        def mean_grads(*dicts):
-            if split:
-                M.reduce_over_data([g for d in dicts for g in d.values()], self.mesh,
-                                   mean=not summed)
-
         def loss_fn():
-            with sliced:
-                out = model(feed, training=True, gen=gen)
-            if inv is not None and out["prediction"].dim() == 2:
-                out["prediction"] = sampling.restore_predictions(out["prediction"], inv)
-            return model.loss(out, feed)
+            with span("train.forward"):
+                with sliced:
+                    out = model(feed, training=True, gen=gen)
+                if inv is not None and out["prediction"].dim() == 2:
+                    out["prediction"] = sampling.restore_predictions(out["prediction"], inv)
+                return model.loss(out, feed)
 
         def grads_of(loss, leaves: Params) -> Params:
-            if not loss.requires_grad:      # POP: the loss reads no parameter
-                return {k: torch.zeros_like(p) for k, p in leaves.items()}
-            got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-            return {k: (torch.zeros_like(p) if g is None else g)
-                    for (k, p), g in zip(leaves.items(), got)}
+            """d loss / d leaves; on a split batch averaged over 'data' (or
+            summed, for a loss that sums its rows), in place."""
+            with span("train.backward"):
+                if not loss.requires_grad:      # POP: the loss reads no parameter
+                    grads = {k: torch.zeros_like(p) for k, p in leaves.items()}
+                else:
+                    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+                    grads = {k: (torch.zeros_like(p) if g is None else g)
+                             for (k, p), g in zip(leaves.items(), got)}
+                if split:
+                    M.reduce_over_data(list(grads.values()), self.mesh, mean=not summed)
+                return grads
 
         packed_paths = set(state.packed_dtypes)
         if rows_map and self.sparse_emb_grad:
@@ -704,8 +711,7 @@ class BaseRunner:
             grads = grads_of(loss, {**{("vals", p): v for p, v in vals.items()}, **rest})
             g_vals = {p: grads[("vals", p)] for p in vals}
             g_rest = {k: grads[k] for k in rest}
-            mean_grads(g_vals, g_rest)
-            with torch.no_grad():
+            with torch.no_grad(), span("optim.update"):
                 if packed:
                     LA.lazy_adam_sparse_step_packed(tx, state.params, state.opt_state, rows_info,
                                                     gathered, g_vals, g_rest)
@@ -715,8 +721,7 @@ class BaseRunner:
         elif rows_map:
             loss = loss_fn()
             grads = grads_of(loss, state.params)
-            mean_grads(grads)
-            with torch.no_grad():
+            with torch.no_grad(), span("optim.update"):
                 LA.lazy_adam_step(tx, state.params, grads, state.opt_state, rows_map)
         else:
             if self._lazy_specs:
@@ -726,7 +731,6 @@ class BaseRunner:
                     "the model's lazy_table_specs()")
             loss = loss_fn()
             grads = grads_of(loss, state.params)
-            mean_grads(grads)
             with torch.no_grad():
                 tx.update(state.params, grads, state.opt_state)
         state.step += 1
@@ -734,6 +738,7 @@ class BaseRunner:
         loss = loss.detach()
         return loss if summed or self.mesh is None else loss / self.mesh.dp
 
+    @spanned("train.fit")
     def fit(self, state: TrainState, batcher, arrays, epoch: int,
             max_steps: Optional[int] = None) -> float:
         """One epoch: a permutation of the train rows drawn on the device
@@ -907,6 +912,7 @@ class BaseRunner:
         v, sel = torch.topk(best_v.masked_fill(hit, float("-inf")), min(k, k_wide), dim=1)
         return best_i.gather(1, sel), v
 
+    @spanned("eval.predict_ranks")
     @torch.no_grad()
     def predict_ranks(self, state: TrainState, batcher, arrays, phase: str) -> np.ndarray:
         model = state.model
@@ -922,34 +928,38 @@ class BaseRunner:
             if tiled:
                 ranks.append(self._tiled_forward_ranks(model, batcher, arrays, idx))
                 continue
-            feed = batcher.eval_feed(arrays, idx)
-            split = self._splits_batch(model, idx.shape[0], training=False)
-            if split:
-                feed = self._rows_of(feed, idx.shape[0])
-            if sharded:
-                u, bias = self._catalog_parts(model, feed)
-                r = PT.sharded_catalog_ranks(
-                    u, table, feed["_target"], self.mesh, feed["_clicked_rows"],
-                    self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
-            elif catalog:
-                # catalog protocol: u . table as one product instead of a
-                # [B, N, d] embedding gather through the model
-                u, bias = self._catalog_parts(model, feed)
-                if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
+            with span("eval.feed"):
+                feed = batcher.eval_feed(arrays, idx)
+                split = self._splits_batch(model, idx.shape[0], training=False)
+                if split:
+                    feed = self._rows_of(feed, idx.shape[0])
+            with span("model.encode"):
+                if catalog:
+                    # catalog protocol: u . table as one product instead of
+                    # a [B, N, d] embedding gather through the model
+                    u, bias = self._catalog_parts(model, feed)
+                else:
+                    pred = self._apply_eval(model, feed)["prediction"]
+            with span("topk.ranks"):
+                if sharded:
+                    r = PT.sharded_catalog_ranks(
+                        u, table, feed["_target"], self.mesh, feed["_clicked_rows"],
+                        self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
+                elif catalog and table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
                     # large catalog: stream tiles, never build [B, N]
                     r = topk_ops.tiled_catalog_ranks(
                         u, table, feed["_target"], feed["_clicked_rows"], bias=bias,
                         n_valid=n_items)
-                else:
+                elif catalog:
                     scores = dense_catalog_scores(u, table, bias, n_items)
                     r = catalog_ranks(scores, feed["_target"], feed["_clicked_rows"])
-            elif test_all:
-                pred = self._apply_eval(model, feed)["prediction"].contiguous()
-                r = catalog_ranks(pred, feed["_target"], feed["_clicked_rows"])
-            else:
-                r = metrics_ops.gt_rank(self._apply_eval(model, feed)["prediction"])
+                elif test_all:
+                    r = catalog_ranks(pred.contiguous(), feed["_target"], feed["_clicked_rows"])
+                else:
+                    r = metrics_ops.gt_rank(pred)
             ranks.append(self._gather_rows(r) if split else r)
-        return torch.cat(ranks).cpu().numpy()
+        with span("eval.results"):
+            return torch.cat(ranks).cpu().numpy()
 
     @torch.no_grad()
     def predict_topk(self, state: TrainState, batcher, arrays, phase: str, k: int = 100):

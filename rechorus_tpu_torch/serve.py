@@ -28,6 +28,7 @@ import torch
 
 from rechorus_tpu_torch.ops import metrics as metrics_ops
 from rechorus_tpu_torch.ops import topk as topk_ops
+from rechorus_tpu_torch.utils.spans import span, spanned
 
 
 def resolve_device(device=None) -> torch.device:
@@ -117,13 +118,15 @@ class ServeIndex:
                                n_items=getattr(corpus, "n_items", None) or i_table.shape[0],
                                k=k, approx=approx, recall_target=recall_target, device=device)
 
+    @spanned("serve.query")
     @torch.no_grad()
     def query(self, user_ids):
         """(item ids [B, k] int32, scores [B, k] float32) as numpy: top-k
         catalog items per user with clicked/pad/dead rows excluded."""
-        users = torch.as_tensor(np.asarray(user_ids), dtype=torch.long).to(self.u_table.device)
-        u = self.u_table[users]
-        cl = None if self.clicked is None else self.clicked[users]
+        with span("serve.feed"):
+            users = torch.as_tensor(np.asarray(user_ids), dtype=torch.long).to(self.u_table.device)
+            u = self.u_table[users]
+            cl = None if self.clicked is None else self.clicked[users]
         if self.i_table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
             v, i = topk_ops.tiled_catalog_topk(
                 u, self.i_table, self.k, bias=self.i_bias, clicked_rows=cl,
@@ -135,4 +138,5 @@ class ServeIndex:
                 cl = torch.zeros((u.shape[0], 1), dtype=torch.int32, device=u.device)
             v, i = metrics_ops.masked_topk(scores, cl, self.k, n_valid=self.n_items,
                                            approx=self.approx, recall_target=self.recall_target)
-        return i.cpu().numpy(), v.cpu().numpy()
+        with span("serve.results"):
+            return i.cpu().numpy(), v.cpu().numpy()
