@@ -150,7 +150,7 @@ from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import topk as TT
 from rechorus_tpu_torch.ops.metrics import evaluate_impression, evaluate_topk_from_ranks, masked_topk
-from rechorus_tpu_torch.runners.base import BaseRunner
+from rechorus_tpu_torch.runners.base import BaseRunner, DenseOptimizer
 from rechorus_tpu_torch.serve import ServeIndex, dense_catalog_scores
 from rechorus_tpu_torch.tools import context_bands as CB
 from rechorus_tpu_torch.tools import launch_path
@@ -182,6 +182,8 @@ KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     # the approx lane's select: `jax.lax.approx_max_k`, an XLA primitive of
     # the TPU (PartialReduce), not a pallas_call
     "approx_bin_max": (CT.approx_bin_max, "rechorus_tpu/ops/topk.py:338", CATALOG_SRC),
+    # dense Adam: the JAX package's is optax's, which XLA fuses (no pallas_call)
+    "adam_dense": (LA.adam_dense, "none (optax.adam, fused by XLA)", SCATTER_SRC),
 }
 # B4's byte-copy instance: the sparse lanes commit through its Adam
 # instance (`adam_commit`), so no main path launches it; it is still
@@ -822,13 +824,14 @@ def phase_kernels(gen):
         del x, vals, cols, want_v, want_c
         torch.cuda.empty_cache()
     reciprocal = commit_vs_plain(gen, err)
+    dense = dense_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
          b1_shapes=[list(x) for x in B1_SHAPES], b2_gauss_atol=B2_ATOL, near_tie_rtol=NEAR_TIE_RTOL,
          b2_b3_cases=[list(c) for c in B23_CASES],
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
          approx_bin_max_cases=[[b, n, L, kind] for (b, n), L, kind in APPROX_CASES],
-         **reciprocal)
+         adam_dense_cases=dense, **reciprocal)
     return err
 
 
@@ -915,6 +918,59 @@ def commit_vs_plain(gen, err) -> dict:
             all(torch.equal(x / s, x * float(np.float32(1.0 / s))) for s in (bc2, 0.001)),
             "div_by_python_float_is_true_division":
             all(torch.equal(x / s, x / torch.full_like(x, s)) for s in (bc2, 0.001))}
+
+
+# the dense Adam kernel: (N, D or None for a vector, optimizer, l2, lr scale);
+# BPRMF's 1M item and 200k user tables, a LayerNorm vector, a [3]-wide
+# bias table, a length that is no multiple of 4
+DENSE_CASES = [(N_ITEMS + 1, EMB, "adam", 1e-6, None), (N_USERS + 1, EMB, "adamw", 1e-2, None),
+               (N_ITEMS + 1, EMB, "adam", 0.0, 0.1), (EMB, None, "adam", 1e-6, None),
+               (8714, 3, "adam", 0.0, None), (1001, 7, "adamw", 1e-6, 0.1)]
+
+
+def dense_vs_plain(gen, err, steps: int = 3) -> list:
+    """The dense Adam kernel against its plain version (the eager ops on
+    the same CUDA tensors) over `steps` steps: p, m and v within 2 float32
+    ulp, one launch a step. Returns, a case each, the elements of p, m and v
+    that differ at all and the widest distance in ulp."""
+    dev = torch.device("cuda")
+    err["adam_dense"] = 0.0
+    out = []
+    for N, D, name, l2, scale in DENSE_CASES:
+        shape = (N,) if D is None else (N, D)
+        tx = DenseOptimizer(name, 1e-3, l2)
+        p = torch.randn(shape, generator=gen, device=dev) * 0.05
+        m = torch.randn(shape, generator=gen, device=dev) * 0.01
+        v = torch.rand(shape, generator=gen, device=dev) * 1e-3
+        want = [t.clone() for t in (p, m, v)]
+        kw = dict(decoupled=name == "adamw", scale=scale)
+        before = LA.adam_dense.launches
+        for count in range(1, steps + 1):
+            g = torch.randn(shape, generator=gen, device=dev) * 0.1
+            bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, count)
+            LA.adam_dense(tx, bc1, bc2, l2, p, g, m, v, **kw)
+            LA.adam_dense_plain(tx, bc1, bc2, l2, want[0], g, want[1], want[2], **kw)
+        torch.cuda.synchronize()
+        what = f"adam_dense {name} {list(shape)} l2={l2} scale={scale}"
+        check(LA.adam_dense.launches == before + steps, f"{what}: one launch a step")
+        ulps = [_ulps(a, b) for a, b in zip((p, m, v), want)]
+        differ = [int((u > 0).sum()) for u in ulps]
+        widest = max(int(u.max()) for u in ulps)
+        check(widest <= 2, f"{what}: within 2 ulp of its plain version ({widest}; {differ} differ)")
+        err["adam_dense"] = max(err["adam_dense"], *(float((a - b).abs().max())
+                                                      for a, b in zip((p, m, v), want)))
+        out.append([name, list(shape), l2, scale, differ, widest])
+        del p, m, v, want, g, ulps
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per element, how many float32 values lie between a and b."""
+    def ordered(x):
+        i = x.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
 
 
 def _log_metrics(text: str, line_prefix: str) -> dict:
@@ -3376,6 +3432,7 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
         rows["adam_commit"] = time_commit(table, gen)
         del table
         torch.cuda.empty_cache()
+        rows["adam_dense"] = time_adam_dense(gen)
 
     rng = np.random.default_rng(SEED + 1)
     batches = [rng.choice(N_USERS, size=BATCH, replace=False) for _ in range(9)]
@@ -3440,6 +3497,43 @@ def time_commit(table, gen, sets: int = 8) -> dict:
     check(all(bool(torch.isfinite(table[i]).all() and torch.isfinite(p3[i]).all()) for i in ids),
           "timed commits stay finite")
     return row
+
+
+def time_adam_dense(gen, shapes=((10_000_001, EMB), (N_ITEMS + 1, EMB))) -> dict:
+    """The dense Adam kernel at the item tables of the 10M-item training
+    cell and the 1M catalog (Adam, l2 1e-6): ms a call (CUDA events) beside
+    its bound (28 bytes a parameter), the plain sequence's ms, and one call
+    of PyTorch's fused Adam on the same tensors (`torch._fused_adam_`, the
+    yardstick; the port never calls it). Each tensor is far larger than the
+    L2, so every call streams from device memory."""
+    dev = torch.device("cuda")
+    tx = DenseOptimizer("adam", 1e-3, 1e-6)
+    bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, 7)
+
+    def at(N, D):
+        p = torch.randn(N, D, generator=gen, device=dev) * 0.05
+        g = torch.randn(N, D, generator=gen, device=dev) * 0.1
+        m = torch.randn(N, D, generator=gen, device=dev) * 0.01
+        v = torch.rand(N, D, generator=gen, device=dev) * 1e-3
+        count = [torch.tensor(7.0, device=dev)]
+
+        def kernel():
+            LA.adam_dense(tx, bc1, bc2, tx.l2, p, g, m, v)
+
+        def plain():
+            LA.adam_dense_plain(tx, bc1, bc2, tx.l2, p, g, m, v)
+
+        def library():
+            torch._fused_adam_([p], [g], [m], [v], [], count, lr=tx.lr, beta1=tx.b1, beta2=tx.b2,
+                               weight_decay=tx.l2, eps=tx.eps, amsgrad=False, maximize=False)
+        out = dict(shape=[N, D], ms=cuda_ms(kernel, 20), device_ms=device_ms(kernel, 5),
+                   plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
+                   bound=bound_ms(28 * N * D, 0))
+        check(bool(torch.isfinite(p).all() and torch.isfinite(v).all()), "timed steps stay finite")
+        return out
+
+    first, *others = [at(N, D) for N, D in shapes]
+    return {**first, "other_shapes": others}
 
 
 def phase_launch_path():

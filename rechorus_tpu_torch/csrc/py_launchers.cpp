@@ -38,6 +38,8 @@ int rtt_adam_commit_packed(float*, const float*, const float*, const int64_t*, i
 int rtt_adam_commit_rows(void*, int, float*, float*, const float*, const float*, const int64_t*,
                          const int64_t*, int64_t, int64_t, int64_t, float, float, float, float,
                          float, float, float, int, float, float, cudaStream_t);
+int rtt_adam_dense(float*, const float*, float*, float*, int64_t, float, float, float, float,
+                   float, float, float, float, float, float, float, int, cudaStream_t);
 const char* rtt_error_string(int);
 }
 
@@ -173,6 +175,10 @@ BIND(rtt_adam_commit_packed, "pppplll" ADAM "p", P(0, float*), P(1, const float*
 BIND(rtt_adam_commit_rows, "pipppppplll" ADAM "p", P(0, void*), I(1), P(2, float*), P(3, float*),
      P(4, const float*), P(5, const float*), P(6, const int64_t*), P(7, const int64_t*), L(8),
      L(9), L(10), ADAM_ARGS(11))
+// p, g, m, v, n, b1, 1 - b1, b2, 1 - b2, lr, eps, 1/bc1, 1/bc2, l2, wd, scale, has_scale
+BIND(rtt_adam_dense, "ppppl" "ffffffff" "fffi" "p", P(0, float*), P(1, const float*),
+     P(2, float*), P(3, float*), L(4), F(5), F(6), F(7), F(8), F(9), F(10), F(11), F(12), F(13),
+     F(14), F(15), I(16))
 
 #define METHOD(name) {#name, (PyCFunction)(void (*)(void))py_##name, METH_FASTCALL, nullptr}
 PyMethodDef methods[] = {
@@ -183,6 +189,7 @@ PyMethodDef methods[] = {
     METHOD(rtt_scatter_rows),
     METHOD(rtt_adam_commit_packed),
     METHOD(rtt_adam_commit_rows),
+    METHOD(rtt_adam_dense),
     {"use_torch", (PyCFunction)(void (*)(void))use_torch, METH_FASTCALL, nullptr},
     {nullptr, nullptr, 0, nullptr}};
 

@@ -1,5 +1,6 @@
-// Row-commit kernels of rechorus_tpu_torch for Hopper (sm_90a), bound to
-// Python with ctypes (rechorus_tpu_torch/ops/_build.py). Both replace
+// Row-commit and optimizer kernels of rechorus_tpu_torch for Hopper
+// (sm_90a), bound to Python through csrc/py_launchers.cpp
+// (rechorus_tpu_torch/ops/_build.py). The two row commits replace
 //
 //   rechorus_tpu/ops/pallas_scatter.py::scatter_rows (_scatter_kernel)
 //
@@ -62,6 +63,26 @@
 // `v / bc2` are products with 1 / bc1 and 1 / bc2 as the wrapper computes
 // them. A bf16 parameter is rounded by __float2bfloat16_rn, as
 // `.to(torch.bfloat16)` rounds on the card.
+//
+// Dense Adam (rtt_adam_dense_kernel, ops/lazy_adam.py::adam_dense). It
+// replaces no TPU kernel: the JAX package's dense Adam is optax's, which
+// XLA fuses. On the card DenseOptimizer.update ran it as about ten eager
+// elementwise kernels a tensor, each a pass of a full [N, D] f32 tensor
+// through device memory, four of them into new temporaries. One launch a
+// tensor reads p, g, m and v once and writes p, m and v once: 28 bytes a
+// parameter, so bounded by bytes (652.8M parameters of a 10M-item BPRMF:
+// 18.3 GB, 5.46 ms at 3.35 TB/s). A flat grid-stride walk whose grid
+// covers the tensor, one unit a thread; 16-byte units (4 floats) where the
+// length is a multiple of 4 and all four bases are 16-byte aligned, else
+// one float a thread (LayerNorm vectors, [3]-wide tables, odd lengths).
+//
+// Bit-equal to the eager sequence it replaces (lazy_adam.adam_dense_plain
+// on CUDA tensors), up to the sign of a zero. Its rounding differs from
+// the commit's above: PyTorch's CUDA kernels for `add(x, alpha=a)` and
+// `addcmul(x, y, value=a)` compute x + a * y and x + a * (y * z) in one
+// kernel, which nvcc contracts into a fused multiply-add, so those steps
+// are __fmaf_rn here; every other step is one separately rounded eager
+// kernel. Hence a lane of its own and not `adam_lane`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,6 +258,37 @@ struct AdamRows {
     store<V>(v + w * D + off, v2);
   }
 };
+
+// ---------------------------------------------------------------- dense Adam
+// l2 is added to the gradient (Adam's l2) and wd to the step (AdamW's
+// decoupled term), 0 for none: with a finite p, fma(0, p, x) is x, up to
+// the sign of a zero. scale multiplies the step's lr (a per-group lr) only
+// when has_scale is set, since p - (step * lr) * scale rounds otherwise
+// than fma(-lr, step, p).
+struct DenseAdamScalars {
+  float b1, c1, b2, c2, lr, eps, inv_bc1, inv_bc2, l2, wd, scale;
+  int has_scale;
+};
+
+// DenseOptimizer.update's Adam for one element, eager op by eager op:
+//   g = g.add(p, alpha=l2)                      fma(l2, p, g)
+//   m.mul_(b1).add_(g, alpha=1 - b1)            fma(c1, g, m * b1)
+//   v.mul_(b2).addcmul_(g, g, value=1 - b2)     fma(c2, g * g, v * b2)
+//   step = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+//   step.add_(p, alpha=wd)                      fma(wd, p, step)
+//   p.sub_(step, alpha=lr)                      fma(-lr, step, p)
+//   or p.sub_(step * lr * scale)                p - (step * lr) * scale
+__device__ __forceinline__ void dense_adam_lane(const DenseAdamScalars& s, float& p, float g,
+                                                float& m, float& v) {
+  g = __fmaf_rn(s.l2, p, g);
+  m = __fmaf_rn(s.c1, g, __fmul_rn(m, s.b1));
+  v = __fmaf_rn(s.c2, __fmul_rn(g, g), __fmul_rn(v, s.b2));
+  const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(v, s.inv_bc2)), s.eps);
+  float step = __fdiv_rn(__fmul_rn(m, s.inv_bc1), den);
+  step = __fmaf_rn(s.wd, p, step);
+  p = s.has_scale ? __fsub_rn(p, __fmul_rn(__fmul_rn(step, s.lr), s.scale))
+                  : __fmaf_rn(-s.lr, step, p);
+}
 }  // namespace
 
 template <typename T>
@@ -249,6 +301,27 @@ template <class Epilogue>
 __global__ void __launch_bounds__(kThreads)
 rtt_adam_commit_kernel(Epilogue epi, int64_t total) {
   walk_rows(epi, epi.upr, total);
+}
+
+// V floats a unit over `units` units; g is only read.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+rtt_adam_dense_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ m,
+                      float* __restrict__ v, int64_t units, DenseAdamScalars s) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t u = (int64_t)blockIdx.x * kThreads + threadIdx.x; u < units; u += stride) {
+    const int64_t off = u * V;
+    float pr[V], gr[V], mr[V], vr[V];
+    load<V>(pr, p + off);
+    ldg<V>(gr, g + off);
+    load<V>(mr, m + off);
+    load<V>(vr, v + off);
+#pragma unroll
+    for (int k = 0; k < V; ++k) dense_adam_lane(s, pr[k], gr[k], mr[k], vr[k]);
+    store<V>(p + off, pr);
+    store<V>(m + off, mr);
+    store<V>(v + off, vr);
+  }
 }
 
 namespace {
@@ -269,6 +342,19 @@ int launch_adam(const Epilogue& epi, int64_t R, cudaStream_t stream) {
 }
 
 bool aligned(const void* p, uintptr_t bytes) { return (uintptr_t)p % bytes == 0; }
+
+// The dense walk's grid: a unit a thread. On an H100 at [10M, 64] this
+// takes 5.87 ms; a grid of only as many blocks as the card holds at once,
+// each looping over its share, took 6.25.
+template <int V>
+int launch_dense(float* p, const float* g, float* m, float* v, int64_t units,
+                 const DenseAdamScalars& s, cudaStream_t stream) {
+  constexpr int64_t kMaxGrid = 2147483647;  // the grid's x limit; the walk strides past it
+  const int64_t blocks = (units + kThreads - 1) / kThreads;
+  rtt_adam_dense_kernel<V><<<(unsigned)(blocks < kMaxGrid ? blocks : kMaxGrid), kThreads, 0,
+                             stream>>>(p, g, m, v, units, s);
+  return cudaGetLastError();
+}
 }  // namespace
 
 extern "C" int rtt_scatter_rows(void* table, const int* rows, const void* block, int64_t N,
@@ -315,4 +401,15 @@ extern "C" int rtt_adam_commit_rows(void* p, int p_is_bf16, float* m, float* v, 
                        R, stream);
   return launch_adam(AdamRows<1, float>{(float*)p, m, v, vals, g, rows, scatter, N, D, D, s}, R,
                      stream);
+}
+
+extern "C" int rtt_adam_dense(float* p, const float* g, float* m, float* v, int64_t n, float b1,
+                              float c1, float b2, float c2, float lr, float eps, float inv_bc1,
+                              float inv_bc2, float l2, float wd, float scale, int has_scale,
+                              cudaStream_t stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const DenseAdamScalars s{b1, c1, b2, c2, lr, eps, inv_bc1, inv_bc2, l2, wd, scale, has_scale};
+  if (n % 4 == 0 && aligned(p, 16) && aligned(g, 16) && aligned(m, 16) && aligned(v, 16))
+    return launch_dense<4>(p, g, m, v, n / 4, s, stream);
+  return launch_dense<1>(p, g, m, v, n, s, stream);
 }

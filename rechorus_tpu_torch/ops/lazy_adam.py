@@ -26,6 +26,12 @@ The sparse lanes commit through `adam_commit`: one launch per table per
 step of `rtt_adam_commit_kernel` (csrc/scatter_kernels.cu, the Adam row
 update in the body of kernel B4's row walk) in either lane. Its plain
 version is `_adam_math` followed by `cuda_scatter.scatter_rows_plain`.
+
+The dense optimizer's Adam (runners/base.py::DenseOptimizer) steps each
+tensor through `adam_dense`: one launch of `rtt_adam_dense_kernel`
+(csrc/scatter_kernels.cu) reads p, g, m and v once and writes p, m and v
+once, bit-equal to the eager sequence `adam_dense_plain`, which it runs on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -369,6 +375,62 @@ adam_commit.launches = 0
 # binding: a stand-in put under the module's name `adam_commit` that calls
 # the kernel leaves the count here
 _ADAM_COMMIT = adam_commit
+
+
+def adam_dense_plain(tx, bc1: float, bc2: float, decay: float, p: torch.Tensor, g: torch.Tensor,
+                     m: torch.Tensor, v: torch.Tensor, *, decoupled: bool = False,
+                     scale=None) -> torch.Tensor:
+    """`adam_dense` as eager PyTorch ops: DenseOptimizer.update's Adam
+    sequence, rounding for rounding. In place; returns `p`."""
+    if decay and not decoupled:
+        g = g.add(p, alpha=decay)
+    m.mul_(tx.b1).add_(g, alpha=1.0 - tx.b1)
+    v.mul_(tx.b2).addcmul_(g, g, value=1.0 - tx.b2)
+    step = (m / bc1).div_((v / bc2).sqrt_().add_(tx.eps))
+    if decoupled and decay:
+        step.add_(p, alpha=decay)
+    if scale is None:
+        p.sub_(step, alpha=tx.lr)
+    else:
+        p.sub_(step * tx.lr * scale)
+    return p
+
+
+def adam_dense(tx, bc1: float, bc2: float, decay: float, p: torch.Tensor, g: torch.Tensor,
+               m: torch.Tensor, v: torch.Tensor, *, decoupled: bool = False,
+               scale=None) -> torch.Tensor:
+    """One dense Adam step of one tensor, IN PLACE; returns `p`. `tx`
+    gives b1, b2, lr and eps; bc1 and bc2 are the bias corrections; `decay`
+    (0 for none) is l2 added to the gradient, or with `decoupled` AdamW's
+    term added to the step; `scale` (None for none) multiplies the step's
+    lr. p, g, m and v are contiguous f32 tensors of one shape on one
+    device. One launch of `rtt_adam_dense_kernel` on CUDA tensors; the
+    plain version on CPU ones."""
+    name = "adam_dense"
+    dev, shape = p.device, p.shape
+    for arg, t in (("p", p), ("g", g), ("m", m), ("v", v)):
+        _build.check_input(name, arg, t, torch.float32, shape, dev)
+    if p.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{name} has no gradient: call it under torch.no_grad()")
+    if dev.type == "cpu":
+        return adam_dense_plain(tx, bc1, bc2, decay, p, g, m, v, decoupled=decoupled, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if not p.numel():
+        return p
+    l2, wd = (0.0, decay) if decoupled else (decay, 0.0)
+    # Python scalars as PyTorch hands them to its kernels: float32, with
+    # the divisions by bc1 and bc2 as products with their reciprocals
+    _build.launchers.rtt_adam_dense(
+        dev.index, p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
+        tx.b1, 1.0 - tx.b1, tx.b2, 1.0 - tx.b2, tx.lr, tx.eps, 1.0 / bc1, 1.0 / bc2,
+        l2, wd, 1.0 if scale is None else scale, scale is not None)
+    _ADAM_DENSE.launches += 1
+    return p
+
+
+adam_dense.launches = 0
+_ADAM_DENSE = adam_dense   # as _ADAM_COMMIT
 
 
 def pack_lazy_leaves(params: Params, state: LazyAdamState, paths):

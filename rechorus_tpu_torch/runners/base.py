@@ -94,6 +94,10 @@ class DenseOptimizer:
     `lr_scales` ({key: scale}, the model's per-group lr, e.g. Chorus's
     KG tables) multiplies each parameter's update after the optimizer, as
     the JAX chain's last transform does: p -= (lr * step) * scale.
+
+    Adam and AdamW step each tensor with one `lazy_adam.adam_dense` (one
+    kernel launch on the card, its plain sequence on the CPU); the others
+    are written out as elementwise ops.
     """
 
     SLOTS = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "sgd": (),
@@ -117,19 +121,18 @@ class DenseOptimizer:
         state.count += 1
         mask = _decay_mask(params)
         bc1, bc2 = LA.bias_corrections(self.b1, self.b2, state.count)
+        adam = self.name in ("adam", "adamw")
         for k, p in params.items():
             g = grads[k]
             decay = self.l2 if (self.l2 > 0 and mask[k]) else 0.0
-            if decay and self.name != "adamw":
+            if adam:
+                LA.adam_dense(self, bc1, bc2, decay, p, g.contiguous(), state.slots["mu"][k],
+                              state.slots["nu"][k], decoupled=self.name == "adamw",
+                              scale=None if self.lr_scales is None else self.lr_scales[k])
+                continue
+            if decay:
                 g = g.add(p, alpha=decay)
-            if self.name in ("adam", "adamw"):
-                m, v = state.slots["mu"][k], state.slots["nu"][k]
-                m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-                v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-                step = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
-                if self.name == "adamw" and decay:
-                    step.add_(p, alpha=decay)
-            elif self.name == "sgd":
+            if self.name == "sgd":
                 step = g
             elif self.name == "adagrad":
                 acc = state.slots["sum_of_squares"][k]

@@ -3,7 +3,9 @@ ragged shapes chip_smoke.py does not reach (B, N and D off the tile
 sizes, D below and above one 64-dim stage, bias, col_offset, n_valid).
 Integer-valued inputs make every f32 sum exact, so results must be equal.
 The Adam commit takes Gaussian inputs and must equal its plain version
-(the eager PyTorch ops on the same CUDA tensors) bit for bit.
+(the eager PyTorch ops on the same CUDA tensors) bit for bit; the dense
+Adam kernel, over three steps, must come within 2 float32 ulp of its
+plain version element by element.
 
 Marked `cuda`; each test skips without a CUDA device. On the GPU machine
 these tests need none of the JAX set-up of tests/conftest.py:
@@ -19,6 +21,7 @@ from rechorus_tpu_torch.ops import cuda_scatter as CS
 from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import lazy_adam as LA
 from rechorus_tpu_torch.ops import topk as TT
+from rechorus_tpu_torch.runners import base as tbase
 from rechorus_tpu_torch.serve import ServeIndex
 
 pytestmark = pytest.mark.cuda
@@ -441,6 +444,111 @@ def test_adam_commit_at_the_sequential_family_tables(dev, N, D, per_row, l2, lay
             assert torch.equal(a, b), name
     assert LA.adam_commit.launches == before + 1
     assert int((scatter < N).sum()) == int(torch.unique(ids).numel())
+
+
+# the dense Adam kernel's shapes: the 1M serving table's rows and the user
+# table's, a LayerNorm vector, a [3]-wide bias table, an odd length
+DENSE_SHAPES = [(1_000_001, 64), (200_000, 64), (64,), (3,), (1001, 7)]
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per element, how many float32 values lie between a and b."""
+    def ordered(x):
+        i = x.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["lr", "lr_scale"])
+@pytest.mark.parametrize("l2", [0.0, 1e-4], ids=["no_l2", "l2"])
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_adam_dense_kernel_equals_plain(dev, shape, name, l2, scaled):
+    """Three steps of the kernel against the eager sequence on the same
+    CUDA tensors: p, m and v within 2 float32 ulp of it, element by element
+    (the message counts the elements that differ at all), one launch a
+    step."""
+    gen = torch.Generator(device=dev).manual_seed(len(shape) * 1000 + shape[0])
+    tx = tbase.DenseOptimizer(name, 1e-3, l2)
+    p = torch.randn(shape, generator=gen, device=dev) * 0.05
+    m = torch.randn(shape, generator=gen, device=dev) * 0.01
+    v = torch.rand(shape, generator=gen, device=dev) * 1e-3
+    want = [t.clone() for t in (p, m, v)]
+    kw = dict(decoupled=name == "adamw", scale=0.1 if scaled else None)
+    before = LA.adam_dense.launches
+    for count in range(1, 4):
+        g = torch.randn(shape, generator=gen, device=dev) * 0.1
+        bc1, bc2 = LA.bias_corrections(tx.b1, tx.b2, count)
+        assert LA.adam_dense(tx, bc1, bc2, l2, p, g, m, v, **kw) is p
+        LA.adam_dense_plain(tx, bc1, bc2, l2, want[0], g, want[1], want[2], **kw)
+        assert LA.adam_dense.launches == before + count
+        for key, a, b in zip(("p", "m", "v"), (p, m, v), want):
+            ulps = _ulps(a, b)
+            assert int(ulps.max()) <= 2, (key, count, int(ulps.max()), int((ulps > 0).sum()))
+
+
+def test_adam_dense_unaligned_views_and_empty(dev):
+    """Bases 4 bytes into their storage, or a length that is no multiple of
+    4, take the one-float walk; an empty tensor launches nothing."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tx = tbase.DenseOptimizer("adam", 1e-3, 1e-4)
+
+    def shifted(t):
+        store = torch.empty(1 + t.numel(), device=dev)
+        store[1:] = t.ravel()
+        return store[1:].view(t.shape)
+
+    for n in (4096, 4099):
+        p, g, m = (torch.randn(n, generator=gen, device=dev) * 0.05 for _ in range(3))
+        v = torch.rand(n, generator=gen, device=dev) * 1e-3
+        want = [t.clone() for t in (p, m, v)]
+        LA.adam_dense_plain(tx, 0.1, 0.001, 1e-4, want[0], g, want[1], want[2])
+        got = [shifted(t) for t in (p, m, v)]
+        LA.adam_dense(tx, 0.1, 0.001, 1e-4, got[0], shifted(g), got[1], got[2])
+        for a, b in zip(got, want):
+            assert int(_ulps(a, b).max()) <= 2
+    before = LA.adam_dense.launches
+    e = torch.zeros(0, 64, device=dev)
+    LA.adam_dense(tx, 0.1, 0.001, 0.0, e, e.clone(), e.clone(), e.clone())
+    assert LA.adam_dense.launches == before
+
+
+def test_adam_dense_checks_its_inputs(dev):
+    tx = tbase.DenseOptimizer("adam", 1e-3, 0.0)
+    p, g, m, v = (torch.zeros(4, 6, device=dev) for _ in range(4))
+    step = lambda *a: LA.adam_dense(tx, 0.1, 0.001, 0.0, *a)  # noqa: E731
+    before = LA.adam_dense.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        step(p, torch.zeros(6, 4, device=dev).T, m, v)
+    with pytest.raises(TypeError, match="dtype"):
+        step(p.double(), g.double(), m.double(), v.double())
+    with pytest.raises(ValueError, match="is on"):
+        step(p, g.cpu(), m, v)
+    assert LA.adam_dense.launches == before
+
+
+def test_dense_optimizer_launches_one_kernel_a_tensor(dev):
+    """DenseOptimizer.update on the card: one launch per parameter per step,
+    and the parameters as the plain sequence leaves them within 2 ulp."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = {"u_embeddings.weight": (2001, 64), "i_embeddings.weight": (5001, 64),
+              "ln.weight": (64,), "item_bias.weight": (5001, 1)}
+    params = {k: torch.randn(s, generator=gen, device=dev) * 0.1 for k, s in shapes.items()}
+    want = {k: p.clone() for k, p in params.items()}
+    opt = tbase.build_optimizer("Adam", 1e-3, 1e-6)
+    state, slots = opt.init(params), opt.init(want)
+    before = LA.adam_dense.launches
+    for count in range(1, 4):
+        grads = {k: torch.randn(s, generator=gen, device=dev) * 0.05 for k, s in shapes.items()}
+        opt.update(params, grads, state)
+        bc1, bc2 = LA.bias_corrections(opt.b1, opt.b2, count)
+        for k in shapes:
+            decay = 0.0 if "bias" in k else opt.l2
+            LA.adam_dense_plain(opt, bc1, bc2, decay, want[k], grads[k], slots.slots["mu"][k],
+                                slots.slots["nu"][k])
+    assert LA.adam_dense.launches == before + 3 * len(shapes)
+    for k in shapes:
+        assert int(_ulps(params[k], want[k]).max()) <= 2, k
 
 
 @pytest.mark.parametrize("B,N,L", [(1, 1, 1), (3, 4097, 513), (5, 62592, 7824), (2, 100001, 12501),

@@ -29,9 +29,11 @@ from scipy import stats
 from rechorus_tpu import registry as jregistry
 from rechorus_tpu.data import readers_all  # noqa: F401  (registers the JAX readers)
 from rechorus_tpu.data.batching import get_batcher as jget_batcher
+from rechorus_tpu.parallel import mesh as JM
 from rechorus_tpu_torch import registry, weights
 from rechorus_tpu_torch.data import synthetic
 from rechorus_tpu_torch.data.batching import get_batcher
+from rechorus_tpu_torch.parallel import mesh as M
 from rechorus_tpu_torch.runners import base as tbase
 from rechorus_tpu_torch.tools.context_bands import IMP_COMMON, IMP_MODELS
 
@@ -47,6 +49,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _unpadded_tables():
+    """Both packages build tables at their true row counts, whatever row
+    pad a mesh run earlier in this process left behind."""
+    JM.set_table_row_pad(1)
+    M.set_table_row_pad(1)
 
 
 @pytest.fixture(scope="module")
