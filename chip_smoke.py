@@ -23,7 +23,8 @@ the main path gives it, and drives the port's main paths:
     SeqReader, SequentialBatcher and BaseRunner.fit in the dense and packed
     lanes, with its 1M-item ranks (B3) and top-100 (B2) held against dense
     exact references, then the same evaluation for FPMC's computed
-    [1M, 128] table and for TiSASRec (after 10 dense steps);
+    [1M, 128] table, for TiSASRec (after 10 dense steps) and for ComiRec's
+    K = 4 interests (D9 ranks, the route read from launch counts);
   * KDA through the CLI on Grocery with bench.py's kda lane flags (dense
     Adam, its s/train-epoch, `--test_all 1` by the dense route and by the
     candidate-tiled route, `--lazy_emb_adam 1`), and KDA's tiled
@@ -140,6 +141,7 @@ from rechorus_tpu_torch.data.csr import csr_fill_matrix
 from rechorus_tpu_torch.data.readers import BaseReader, SeqReader, csr_history
 from rechorus_tpu_torch.models.general.bprmf import BPRMF
 from rechorus_tpu_torch.models.general.lightgcn import LightGCN, build_edges
+from rechorus_tpu_torch.models.sequential.comirec import ComiRec
 from rechorus_tpu_torch.models.sequential.fpmc import FPMC
 from rechorus_tpu_torch.models.sequential.sasrec import SASRec
 from rechorus_tpu_torch.models.sequential.tisasrec import TiSASRec
@@ -177,6 +179,9 @@ KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     "ge_count": (CK.ge_count, "rechorus_tpu/ops/pallas_kernels.py:66", CATALOG_SRC),
     "fused_bucket_max": (CT.fused_bucket_max, "rechorus_tpu/ops/pallas_topk.py:114", CATALOG_SRC),
     "fused_ge_count": (CT.fused_ge_count, "rechorus_tpu/ops/pallas_topk.py:185", CATALOG_SRC),
+    # D9, B3's count over a multi-interest model's max: the JAX package
+    # ranks such a model through its forward (no pallas_call)
+    "interest_ge_count": (CT.fused_interest_ge_count, "none (ComiRec's forward, ranked by B1)", CATALOG_SRC),
     "scatter_rows": (CS.scatter_rows, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
     "adam_commit": (LA.adam_commit, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
     # the approx lane's select: `jax.lax.approx_max_k`, an XLA primitive of
@@ -758,7 +763,10 @@ def phase_kernels(gen):
         tcol = (tgt + off).to(torch.int32).contiguous()
         got = CT.fused_ge_count(u, table, tscore, target_col=tcol, **kw)[sub]
         ref = CT.fused_ge_count_plain(u[sub], table, tscore[sub], target_col=tcol[sub], **kw)
+        # D9 at one interest is B3, count for count
+        one = CT.fused_interest_ge_count(u[:, None], table, tscore, target_col=tcol, **kw)[sub]
         torch.cuda.synchronize()
+        check(torch.equal(one, got), f"interest_ge_count at K=1 equals fused_ge_count ({kind}, D={D})")
         diff = (got.long() - ref.long()).abs()
         err["fused_ge_count"] = max(err["fused_ge_count"], float(diff.max()))
         for b in SMALL_BATCHES:
@@ -823,6 +831,7 @@ def phase_kernels(gen):
                                     float((cols - want_c).abs().max()))
         del x, vals, cols, want_v, want_c
         torch.cuda.empty_cache()
+    interest = interest_vs_plain(gen, err, sub, inputs)
     reciprocal = commit_vs_plain(gen, err)
     dense = dense_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
@@ -831,6 +840,7 @@ def phase_kernels(gen):
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
          approx_bin_max_cases=[[b, n, L, kind] for (b, n), L, kind in APPROX_CASES],
+         interest_ge_cases=interest,
          adam_dense_cases=dense, **reciprocal)
     return err
 
@@ -845,6 +855,9 @@ B1_SHAPES = [(EVAL_BATCH, 8714), (EVAL_BATCH, KDA_CHUNK),
 # last is FPMC's computed [iu | il] table, the run-time-D instance
 B23_CASES = [("int", False, None, 0, EMB), ("gauss", True, N_ITEMS + 7 - 1000, 7, EMB),
              ("gauss", False, None, 0, 2 * EMB)]
+# D9 at the main path's shape: (kind, bias, n_valid, col_offset, K) over
+# [BATCH, K, EMB] x [N_ITEMS + 1, EMB]; ComiRec's route has no bias
+INTEREST_CASES = [("int", True, N_ITEMS + 1 - 1000, 7, 4), ("gauss", False, N_ITEMS + 1 - 1000, 0, 4)]
 # the bin max at the approx lane's shapes: B2's [4096, G] bucket maxima at
 # 1M items and the dense [4096, 100,001] scores at 100k, at the bins of
 # each recall target for k + M = 132 (integer inputs: ties)
@@ -869,6 +882,52 @@ COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # pac
                 ("packed", 8714, 3, torch.float32, 2 * 256, 1e-5),   # SLRCPlus's Hawkes tables (D = R = 3)
                 ("packed", 3707, EMB, torch.float32, IMP_ITEM_ROWS, 1e-6),  # BPRMFImpression's item table
                 ("packed", 6041, EMB, torch.float32, 256, 1e-6)]            # ... and its user table
+
+
+def interest_vs_plain(gen, err, sub, inputs) -> list:
+    """D9 (`fused_interest_ge_count`) against its plain version at the
+    main path's shape, u [BATCH, K, EMB] against the [N_ITEMS + 1, EMB]
+    catalog with its padding row, in INTEREST_CASES: integer inputs
+    exactly, Gaussian ones within the near-tie rule over float64 max-over-k
+    scores; the SMALL_BATCHES equal the BATCH launch bit for bit."""
+    dev = torch.device("cuda")
+    N = N_ITEMS + 1
+    for kind, with_bias, n_valid, off, K in INTEREST_CASES:
+        u, table = inputs(kind, BATCH, K, EMB), inputs(kind, N, EMB)
+        bias = inputs(kind, N) if with_bias else None
+        kw = dict(bias=bias, n_valid=n_valid, col_offset=off)
+        tgt = torch.randint(1, N - 1000, (BATCH,), generator=gen, device=dev)
+        s_t = (u.double() * table[tgt].double()[:, None]).sum(-1).amax(1)
+        if bias is not None:
+            s_t += bias[tgt].double()
+        tscore = s_t.float().contiguous()
+        tcol = (tgt + off).to(torch.int32).contiguous()
+        before = CT.fused_interest_ge_count.launches
+        got = CT.fused_interest_ge_count(u, table, tscore, target_col=tcol, **kw)[sub]
+        ref = CT.fused_interest_ge_count_plain(u[sub], table, tscore[sub], target_col=tcol[sub], **kw)
+        torch.cuda.synchronize()
+        what = f"interest_ge_count {kind} [{BATCH}, {K}, {EMB}] x [{N}, {EMB}]"
+        check(CT.fused_interest_ge_count.launches == before + 1, f"{what}: one launch")
+        diff = (got.long() - ref.long()).abs()
+        err["interest_ge_count"] = max(err["interest_ge_count"], float(diff.max()))
+        for b in SMALL_BATCHES:
+            small = CT.fused_interest_ge_count(u[sub[:b]].contiguous(), table, tscore[sub[:b]].contiguous(),
+                                               target_col=tcol[sub[:b]].contiguous(), **kw)
+            check(torch.equal(small, got[:b]), f"{what} at B={b} equals the B={BATCH} launch")
+        if kind == "int":
+            check(torch.equal(got, ref), f"{what} equals its plain version")
+        else:
+            s64 = torch.cat([CT.interest_scores(u[sub[lo: lo + 16]].double(), table.double(),
+                                                None if bias is None else bias.double())
+                             for lo in range(0, len(sub), 16)])
+            gid = torch.arange(N, device=dev) + off
+            ok = ((gid > 0) & (gid < (n_valid or N)))[None] & (gid[None] != tcol[sub, None])
+            ties = near_ties(s64, tscore[sub], ok)
+            check(bool((diff <= ties).all()), f"{what} within the near-tie rule")
+            del s64, ok
+        del u, table, bias, got, ref
+        torch.cuda.empty_cache()
+    return [list(c) for c in INTEREST_CASES]
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -1590,37 +1649,63 @@ def _rank_diff_report(s64, tscore, scale, ok, clicked, target, diff, ties) -> st
             f"{(near & ok[bad]).sum(1).tolist()}, clicked within 1e-5 {(near & others[bad]).sum(1).tolist()}")
 
 
+def _ranks_route(launches: dict) -> str:
+    """The ranks route of a run, read from its launch counts: the
+    multi-interest count (D9), B3, or B1 over dense scores."""
+    if launches["interest_ge_count"] and not launches["fused_ge_count"] and not launches["ge_count"]:
+        return "catalog protocol, multi-interest count (D9)"
+    if launches["fused_ge_count"] and not launches["interest_ge_count"] and not launches["ge_count"]:
+        return "catalog protocol, B3"
+    if launches["ge_count"] and not launches["fused_ge_count"] and not launches["interest_ge_count"]:
+        return "dense scores, B1"
+    return f"mixed: {launches}"
+
+
 def _catalog_eval_vs_dense(totals, lane) -> dict:
-    """The runner's full-catalog ranks (B3) and top-100 (B2 + exact
-    select) of the BATCH dev rows, against dense exact references on
-    N_CHECK of them: ranks within the near-tie rule, top-100 values, ids
-    where distinct."""
+    """The runner's full-catalog ranks (B3, or D9 for a multi-interest
+    model) and top-100 (B2 + exact select) of the BATCH dev rows, against
+    dense exact references on N_CHECK of them: ranks within the near-tie
+    rule, top-100 values, ids where distinct. The route is read from the
+    ranks call's launch counts."""
     runner, state, _, _, dev_b, dev_a = lane
     model = state.model
+    multi = getattr(model, "multi_interest", False)
     t = time.perf_counter()
     with counted(totals) as c:
         ranks = runner.predict_ranks(state, dev_b, dev_a, "dev")
-        rank_s = time.perf_counter() - t
+    rank_s = time.perf_counter() - t
+    route = _ranks_route(c.launches)
+    want = "catalog protocol, multi-interest count (D9)" if multi else "catalog protocol, B3"
+    check(route == want and c.launches["interest_ge_count" if multi else "fused_ge_count"] == 1,
+          f"one {want} launch for {len(dev_b)} rows: {c.launches}")
+    t = time.perf_counter()
+    with counted(totals) as c2:
         items, scores = runner.predict_topk(state, dev_b, dev_a, "dev", k=TOPK)
-    topk_s = time.perf_counter() - t - rank_s
-    check(c.launches["fused_ge_count"] == 1 and c.launches["fused_bucket_max"] == 1,
-          f"one B3 and one B2 launch for {len(dev_b)} rows: {c.launches}")
+    topk_s = time.perf_counter() - t
+    check(c2.launches["fused_bucket_max"] == 1
+          and not any(c2.launches[k] for k in ("ge_count", "fused_ge_count", "interest_ge_count")),
+          f"one B2 launch and no count for the top-{TOPK} of {len(dev_b)} rows: {c2.launches}")
     feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device=runner.device))
     with torch.no_grad():
         u = model(feed, catalog=True)["u_v"][:N_CHECK]
+        check(u.dim() == (3 if multi else 2), f"u_v of shape {tuple(u.shape)}")
         table = model.catalog_item_table()
         target = feed["_target"][:N_CHECK].long()
         cl = feed["_clicked_rows"][:N_CHECK].long()
         check(bool((cl == target[:, None]).any(1).all()), "the dev target is in its clicked row")
-        s = u @ table.T
+        s = CT.interest_scores(u, table) if multi else u @ table.T
         ts = s.gather(1, target[:, None])
         ok = torch.ones_like(s, dtype=torch.bool)
         ok[:, 0] = False
         ok.scatter_(1, cl, False)
         s = s.masked_fill(~ok, float("-inf"))
         dense_rank = (s >= ts).sum(1) + 1
-        s64 = u.double() @ table.double().T
-        scale = (u.abs() * table[target].abs()).sum(-1)
+        if multi:
+            s64 = CT.interest_scores(u.double(), table.double())
+            scale = (u.abs() * table[target].abs()[:, None]).sum(-1).amax(1)
+        else:
+            s64 = u.double() @ table.double().T
+            scale = (u.abs() * table[target].abs()).sum(-1)
         ties = near_ties(s64, ts[:, 0], ok, scale)
         diff = (torch.from_numpy(ranks[:N_CHECK]).cuda().long() - dense_rank).abs()
         ref_v, ref_i = torch.topk(s, TOPK, dim=1)
@@ -1634,9 +1719,9 @@ def _catalog_eval_vs_dense(totals, lane) -> dict:
     close = np.abs(ref_v[:, :, None] - ref_v[:, None, :]) <= 1e-5 * np.abs(ref_v[:, :, None])
     distinct = close.sum(-1) == 1
     check((items[:N_CHECK][distinct] == ref_i[distinct]).all(), "top-100 ids = dense where distinct")
-    return dict(rows=len(dev_b), table=list(table.shape), launches=c.launches, ranks_s=rank_s,
-                topk_s=topk_s, rank_max_abs_diff=int(diff.max()), rank_near_ties=int(ties.sum()),
-                mean_rank=float(ranks.mean()))
+    return dict(rows=len(dev_b), table=list(table.shape), route=route, launches=c.launches,
+                topk_launches=c2.launches, ranks_s=rank_s, topk_s=topk_s, rank_max_abs_diff=int(diff.max()),
+                rank_near_ties=int(ties.sum()), mean_rank=float(ranks.mean()))
 
 
 def phase_train_1m_seq(totals):
@@ -1647,7 +1732,10 @@ def phase_train_1m_seq(totals):
     ranks and top-100 against dense references; then FPMC (packed lane,
     four tables, WARM_STEPS steps) and the same evaluation over its
     computed [1M, 128] table; then TiSASRec (its TiSASBatcher, dense,
-    WARM_STEPS steps) and the same evaluation of its catalog protocol."""
+    WARM_STEPS steps) and the same evaluation of its catalog protocol;
+    then ComiRec at its published widths (K = 4 interests, dense,
+    WARM_STEPS steps) and the same evaluation of its multi-interest
+    protocol: D9 ranks, B2 over the B x K interest rows."""
     t0 = time.perf_counter()
     corpus = seq_corpus_1m()
     build_s = time.perf_counter() - t0
@@ -1703,6 +1791,22 @@ def phase_train_1m_seq(totals):
                            examples_per_s=WARM_STEPS * BATCH / secs, loss=loss, warm_loss=warm,
                            lane_build_s=lane_build_s, peak_memory_bytes=torch.cuda.max_memory_allocated())
     out["tisasrec_eval"] = _catalog_eval_vs_dense(totals, lane)
+    del lane, runner, state, batcher, arrays
+    torch.cuda.empty_cache()
+    # ComiRec (docs/benchmark_commands.md's flags: attn_size 8, K 4,
+    # add_pos 1): dense steps, then the multi-interest catalog evaluation
+    lane = _seq_lane(corpus, ComiRec, [], attn_size=8, K=4, add_pos=1)
+    runner, state, batcher, arrays = lane[:4]
+    check(not runner._use_tiled_forward(state.model, lane[4], lane[5]),
+          "ComiRec's 1M evaluation does not take the candidate-tiled forward")
+    warm = runner.fit(state, batcher, arrays, 1, max_steps=2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = runner.fit(state, batcher, arrays, 2, max_steps=WARM_STEPS)
+    secs = time.perf_counter() - t
+    check(np.isfinite(loss), f"1M ComiRec dense: loss {warm} -> {loss}")
+    out["comirec"] = dict(steps=WARM_STEPS, K=4, ms_per_step=secs * 1e3 / WARM_STEPS, loss=loss, warm_loss=warm)
+    out["comirec_eval"] = _catalog_eval_vs_dense(totals, lane)
     corpus = out.pop("corpus")
     emit("train_1m_seq", n_users=N_USERS, n_items=N_ITEMS, per_user=SEQ_PER_USER, emb_size=EMB,
          history_max=SEQ_HISTORY, batch=BATCH, train_rows=len(batcher), steps=SEQ_TRAIN_STEPS,
@@ -2037,7 +2141,10 @@ def phase_train_grocery_seq2(totals):
     CLI on the card, on the committed Grocery corpus, with
     docs/benchmark_commands.md's flags (SEQ2_MODELS): dense epochs (the loss
     falls, dev HR@5 over its floor), a `--test_all 1` run (B1 over the
-    catalog: TiSASRec's catalog protocol, the others' [256, 8714] forward)
+    catalog: TiSASRec's catalog protocol, ComiRec's multi-interest one (the
+    max over its K interests), the others' [256, 8714] forward; below
+    MIN_ROWS_FOR_TILED both routes launch B1 alike, so the route ComiRec
+    takes at catalog scale is read from launch counts in `train_1m_seq`)
     and the steady step's profile on its stack, and, for the four models with lazy
     tables, the first LAZY_STEPS steps of a `--lazy_emb_adam 1` run (the
     packed lane's Adam commit, one launch per table per step). The second
@@ -3410,6 +3517,22 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
                 batch=EVAL_BATCH,
                 ms=cuda_ms(lambda: CT.fused_ge_count(u_eval, it, ts_eval, **ge_eval), 20),
                 bound=bound_ms(4 * (EVAL_BATCH * (D + 3) + N * D), (2 * D + 1) * EVAL_BATCH * N)))
+        torch.cuda.empty_cache()
+        # D9 at the comirec-1m cell's shape: each user's K interests are
+        # the user table's rows of K users, the target score their max
+        K = 4
+        rows4 = np.stack([(users + 1009 * j) % N_USERS for j in range(K)], 1)
+        u4 = ut[torch.from_numpy(rows4).to(dev)]
+        ts4 = (u4 * it[tidx][:, None]).sum(-1).amax(1).contiguous()
+        rows["interest_ge_count"] = dict(
+            ms=cuda_ms(lambda: CT.fused_interest_ge_count(u4, it, ts4, **ge_kw), 10),
+            device_ms=device_ms(lambda: CT.fused_interest_ge_count(u4, it, ts4, **ge_kw), 3),
+            plain_ms=cuda_ms(lambda: CT.fused_interest_ge_count_plain(u4, it, ts4, **ge_kw), 3, warmup=1),
+            library_ms=None, shape=[B, K, N, D],
+            bound=bound_ms(4 * (N * D + B * K * D + 3 * B), 2 * B * K * N * D),
+            fused_ge_count_over_bk_rows_ms=cuda_ms(
+                lambda: CT.fused_ge_count(u4.view(B * K, D), it, ts4.repeat_interleave(K), n_valid=N), 10))
+        del u4, ts4
         torch.cuda.empty_cache()
 
         # B4 at the packed item table's step shape; every id valid

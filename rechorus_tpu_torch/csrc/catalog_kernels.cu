@@ -15,6 +15,11 @@
 //   rtt_approx_bin_max_kernel  jax.lax.approx_max_k's PartialReduce
 //                          (rechorus_tpu/ops/topk.py:338, ops/metrics.py:273)
 //
+// and one has no TPU counterpart (the JAX package ranks a multi-interest
+// model through its forward over candidate chunks):
+//
+//   rtt_interest_ge_kernel B3's count over a max of K interest scores
+//
 // The TPU kernels run their grid in order and carry a count in the output
 // block from one catalog step to the next. Here blocks run in parallel and
 // in no order: a block loops over its own slice of the catalog, and the
@@ -514,6 +519,122 @@ rtt_fused_ge_kernel(const float* __restrict__ u, const float* __restrict__ table
   }
 }
 
+// ------------------------------------- multi-interest rank count (D9) --
+// A multi-interest model (ComiRec) scores item j for user b as
+// max_k u[b, k] . table[j] (+ bias[j]). The count #{j : max_k s_kj >= t} is
+// no function of the K counts B3 would give, so the max is taken in the
+// epilogue, before the compare: the user tile holds 128 / K users' K interest
+// rows, laid out so that one thread's 8 rows (Lane::user) are the K interests
+// of 8 / K users and the max is taken in registers. With K in {1, 2, 4} the
+// rows are user-major (row b * K + k), and i = g*K .. g*K + K-1 are the
+// aligned rows usr0 + {0..3} or usr0 + 16 + {0..3}; with K = 8 the caller
+// lays each 16 users' 128 rows out so that user (usr0 >> 5) * 4 +
+// ((usr0 >> 2) & 3) of the block owns a thread's rows (ops/cuda_topk.py,
+// `interest_rows`). The bias is per row, so max_k (s_k + bias) = max_k s_k +
+// bias exactly (rounding is monotone). At K = 1 this is B3's count.
+namespace {
+
+// The index among the block's 128 / K users of the user whose K interest
+// rows are this thread's rows g*K .. g*K + K-1 (of 8 / K such users).
+template <int kK>
+__device__ __forceinline__ int interest_slot(const Lane& ln, int g) {
+  return kK == 8 ? (ln.usr0 >> 5) * 4 + ((ln.usr0 >> 2) & 3) : ln.user(g * kK) / kK;
+}
+
+// Per chunk: cnt[g] += #{j: max_k score + bias >= t[g]} over the rows that
+// pass the id masks and are not user g's target (GeCount with a max over
+// each user's K rows before the compare).
+template <int kK>
+struct InterestGeCount {
+  static constexpr int kG = 8 / kK;  // users a thread
+  int N, n_valid, col_offset;
+  const Lane& ln;
+  const float* st;  // the block's users' target scores (+inf past B) and their
+  const int* stc;   // targets' LOCAL rows (-1: none), in shared memory
+  int (&cnt)[kG];
+  __device__ __forceinline__ void operator()(int64_t r0, const float (&acc)[8][8],
+                                             const float* sbias) {
+    const ChunkRows rows(r0, sbias, ln, N, n_valid, col_offset);
+    const int r0i = (int)r0;  // a chunk starts below N
+    float t[kG];
+    int tc[kG];
+    bool any = false;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      // the target's row within this chunk, if in [0, kNB)
+      t[g] = st[interest_slot<kK>(ln, g)];
+      tc[g] = stc[interest_slot<kK>(ln, g)] - r0i;
+      any |= (unsigned)tc[g] < (unsigned)kNB;
+    }
+    if (sbias != nullptr) {
+      if (any) count<true, true>(rows, acc, t, tc); else count<true, false>(rows, acc, t, tc);
+    } else {
+      if (any) count<false, true>(rows, acc, t, tc); else count<false, false>(rows, acc, t, tc);
+    }
+  }
+  template <bool kBias, bool kTarget>
+  __device__ __forceinline__ void count(const ChunkRows& rows, const float (&acc)[8][8],
+                                        const float (&t)[kG], const int (&tc)[kG]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!rows.ok[j]) continue;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        float m = acc[g * kK][j];
+#pragma unroll
+        for (int k = 1; k < kK; ++k) m = fmaxf(m, acc[g * kK + k][j]);
+        const float s = kBias ? m + rows.bias[j] : m;
+        cnt[g] += (s >= t[g]) && !(kTarget && ln.row(j) == tc[g]);
+      }
+    }
+  }
+};
+
+}  // namespace
+
+// Block (x, y) counts, for users [x*(kTB/kK), (x+1)*(kTB/kK)), whose K
+// interest rows are rows [x*kTB, x*kTB + kTB) of u, the rows of catalog
+// blocks y, y + gridDim.y, ... (`chunks` chunks each) whose max-over-K
+// score is >= tscore[b] under the id masks and != target_col[b]; the
+// reduction and the atomics are B3's.
+template <int kD, int kK>
+__global__ void __launch_bounds__(kThreads, kD == 64 ? 2 : 1)
+rtt_interest_ge_kernel(const float* __restrict__ u, const float* __restrict__ table,
+                       const float* __restrict__ tscore, const int* __restrict__ target_col,
+                       const float* __restrict__ bias, int* __restrict__ counts, int B, int rows,
+                       int N, int D, int chunks, int n_valid, int col_offset, int64_t n_blocks,
+                       bool resident) {
+  constexpr int kUB = kTB / kK;  // users a block
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Lane ln;
+  const int b0 = blockIdx.x * kTB;  // the block's first row of u
+  const int ub0 = blockIdx.x * kUB;  // and its first user
+  if (resident) load_user_tile(smem, u, rows, D, b0);
+  __shared__ float s_t[kUB];
+  __shared__ int s_tc[kUB];
+  if (threadIdx.x < kUB) {
+    const int b = ub0 + threadIdx.x;
+    s_t[threadIdx.x] = b < B ? tscore[b] : INFINITY;
+    const int64_t local =
+        (b < B && target_col != nullptr) ? (int64_t)target_col[b] - col_offset : -1;
+    s_tc[threadIdx.x] = (local >= 0 && local < N) ? (int)local : -1;
+  }  // score_chunks starts with a __syncthreads
+  int cnt[InterestGeCount<kK>::kG] = {};
+  InterestGeCount<kK> epilogue{N, n_valid, col_offset, ln, s_t, s_tc, cnt};
+  for (int64_t jb = blockIdx.y; jb < n_blocks; jb += gridDim.y)
+    score_chunks<kD>(u, table, bias, rows, N, D, b0, jb * chunks, chunks, smem, resident, ln,
+                     epilogue);
+#pragma unroll
+  for (int g = 0; g < InterestGeCount<kK>::kG; ++g) {
+    int v = cnt[g];
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    const int b = ub0 + interest_slot<kK>(ln, g);
+    if (ln.row_leader && b < B && v) atomicAdd(counts + b, v);
+  }
+}
+
 // ------------------------------------------------------------ launchers --
 namespace {
 constexpr int kGeChunks = 16;  // fused_ge_count: 16 x 128 = 2048 rows a catalog block
@@ -579,6 +700,30 @@ extern "C" int rtt_fused_ge_count(const float* u, const float* table, const floa
   auto kernel = D == 64 ? rtt_fused_ge_kernel<64> : rtt_fused_ge_kernel<0>;
   return launch_fused(kernel, B, n_blocks, sm.bytes, stream, u, table, tscore, target_col, bias,
                       counts, B, N, D, kGeChunks, n_valid, col_offset, n_blocks, sm.resident);
+}
+
+// u holds `rows` interest rows of B users, K a user (K in {1, 2, 4, 8}),
+// laid out as rtt_interest_ge_kernel reads them: rows == B * K for K <= 4,
+// rows == 128 * ceil(B / 16) for K == 8.
+extern "C" int rtt_interest_ge_count(const float* u, const float* table, const float* tscore,
+                                     const int* target_col, const float* bias, int* counts,
+                                     int B, int K, int rows, int N, int D, int n_valid,
+                                     int col_offset, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || D <= 0) return cudaErrorInvalidValue;
+  if (rows != (K == 8 ? (int)cdiv(B, kTB / 8) * kTB : B * K)) return cudaErrorInvalidValue;
+  const int64_t n_blocks = cdiv(N, (int64_t)kGeChunks * kNB);
+  const FusedSmem sm(D);
+  decltype(&rtt_interest_ge_kernel<64, 1>) kernel;
+  switch (K) {
+    case 1: kernel = D == 64 ? rtt_interest_ge_kernel<64, 1> : rtt_interest_ge_kernel<0, 1>; break;
+    case 2: kernel = D == 64 ? rtt_interest_ge_kernel<64, 2> : rtt_interest_ge_kernel<0, 2>; break;
+    case 4: kernel = D == 64 ? rtt_interest_ge_kernel<64, 4> : rtt_interest_ge_kernel<0, 4>; break;
+    case 8: kernel = D == 64 ? rtt_interest_ge_kernel<64, 8> : rtt_interest_ge_kernel<0, 8>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return launch_fused(kernel, rows, n_blocks, sm.bytes, stream, u, table, tscore, target_col,
+                      bias, counts, B, rows, N, D, kGeChunks, n_valid, col_offset, n_blocks,
+                      sm.resident);
 }
 
 extern "C" int rtt_approx_bin_max(const float* x, float* vals, int* idx, int B, int N, int L,

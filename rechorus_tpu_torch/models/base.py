@@ -42,8 +42,13 @@ class BaseModel(nn.Module):
     # whose `.weight` is the table). `catalog_raw_table` is True when that
     # table IS the raw parameter; models with a computed table (FPMC's
     # [iu | il], the JAX package's `i_table` output) set it False and
-    # override `catalog_item_table`.
+    # override `catalog_item_table`. A multi-interest model (ComiRec) sets
+    # `multi_interest`: its `u_v` is [B, K, d], and an item scores
+    # max_k u_v[:, k] . table[i] (+ bias[i]) on every catalog route
+    # (ops.topk, serve.dense_catalog_scores); ServeIndex and the sharded
+    # routes refuse it.
     supports_catalog: ClassVar[bool] = False
+    multi_interest: ClassVar[bool] = False
     catalog_table: ClassVar[tuple] = ("i_embeddings",)
     catalog_raw_table: ClassVar[bool] = True
     # A loss that couples the rows of a batch (in-batch negatives, batch

@@ -7,8 +7,10 @@ scores with the interest closest to the target, evaluation takes the max
 over the interests per candidate. As in the JAX package, the target is the
 TRUE target (the feed's `_target_col` after the runner's anti-leak
 permutation; the reference takes column 0 of the permuted candidates).
-It has no catalog protocol: full-catalog evaluation goes through its
-forward.
+Its catalog protocol is the multi-interest one (`BaseModel.multi_interest`):
+`forward(feed, catalog=True)` returns the K interests as `u_v` [B, K, d],
+and full-catalog evaluation scores an item by their max through the
+catalog routes (ops.topk, `rtt_interest_ge_kernel` at catalog scale).
 CMD example:
   python -m rechorus_tpu_torch.main --model_name ComiRec --emb_size 64 --lr 1e-3 --l2 1e-6 \
       --attn_size 8 --K 4 --add_pos 1 --history_max 20 --dataset Grocery_and_Gourmet_Food
@@ -23,6 +25,7 @@ from rechorus_tpu_torch.models.base import SequentialModel, target_col
 from rechorus_tpu_torch.ops.layers import Dense, embed
 from rechorus_tpu_torch.ops.losses import masked_softmax
 from rechorus_tpu_torch.registry import register_model
+from rechorus_tpu_torch.utils.spans import span
 
 
 def target_vectors(feed, i_vectors):
@@ -41,6 +44,8 @@ def closest_interest(interest_vectors, target_vector):
 @register_model("ComiRec")
 class ComiRec(SequentialModel):
     extra_log_args: ClassVar[list] = ["emb_size", "attn_size", "K"]
+    supports_catalog: ClassVar[bool] = True
+    multi_interest: ClassVar[bool] = True
 
     def __init__(self, *, emb_size: int = 64, attn_size: int = 8, K: int = 2, add_pos: int = 1,
                  **kwargs):
@@ -60,7 +65,24 @@ class ComiRec(SequentialModel):
         parser.add_argument("--add_pos", type=int, default=1, help="Whether add position embedding.")
         return SequentialModel.parse_model_args(parser)
 
-    def forward(self, feed, training: bool = False, gen=None):
+    def forward(self, feed, training: bool = False, gen=None, catalog: bool = False):
+        """{"prediction": [B, C]}, or {"u_v": [B, K, d]} (the interests)
+        with catalog=True."""
+        if catalog:
+            with span("model.interests"):
+                return {"u_v": self.interests(feed)}
+        interests = self.interests(feed)
+        i_vectors = self.i_embeddings(feed["item_id"])
+        if training:
+            user_vector = closest_interest(interests, target_vectors(feed, i_vectors))
+            prediction = (user_vector[:, None, :] * i_vectors).sum(-1)
+        else:
+            prediction = (interests[:, None, :, :] * i_vectors[:, :, None, :]).sum(-1).amax(-1)
+        return {"prediction": prediction}
+
+    def interests(self, feed):
+        """[B, K, d]: K attention heads over the history, each a weighted
+        sum of the history's item vectors."""
         history, lengths = feed["history_items"], feed["lengths"]
         L = history.shape[1]
         valid = history > 0
@@ -71,11 +93,4 @@ class ComiRec(SequentialModel):
             his_pos = his_vectors + self.p_embeddings(position)
         attn = self.W2(torch.tanh(self.W1(his_pos))).transpose(-1, -2)   # [B, K, L]
         attn = masked_softmax(attn, valid[:, None, :], dim=-1)
-        interests = (his_vectors[:, None, :, :] * attn[:, :, :, None]).sum(-2)   # [B, K, d]
-        i_vectors = self.i_embeddings(feed["item_id"])
-        if training:
-            user_vector = closest_interest(interests, target_vectors(feed, i_vectors))
-            prediction = (user_vector[:, None, :] * i_vectors).sum(-1)
-        else:
-            prediction = (interests[:, None, :, :] * i_vectors[:, :, None, :]).sum(-1).amax(-1)
-        return {"prediction": prediction}
+        return (his_vectors[:, None, :, :] * attn[:, :, :, None]).sum(-2)   # [B, K, d]

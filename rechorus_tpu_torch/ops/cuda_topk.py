@@ -17,6 +17,10 @@ matrix never reaches device memory:
   tscore[b] under the id masks (global id > 0, < n_valid, !=
   target_col[b]); clicked exclusion is the caller's gathered correction.
 
+`fused_interest_ge_count` -- `fused_ge_count` for a multi-interest model:
+  u [B, K, D], a row's score the max over the K interests, taken before
+  the compare (the count of a max is no function of the K counts).
+
 `approx_bin_max` -- the first stage of the approximate top-k
   (`ops.topk.approx_max_k`): per row, the maximum and its column over
   each of L strided bins (column j in bin j mod L), L from the recall
@@ -25,7 +29,7 @@ matrix never reaches device memory:
 
 Masks live in GLOBAL id space: global id = local row + `col_offset`.
 On CUDA tensors the wrappers launch `rtt_bucket_max_kernel` /
-`rtt_fused_ge_kernel` / `rtt_approx_bin_max_kernel`
+`rtt_fused_ge_kernel` / `rtt_interest_ge_kernel` / `rtt_approx_bin_max_kernel`
 (csrc/catalog_kernels.cu); on CPU tensors they run the `*_plain`
 versions, which materialize the masked scores.
 """
@@ -161,6 +165,115 @@ def fused_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None
 
 
 fused_ge_count.launches = 0
+
+# interest counts the multi-interest kernel holds in one thread's 8 rows
+INTEREST_KS = (1, 2, 4, 8)
+# score elements a block of the plain multi-interest count materializes
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+def interest_width(K: int) -> int:
+    """The K' in INTEREST_KS that `interest_rows` widens K interests to:
+    the least one at or above K. Raises above 8."""
+    for kk in INTEREST_KS:
+        if K <= kk:
+            return kk
+    raise ValueError(f"fused_interest_ge_count: K={K} interests; the kernel holds at most "
+                     f"{INTEREST_KS[-1]} a user (one thread's 8 rows of the score tile)")
+
+
+def interest_rows(u: torch.Tensor) -> torch.Tensor:
+    """[rows, D] contiguous interest rows of u [B, K, D] as
+    `rtt_interest_ge_kernel` reads them. K outside INTEREST_KS is widened
+    to `interest_width(K)` by repeating interest 0, which leaves every max
+    as it is. K' <= 4: user-major, rows = B * K'. K' = 8: each 16 users'
+    128 rows ordered (4 user quads, 2 halves, 4 users, 4 interests), so
+    that a thread's rows {r..r+3, r+16..r+19} are one user's 8; B padded to
+    a multiple of 16 with zero users, rows = 128 * ceil(B / 16)."""
+    B, K, D = u.shape
+    kk = interest_width(K)
+    if kk != K:
+        u = torch.cat([u, u[:, :1].expand(B, kk - K, D)], dim=1)
+    if kk < 8:
+        return u.reshape(B * kk, D).contiguous()
+    pad = (-B) % 16
+    if pad:
+        u = F.pad(u, (0, 0, 0, 0, 0, pad))
+    return u.view(-1, 4, 4, 2, 4, D).permute(0, 1, 3, 2, 4, 5).reshape(-1, D).contiguous()
+
+
+def interest_scores(u, table, bias=None) -> torch.Tensor:
+    """[B, N] max_k u[:, k] . table.T (+ bias) of u [B, K, D]."""
+    B, K, D = u.shape
+    s = (u.reshape(B * K, D) @ table.T).view(B, K, -1).amax(1)
+    if bias is not None:
+        s += bias[None, :]
+    return s
+
+
+def fused_interest_ge_count_plain(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
+                                  col_offset: int = 0) -> torch.Tensor:
+    """[B] int32 `#{row r: max_k score(b, k, r) >= tscore[b]}` over rows
+    passing the id masks, from `interest_scores` in blocks of users."""
+    B, K, _ = u.shape
+    N = table.shape[0]
+    ok = _row_ok(N, n_valid, col_offset, u.device)
+    gid = torch.arange(N, device=u.device) + col_offset
+    step = max(1, _PLAIN_BLOCK_ELEMS // max(1, K * N))
+    out = []
+    for lo in range(0, B, step):
+        ge = interest_scores(u[lo: lo + step], table, bias) >= tscore[lo: lo + step, None]
+        ge &= ok[None, :]
+        if target_col is not None:
+            ge &= gid[None, :] != target_col[lo: lo + step, None]
+        out.append(ge.sum(1))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=u.device)
+    return torch.cat(out).to(torch.int32)
+
+
+def fused_interest_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
+                            col_offset: int = 0) -> torch.Tensor:
+    """[B] int32 counts of `#{row r: max_k score(b, k, r) >= tscore[b]}`
+    over rows passing the id masks (global id > 0, < n_valid, !=
+    target_col[b]), score = u[:, k] @ table.T (+ bias): B3's count for a
+    multi-interest model. u [B, K, D] (K <= 8), table [N, D], tscore [B],
+    bias [N] float32; target_col [B] int32. At K = 1 it is
+    `fused_ge_count`'s count."""
+    if u.dim() != 3:
+        raise ValueError(
+            f"fused_interest_ge_count: u has shape {tuple(u.shape)}, expected [B, K, D]")
+    if u.device.type == "cpu":
+        return fused_interest_ge_count_plain(u, table, tscore, target_col=target_col, bias=bias,
+                                             n_valid=n_valid, col_offset=col_offset)
+    if u.device.type != "cuda":
+        raise ValueError(f"fused_interest_ge_count: no kernel for device {u.device}")
+    (B, K, D), N, dev = u.shape, table.shape[0], u.device
+    _build.check_input("fused_interest_ge_count", "u", u, torch.float32, (B, K, D), dev)
+    _build.check_input("fused_interest_ge_count", "table", table, torch.float32, (N, D), dev)
+    _build.check_input("fused_interest_ge_count", "tscore", tscore, torch.float32, (B,), dev)
+    if target_col is not None:
+        _build.check_input("fused_interest_ge_count", "target_col", target_col, torch.int32, (B,),
+                           dev)
+    if bias is not None:
+        _build.check_input("fused_interest_ge_count", "bias", bias, torch.float32, (N,), dev)
+    if D < 1 or K < 1:
+        raise ValueError(f"fused_interest_ge_count: K={K}, D={D}")
+    rows = interest_rows(u)
+    n_valid_c = -1 if n_valid is None else int(n_valid)
+    _build.check_int32("fused_interest_ge_count", B=B, rows=rows.shape[0], N=N, D=D,
+                       n_valid=n_valid_c, col_offset=int(col_offset))
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    if B and N:
+        _build.launchers.rtt_interest_ge_count(
+            u.get_device(), _build.ptr(rows), _build.ptr(table), _build.ptr(tscore),
+            _build.ptr(target_col), _build.ptr(bias), _build.ptr(counts), B,
+            interest_width(K), rows.shape[0], N, D, n_valid_c, int(col_offset))
+        fused_interest_ge_count.launches += 1
+    return counts
+
+
+fused_interest_ge_count.launches = 0
 
 
 def approx_bins(n: int, k: int, recall_target: float) -> int:

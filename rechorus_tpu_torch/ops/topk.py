@@ -26,6 +26,10 @@ functions here stream the catalog through the fused kernels of
 `tiled_catalog_ranks` -- ground-truth rank for `--test_all`: the fused
   >=-count over the catalog minus clicked corrections by gather.
 
+Both take a multi-interest model's K user vectors, u [B, K, D], whose
+score is the max over k: the ranks count with `fused_interest_ge_count`,
+the top-k runs B2 over the B * K rows and reduces the bucket maxima by max.
+
 `approx_max_k` -- the approximate select of the approx lane (the TPU's
   `lax.approx_max_k`): `cuda_topk.approx_bin_max` reduces each row to L
   strided bin maxima, then an exact top-k over them. `tiled_catalog_topk`
@@ -138,12 +142,20 @@ def _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows):
     return cs.masked_fill(~ok, float("-inf")), cand
 
 
+def row_scores(u, vecs):
+    """[B, M] scores of each row's own vectors vecs [B, M, D]: u [B, D]
+    dotted with them, or for K interests u [B, K, D] the max over k."""
+    if u.dim() == 3:
+        return torch.matmul(vecs, u.transpose(1, 2)).amax(-1)
+    return torch.matmul(vecs, u[:, :, None])[:, :, 0]
+
+
 def _exact_rescore_grouped(u, grouped, bias, gb, raw_cand, col_offset, n_valid, n_rows):
     """Rescore candidates whose vectors come from the grouped copy's
     [B, kk] slice gathers; masks and ids use `raw_cand`."""
     B, kk = gb.shape
     cvec = grouped[gb.clamp(max=grouped.shape[0] - 1)]                  # [B, kk, bucket, D]
-    cs = torch.matmul(cvec.view(B, -1, cvec.shape[-1]), u[:, :, None])[:, :, 0]
+    cs = row_scores(u, cvec.view(B, -1, cvec.shape[-1]))
     del cvec
     return _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
 
@@ -151,7 +163,7 @@ def _exact_rescore_grouped(u, grouped, bias, gb, raw_cand, col_offset, n_valid, 
 def _exact_rescore(u, table, bias, raw_cand, col_offset, n_valid, n_rows):
     """Gather the candidate rows, rescore, mask by global id."""
     cvec = table[raw_cand.clamp(max=n_rows - 1)]                        # [B, C, D]
-    cs = torch.matmul(cvec, u[:, :, None])[:, :, 0]
+    cs = row_scores(u, cvec)
     return _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
 
 
@@ -182,7 +194,13 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
     so every value is its id's score and only recall can drop.
     `table` holds global rows [col_offset, col_offset + N); masks,
     clicked comparisons and returned ids are global (n_valid too).
-    `grouped_table` is `group_table_for_rescore(table, bucket)`."""
+    `grouped_table` is `group_table_for_rescore(table, bucket)`.
+
+    For a multi-interest model u is [B, K, D] and a score is the max over
+    its K rows: B2 runs over the B * K rows and each user's K bucket
+    maxima reduce by max (a bucket's max of the max-score is the max of
+    the K bucket maxima, exactly); the select is the same, and the
+    rescore takes the max over k."""
     bucket = bucket or DEFAULT_BUCKET
     N = table.shape[0]
     M = clicked_rows.shape[1] if clicked_rows is not None else 0
@@ -196,8 +214,14 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
             f"N={N}; rebuild it with group_table_for_rescore(table, bucket=...)")
 
     with span("topk.bucket_max"):
-        bm = CT.fused_bucket_max(u, table, bucket=bucket, bias=bias, n_valid=n_valid,
-                                 col_offset=col_offset)
+        if u.dim() == 3:
+            B, K, D = u.shape
+            bm = CT.fused_bucket_max(u.reshape(B * K, D).contiguous(), table, bucket=bucket,
+                                     bias=bias, n_valid=n_valid, col_offset=col_offset)
+            bm = bm.view(B, K, -1).amax(1)
+        else:
+            bm = CT.fused_bucket_max(u, table, bucket=bucket, bias=bias, n_valid=n_valid,
+                                     col_offset=col_offset)
     with span("topk.select"):
         kk = min(k_wide, bm.shape[1])
         if approx:
@@ -230,22 +254,30 @@ def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,
     scores). Returns [B] int32:
 
       rank = 1 + #{j: s_j >= s_t} - #{clicked j: s_j >= s_t} - [s_0 >= s_t]
-    """
+
+    u [B, D], or [B, K, D] for a multi-interest model, whose score
+    s_j = max_k u[:, k] . table[j] (+ bias[j]) is counted by
+    `fused_interest_ge_count` and taken the same way for the target and
+    the clicked ids."""
     target_col = target_col.to(torch.int32).contiguous()
     tidx = target_col.long()
-    tscore = (u * table[tidx]).sum(-1)
+    if u.dim() == 3:
+        tscore = row_scores(u, table[tidx][:, None, :])[:, 0]
+    else:
+        tscore = (u * table[tidx]).sum(-1)
     if bias is not None:
         tscore = tscore + bias[tidx]
     # the target's own column is excluded by id in the kernel (its kernel
     # score and tscore may differ by an ulp); the epilogue re-adds it
-    total = CT.fused_ge_count(u, table, tscore.contiguous(), target_col=target_col,
-                              bias=bias, n_valid=n_valid)
+    count = CT.fused_interest_ge_count if u.dim() == 3 else CT.fused_ge_count
+    total = count(u, table, tscore.contiguous(), target_col=target_col, bias=bias,
+                  n_valid=n_valid)
     return _ranks_epilogue(u, table, bias, target_col, tscore, clicked_rows, total)
 
 
 def _ranks_epilogue(u, table, bias, target_col, tscore, clicked_rows, total):
     clicked = clicked_rows.long()
-    cscore = torch.matmul(table[clicked], u[:, :, None])[:, :, 0]       # [B, M]
+    cscore = row_scores(u, table[clicked])                              # [B, M]
     if bias is not None:
         cscore = cscore + bias[clicked]
     # the target's residual copy in clicked_rows is counted symbolically,

@@ -105,12 +105,21 @@ def local_ge_count(u, shard, tscore, target, clicked_rows, offset: int, n_valid:
     return ((scores >= tscore[:, None]) & ~excluded).sum(1).to(torch.int32)
 
 
+def _one_vector(u, route: str) -> None:
+    if u.dim() != 2:
+        raise ValueError(
+            f"{route}: user vectors of shape {tuple(u.shape)}; the sharded catalog routes take "
+            "one vector a user [B, d], and a multi-interest model's [B, K, d] has none yet: "
+            "evaluate it with --model_parallel 1")
+
+
 def sharded_catalog_topk(u, shard, k: int, mesh, clicked_rows=None, item_bias=None,
                          n_valid=None):
     """(values [B, k], GLOBAL ids [B, k]) of the catalog top-k, the same on
     every rank of the 'model' group. u [B, d] the same on the group;
     `shard` this rank's [N/m, d] block of the row-sharded table, item_bias
     its [N/m] block or None; n_valid masks the dead padded rows."""
+    _one_vector(u, "sharded_catalog_topk")
     m, n_local = mesh.mp, shard.shape[0]
     offset = mesh.model_index * n_local
     nv = n_local * m if n_valid is None else n_valid
@@ -126,6 +135,7 @@ def sharded_catalog_ranks(u, shard, target, mesh, clicked_rows, item_bias=None,
     (semantics of `cuda_kernels.catalog_ranks`: item 0 and the clicked
     items excluded, >= ties counting against the target, the target's own
     clicked copy re-added as the + 1)."""
+    _one_vector(u, "sharded_catalog_ranks")
     m, n_local = mesh.mp, shard.shape[0]
     offset = mesh.model_index * n_local
     nv = n_local * m if n_valid is None else n_valid

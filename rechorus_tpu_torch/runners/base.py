@@ -1003,9 +1003,10 @@ class BaseRunner:
                     item_bias=self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
             elif catalog:
                 u, bias = self._catalog_parts(model, feed)
+                # u is [B, d], or [B, K, d] for a multi-interest model
                 if table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED and (
                         not self.approx_topk
-                        or u.shape[0] * table.shape[0] > topk_ops.DENSE_APPROX_MAX_ELEMS):
+                        or u[..., 0].numel() * table.shape[0] > topk_ops.DENSE_APPROX_MAX_ELEMS):
                     # streamed over the catalog, never [B, N]; the approx
                     # lane selects over dense scores while they fit
                     scores, items = topk_ops.tiled_catalog_topk(

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rechorus_tpu_torch.ops import cuda_topk as CT
 from rechorus_tpu_torch.ops import metrics as metrics_ops
 from rechorus_tpu_torch.ops import topk as topk_ops
 from rechorus_tpu_torch.utils.spans import span, spanned
@@ -41,8 +42,10 @@ def resolve_device(device=None) -> torch.device:
 
 def dense_catalog_scores(u, table, bias, n_items: int) -> torch.Tensor:
     """[B, N] catalog scores as one product; dead padded tail rows (ids >=
-    n_items) masked to -inf (rechorus_tpu/runners/base.py:682-692)."""
-    scores = u @ table.T
+    n_items) masked to -inf (rechorus_tpu/runners/base.py:682-692). A
+    multi-interest model's u [B, K, d] scores each item by the max over its
+    K rows."""
+    scores = CT.interest_scores(u, table) if u.dim() == 3 else u @ table.T
     if bias is not None:
         scores += bias[None, :]
     if table.shape[0] > n_items:
@@ -92,6 +95,11 @@ class ServeIndex:
         """From a catalog-protocol model whose catalog table is the raw
         parameter table. Other models: precompute the tables and use
         `from_tables`."""
+        if getattr(model, "multi_interest", False):
+            raise ValueError(
+                f"{type(model).__name__} is a multi-interest model: its K user vectors are "
+                "computed from each request's history, and a ServeIndex serves one stored vector "
+                "a user; rank it through BaseRunner.predict_topk (--test_all 1)")
         if not getattr(model, "supports_catalog", False) or \
                 not getattr(model, "catalog_raw_table", True):
             raise ValueError(

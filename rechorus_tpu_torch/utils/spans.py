@@ -25,6 +25,8 @@ parent unless marked "each"):
     eval.feed            each batch: batcher.eval_feed and the row split
     model.encode         each batch: the catalog parts (user vectors,
                          bias) or the model's forward
+      model.interests      a multi-interest model's catalog branch: ComiRec's
+                           K interests from the history
     topk.ranks           each batch: the ranks from the scores
                          (tiled_catalog_ranks: the target score, B3, the
                          epilogue; catalog_ranks, gt_rank, or the sharded

@@ -578,3 +578,96 @@ def test_approx_bin_max_checks_its_inputs(dev):
         CT.approx_bin_max(x.double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         CT.approx_bin_max(torch.zeros(10, 2, device=dev).T, 4)
+
+
+# B, N, D, bias, col_offset, n_valid offset: B off 128 / K for every K,
+# D = 64 (the template instance) and run-time widths below and above a stage
+INTEREST_SHAPES = [
+    (1, 1, 64, False, 0, None),
+    (37, 4197, 64, True, 7, -40),
+    (130, 2049, 64, False, 0, 5),
+    (300, 20481, 64, True, 0, -1),
+    (5, 511, 24, True, 2, -2),
+    (129, 2048, 100, False, 11, None),
+]
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("B,N,D,with_bias,off,nv", INTEREST_SHAPES)
+def test_interest_ge_kernel_equals_plain(dev, K, B, N, D, with_bias, off, nv):
+    """The multi-interest rank count (`rtt_interest_ge_kernel`) on
+    integer-valued inputs, so every score and every max is exact: counts
+    equal the plain version's with and without the target's id, under the
+    n_valid, col_offset and bias masks. K = 3 is widened to 4 by repeating
+    interest 0, and K = 8 takes the permuted layout."""
+    gen = torch.Generator().manual_seed(B + N + D + K)
+    u, t = _ints(gen, B, K, D, lo=-3, hi=4), _ints(gen, N, D, lo=-3, hi=4)
+    bias = _ints(gen, N) if with_bias else None
+    n_valid = None if nv is None else N + off + nv
+    kw = dict(bias=bias, n_valid=n_valid, col_offset=off)
+    kw_dev = dict(kw, bias=None if bias is None else bias.to(dev))
+    tgt = torch.randint(0, N, (B,), generator=gen)
+    tscore = CT.interest_scores(u, t, bias)[torch.arange(B), tgt].contiguous()
+    tscore[::3] += 0.5                         # off the integer grid: no tie at the target
+    tcol = (tgt + off).to(torch.int32)
+    for target_col in (tcol, None):
+        before = CT.fused_interest_ge_count.launches
+        got = CT.fused_interest_ge_count(u.to(dev), t.to(dev), tscore.to(dev),
+                                         target_col=None if target_col is None else target_col.to(dev),
+                                         **kw_dev)
+        assert CT.fused_interest_ge_count.launches == before + 1
+        want = CT.fused_interest_ge_count_plain(u, t, tscore, target_col=target_col, **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("D", [64, 40])
+def test_interest_ge_kernel_at_one_interest_equals_b3(dev, D):
+    """At K = 1 the multi-interest count is B3's (`rtt_fused_ge_kernel`),
+    count for count, on Gaussian scores: both sum the same FMAs in the same
+    order, so even near-ties fall the same way."""
+    gen = torch.Generator(device=dev).manual_seed(D)
+    B, N = 4096 + 77, 100_003
+    u = torch.randn(B, D, generator=gen, device=dev)
+    t = torch.randn(N, D, generator=gen, device=dev)
+    bias = torch.randn(N, generator=gen, device=dev)
+    tcol = torch.randint(1, N, (B,), generator=gen, device=dev).to(torch.int32)
+    tscore = ((u * t[tcol.long()]).sum(-1) + bias[tcol.long()]).contiguous()
+    kw = dict(target_col=tcol, bias=bias, n_valid=N - 9)
+    got = CT.fused_interest_ge_count(u[:, None, :].contiguous(), t, tscore, **kw)
+    assert torch.equal(got, CT.fused_ge_count(u, t, tscore, **kw))
+
+
+def test_interest_routes_on_card_match_cpu(dev):
+    """The multi-interest ranks and top-k at a catalog above
+    MIN_ROWS_FOR_TILED on the card equal the CPU's plain route on
+    integer-valued inputs; targets sit among the clicked ids."""
+    rng = np.random.default_rng(14)
+    B, K, N, D, k = 45, 4, 16384 + 37, 24, 50
+    u = torch.from_numpy(rng.integers(-8, 9, size=(B, K, D)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(-8, 9, size=(N, D)).astype(np.float32))
+    clicked = torch.from_numpy(rng.integers(0, N, size=(B, 9)).astype(np.int32))
+    tgt = torch.from_numpy(rng.integers(1, N, size=(B,)).astype(np.int32))
+    clicked[:, 0] = tgt
+    grouped = TT.group_table_for_rescore(t)
+    v_c, _ = TT.tiled_catalog_topk(u, t, k, clicked_rows=clicked, n_valid=N - 3,
+                                   grouped_table=grouped)
+    v_g, _ = TT.tiled_catalog_topk(u.to(dev), t.to(dev), k, clicked_rows=clicked.to(dev),
+                                   n_valid=N - 3, grouped_table=grouped.to(dev))
+    torch.testing.assert_close(v_g.cpu(), v_c, rtol=0, atol=0)   # integer scores: exact
+    r_c = TT.tiled_catalog_ranks(u, t, tgt, clicked, n_valid=N - 3)
+    before = CT.fused_interest_ge_count.launches
+    r_g = TT.tiled_catalog_ranks(u.to(dev), t.to(dev), tgt.to(dev), clicked.to(dev),
+                                 n_valid=N - 3)
+    assert CT.fused_interest_ge_count.launches == before + 1
+    torch.testing.assert_close(r_g.cpu(), r_c, rtol=0, atol=0)
+
+
+def test_interest_kernel_checks_its_inputs(dev):
+    t = torch.zeros(300, 8, device=dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        CT.fused_interest_ge_count(torch.zeros(4, 9, 8, device=dev), t, torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match=r"expected \[B, K, D\]"):
+        CT.fused_interest_ge_count(torch.zeros(4, 8, device=dev), t, torch.zeros(4, device=dev))
+    with pytest.raises(TypeError, match="dtype"):
+        CT.fused_interest_ge_count(torch.zeros(4, 2, 8, device=dev).double(), t.double(),
+                                   torch.zeros(4, device=dev))

@@ -272,7 +272,10 @@ def test_registry_args_and_lazy_specs_equal_jax():
             names(m.parse_model_args(argparse.ArgumentParser())), name
         assert jm.extra_log_args == m.extra_log_args, name
         assert (jm.reader, jm.runner, jm.batcher) == (m.reader, m.runner, m.batcher), name
-        assert jm.supports_catalog == m.supports_catalog, name
+        # the port's ComiRec alone has a catalog protocol the JAX package's
+        # lacks: the multi-interest one (its K interests, scored by their max)
+        assert m.multi_interest == (name == "ComiRec"), name
+        assert jm.supports_catalog == (m.supports_catalog and not m.multi_interest), name
         assert getattr(jm, "candidate_aligned_keys", ()) == getattr(m, "candidate_aligned_keys", ())
 
 
@@ -604,7 +607,8 @@ def test_cli_learns_in_every_lane(synth_root, tmp_path, name, lane):
     """Each single-stage model through the CLI on the CPU: finite falling
     losses, a lift of test HR@5 over the untrained model in the dense lane;
     `--test_all 1` ranks over the catalog (TiSASRec by its catalog
-    protocol, the others by their forward); `--lazy_emb_adam 1` commits
+    protocol, ComiRec by the multi-interest one, the others by their
+    forward); `--lazy_emb_adam 1` commits
     the lazy tables of the four models that declare them."""
     extra = {"dense": ["--epoch", "5"], "test_all": ["--epoch", "1", "--test_all", "1"],
              "lazy": ["--epoch", "2", "--lazy_emb_adam", "1", "--debug_nan_placeholder", "1"]}[lane]
