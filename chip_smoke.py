@@ -182,6 +182,10 @@ KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     # D9, B3's count over a multi-interest model's max: the JAX package
     # ranks such a model through its forward (no pallas_call)
     "interest_ge_count": (CT.fused_interest_ge_count, "none (ComiRec's forward, ranked by B1)", CATALOG_SRC),
+    # D6, the exact top-k's grouped rescore: the JAX package's is a gather
+    # and an einsum, which XLA runs (no pallas_call)
+    "bucket_rescore": (CT.bucket_rescore, "none (a gather and einsum, rechorus_tpu/ops/topk.py:227)",
+                       CATALOG_SRC),
     "scatter_rows": (CS.scatter_rows, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
     "adam_commit": (LA.adam_commit, "rechorus_tpu/ops/pallas_scatter.py:121", SCATTER_SRC),
     # the approx lane's select: `jax.lax.approx_max_k`, an XLA primitive of
@@ -832,6 +836,7 @@ def phase_kernels(gen):
         del x, vals, cols, want_v, want_c
         torch.cuda.empty_cache()
     interest = interest_vs_plain(gen, err, sub, inputs)
+    rescore = rescore_vs_plain(err, inputs)
     reciprocal = commit_vs_plain(gen, err)
     dense = dense_vs_plain(gen, err)
     emit("kernels_vs_plain", max_abs_err=err, users_checked=N_PLAIN, small_batches=SMALL_BATCHES,
@@ -840,7 +845,7 @@ def phase_kernels(gen):
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
          approx_bin_max_cases=[[b, n, L, kind] for (b, n), L, kind in APPROX_CASES],
-         interest_ge_cases=interest,
+         interest_ge_cases=interest, bucket_rescore_cases=rescore,
          adam_dense_cases=dense, **reciprocal)
     return err
 
@@ -928,6 +933,46 @@ def interest_vs_plain(gen, err, sub, inputs) -> list:
         del u, table, bias, got, ref
         torch.cuda.empty_cache()
     return [list(c) for c in INTEREST_CASES]
+
+
+# D6 at the serve shape: (kind, bias, n_valid, col_offset) over [BATCH, EMB]
+# users and the k + M buckets a user of the [N_ITEMS + 1, EMB] catalog
+RESCORE_CASES = [("int", True, N_ITEMS + 1 - 1000, 7), ("gauss", False, N_ITEMS + 1, 0)]
+
+
+def rescore_vs_plain(err, inputs) -> list:
+    """D6 (`bucket_rescore`) against its plain version (the gather and
+    batched product it replaced) at the serve shape: the TOPK + N_CLICKED
+    buckets the two-level select takes from B2's maxima, scored from the
+    grouped copy, in RESCORE_CASES. Integer inputs: scores and ids equal;
+    Gaussian ones: ids equal, scores within B2_ATOL (the plain product sums
+    in another order); in both, each selected bucket's largest score equals
+    B2's maximum for it bit for bit."""
+    N, kk = N_ITEMS + 1, TOPK + N_CLICKED
+    for kind, with_bias, n_valid, off in RESCORE_CASES:
+        u, table = inputs(kind, BATCH, EMB), inputs(kind, N, EMB)
+        bias = inputs(kind, N) if with_bias else None
+        kw = dict(bias=bias, n_valid=n_valid, col_offset=off)
+        gv, gb = TT.two_level_bucket_select(
+            CT.fused_bucket_max(u, table, bucket=TT.DEFAULT_BUCKET, **kw), kk)
+        grouped = TT.group_table_for_rescore(table)
+        before = CT.bucket_rescore.launches
+        cs, cand = CT.bucket_rescore(u, grouped, gb, gv, n_rows=N, **kw)
+        want_s, want_c = CT.bucket_rescore_plain(u, grouped, gb, gv, n_rows=N, **kw)
+        torch.cuda.synchronize()
+        what = f"bucket_rescore {kind} [{BATCH}, {EMB}] x {kk} buckets of [{N}, {EMB}]"
+        check(CT.bucket_rescore.launches == before + 1, f"{what}: one launch")
+        check(torch.equal(cand, want_c), f"{what}: ids equal the plain version's")
+        check(torch.equal(torch.isinf(cs), torch.isinf(want_s)), f"{what}: -inf pattern")
+        fin = torch.isfinite(want_s)
+        e = float((cs[fin] - want_s[fin]).abs().max())
+        err["bucket_rescore"] = max(err["bucket_rescore"], e)
+        check(e == 0 if kind == "int" else e <= B2_ATOL, f"{what}: max |err| {e}")
+        check(bool(torch.isfinite(gv).all()) and torch.equal(cs.view(BATCH, kk, -1).amax(-1), gv),
+              f"{what}: each bucket's largest score is B2's maximum, bit for bit")
+        del u, table, bias, grouped, cs, cand, want_s, want_c
+        torch.cuda.empty_cache()
+    return [list(c) for c in RESCORE_CASES]
 
 
 def commit_vs_plain(gen, err) -> dict:
@@ -3533,6 +3578,22 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
             fused_ge_count_over_bk_rows_ms=cuda_ms(
                 lambda: CT.fused_ge_count(u4.view(B * K, D), it, ts4.repeat_interleave(K), n_valid=N), 10))
         del u4, ts4
+        torch.cuda.empty_cache()
+        # D6 at the serve shape: each user's TOPK + N_CLICKED buckets of B2's
+        # maxima, scored from the index's grouped copy; bound: the slices
+        # and the users read, the selection read, the scores and ids written
+        kk, bucket = TOPK + N_CLICKED, TT.DEFAULT_BUCKET
+        gv, gb = TT.two_level_bucket_select(CT.fused_bucket_max(u, it, **bm_kw), kk)
+        rs_kw = dict(n_rows=N, n_valid=idx.n_items)
+        rows["bucket_rescore"] = dict(
+            ms=cuda_ms(lambda: CT.bucket_rescore(u, idx.grouped, gb, gv, **rs_kw), 20),
+            device_ms=device_ms(lambda: CT.bucket_rescore(u, idx.grouped, gb, gv, **rs_kw), 5),
+            plain_ms=cuda_ms(lambda: CT.bucket_rescore_plain(u, idx.grouped, gb, gv, **rs_kw), 5,
+                             warmup=1),
+            library_ms=None, shape=[B, kk, bucket, D],
+            bound=bound_ms(4 * B * kk * bucket * (D + 3) + 12 * B * kk + 4 * B * D,
+                           2 * B * kk * bucket * D))
+        del gv, gb
         torch.cuda.empty_cache()
 
         # B4 at the packed item table's step shape; every id valid

@@ -20,6 +20,11 @@
 //
 //   rtt_interest_ge_kernel B3's count over a max of K interest scores
 //
+// and one replaces a gather and an einsum that XLA ran on the TPU:
+//
+//   rtt_bucket_rescore_kernel  the exact top-k's rescore of the selected
+//                          buckets (rechorus_tpu/ops/topk.py:227)
+//
 // The TPU kernels run their grid in order and carry a count in the output
 // block from one catalog step to the next. Here blocks run in parallel and
 // in no order: a block loops over its own slice of the catalog, and the
@@ -39,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -180,6 +187,11 @@ __device__ __forceinline__ void cp_async4_or_zero(float* smem_dst, const float* 
   const int bytes = valid ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
+}
+// 16 bytes, both addresses 16-byte aligned; through L2 only.
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float* src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -635,6 +647,139 @@ rtt_interest_ge_kernel(const float* __restrict__ u, const float* __restrict__ ta
   }
 }
 
+// ---------------------------------------------- grouped bucket rescore (D6) --
+// Step 3 of the exact hierarchical top-k (ops/topk.py::tiled_catalog_topk):
+// each of a user's kk selected buckets scored again item by item, from the
+// grouped copy [Gp, bucket, D] in which a bucket's rows are one contiguous
+// slice (ops/topk.py::group_table_for_rescore). The JAX package gathers the
+// slices into a [B, kk, bucket, D] array and rescores it with an einsum
+// (rechorus_tpu/ops/topk.py:227); no Pallas kernel.
+//
+// Bounded by bytes: at the serve shape (4096 users x 132 buckets of 16 rows
+// of D = 64) it reads 2.21 GB of slices, one FMA a float, and writes 104
+// MB of scores and ids. What the design does about it:
+//
+//   * A block takes `slots` consecutive slices of the flattened [B, kk]
+//     selection (8 at bucket 16: 128 rows, one a thread) and copies them
+//     whole into shared memory, 16-byte cp.async where D and the bases
+//     allow (a warp request is 512 contiguous bytes), else 4-byte. Nothing
+//     of [B, kk, bucket, D] reaches device memory.
+//   * No ring: six such blocks fit on an SM (35 KB of shared memory each),
+//     so while one scores, the others' copies are in flight, ~190 KB an SM
+//     where 3.35 TB/s at ~1 us of latency needs ~25 KB.
+//   * A thread scores its row in B2's order: one accumulator, fmaf over d
+//     from 0 up, then + bias. So every score equals bit for bit the one B2
+//     took its bucket maximum over. Rows lie Dp floats apart in shared
+//     memory, Dp = 4 mod 32 for 16-byte loads and odd for 4-byte ones, so
+//     the rows that one load instruction's phase reads fall in distinct
+//     banks.
+//   * K <= 8 interest rows of a multi-interest user are K accumulators
+//     over the same loaded row, the score their fmaxf + bias (rounding is
+//     monotone: the max over k of B2's per-row scores). The user's rows
+//     come from device memory through L1; a slice's threads read the same
+//     address.
+//   * A slot scores -inf past N (the last bucket's overhang), at a global
+//     id <= 0 or >= n_valid, and in a pad slot (bucket maximum -inf); its
+//     id is the local row, N - 1 where it lies out of range.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the serve shape: 0.78-0.79
+// ms against the 0.69 ms bound (the gather and cuBLAS's batched GEMV it
+// replaced: 3.9 ms). A persistent grid of as many blocks as the card holds,
+// each walking the groups, took the same time to 0.2%; at K = 4 the user's
+// rows read through L1 take it to 1.20 ms.
+namespace {
+constexpr int kRescoreThreads = 128;           // rows scored at once, one a thread
+constexpr int kRescoreSmemBytes = 48 * 1024;   // a block's slices: six blocks an SM at D = 64
+constexpr int kMaxInterests = 8;
+}  // namespace
+
+template <int kD, int kVec>
+__global__ void __launch_bounds__(kRescoreThreads, 6)
+rtt_bucket_rescore_kernel(const float* __restrict__ u, const float* __restrict__ grouped,
+                          const int64_t* __restrict__ gb, const float* __restrict__ gv,
+                          const float* __restrict__ bias, float* __restrict__ cs,
+                          int64_t* __restrict__ cand, int n_slices, int kk, int K, int D_arg,
+                          int bucket, int Gp, int N, int n_valid, int col_offset, int slots,
+                          int Dp) {
+  const int D = kD ? kD : D_arg;
+  extern __shared__ float4 smem4[];
+  float* rows_sm = reinterpret_cast<float*>(smem4);
+  int64_t* src = reinterpret_cast<int64_t*>(rows_sm + ((slots * bucket * Dp + 3) & ~3));
+  const int s0 = blockIdx.x * slots;
+  const int rows = min(slots, n_slices - s0) * bucket;
+  // each row's place in the grouped copy: row c of slice gb[s], clamped
+  for (int r = threadIdx.x; r < rows; r += kRescoreThreads) {
+    const int q = r / bucket;
+    const int64_t g = gb[s0 + q];
+    const int64_t gc = g < 0 ? 0 : (g < Gp ? g : Gp - 1);
+    src[r] = (gc * bucket + (r - q * bucket)) * D;
+  }
+  __syncthreads();
+  const int units = D / kVec;                          // copies a row
+  const int lanes = min(units, kRescoreThreads);       // threads a row
+  const int r_step = kRescoreThreads / lanes;
+  if ((int)threadIdx.x < lanes * r_step) {
+    for (int r = threadIdx.x / lanes; r < rows; r += r_step)
+      for (int c = threadIdx.x % lanes; c < units; c += lanes) {
+        float* dst = rows_sm + r * Dp + c * kVec;
+        const float* from = grouped + src[r] + c * kVec;
+        if (kVec == 4) cp_async16(dst, from); else cp_async4(dst, from);
+      }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int r = threadIdx.x; r < rows; r += kRescoreThreads) {
+    const int q = r / bucket, c = r - q * bucket, s = s0 + q;
+    const int64_t g = gb[s];
+    const int64_t item = (g / kNB) * bucket * kNB + g % kNB + (int64_t)c * kNB;
+    const bool live = gv[s] != -INFINITY && item < N;
+    const int row = live ? (int)item : N - 1;
+    const int64_t gid = (int64_t)row + col_offset;
+    float score = -INFINITY;
+    if (live && gid > 0 && (n_valid < 0 || gid < n_valid)) {
+      const float* x = rows_sm + r * Dp;
+      const float* ub = u + (int64_t)(s / kk) * K * D;
+      float acc[kMaxInterests];
+#pragma unroll
+      for (int k = 0; k < kMaxInterests; ++k) acc[k] = 0.f;
+      if (kVec == 4) {
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(x + d);
+#pragma unroll
+          for (int k = 0; k < kMaxInterests; ++k) {
+            if (k >= K) break;
+            const float4 a = __ldg(reinterpret_cast<const float4*>(ub + k * D + d));
+            acc[k] = fmaf(a.x, t.x, acc[k]);
+            acc[k] = fmaf(a.y, t.y, acc[k]);
+            acc[k] = fmaf(a.z, t.z, acc[k]);
+            acc[k] = fmaf(a.w, t.w, acc[k]);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          const float t = x[d];
+#pragma unroll
+          for (int k = 0; k < kMaxInterests; ++k) {
+            if (k >= K) break;
+            acc[k] = fmaf(__ldg(ub + k * D + d), t, acc[k]);
+          }
+        }
+      }
+      float m = acc[0];
+#pragma unroll
+      for (int k = 1; k < kMaxInterests; ++k)
+        if (k < K) m = fmaxf(m, acc[k]);
+      score = bias != nullptr ? m + bias[row] : m;
+    }
+    cs[(int64_t)s0 * bucket + r] = score;
+    cand[(int64_t)s0 * bucket + r] = row;
+  }
+}
+
 // ------------------------------------------------------------ launchers --
 namespace {
 constexpr int kGeChunks = 16;  // fused_ge_count: 16 x 128 = 2048 rows a catalog block
@@ -724,6 +869,40 @@ extern "C" int rtt_interest_ge_count(const float* u, const float* table, const f
   return launch_fused(kernel, rows, n_blocks, sm.bytes, stream, u, table, tscore, target_col,
                       bias, counts, B, rows, N, D, kGeChunks, n_valid, col_offset, n_blocks,
                       sm.resident);
+}
+
+// u holds K rows a user (K <= 8); grouped is [Gp, bucket, D]; gb, gv are
+// the [B, kk] selected buckets and their maxima; cs, cand the [B, kk *
+// bucket] scores and local ids. B * kk * bucket must fit in an int.
+extern "C" int rtt_bucket_rescore(const float* u, const float* grouped, const int64_t* gb,
+                                  const float* gv, const float* bias, float* cs, int64_t* cand,
+                                  int B, int K, int kk, int Gp, int bucket, int D, int N,
+                                  int n_valid, int col_offset, cudaStream_t stream) {
+  if (B <= 0 || kk <= 0 || K <= 0 || K > kMaxInterests || Gp <= 0 || bucket <= 0 || D <= 0 ||
+      N <= 0 || (int64_t)B * kk * bucket > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(u) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(grouped) & 15) == 0;
+  const int Dp = vec ? D + (36 - D % 32) % 32 : (D | 1);  // 4 mod 32, or odd
+  const int64_t slice_bytes = (int64_t)bucket * (Dp * sizeof(float) + sizeof(int64_t)) + 16;
+  const int slots = (int)std::max<int64_t>(
+      1, std::min<int64_t>(kRescoreThreads / bucket, kRescoreSmemBytes / slice_bytes));
+  const int64_t rows = (int64_t)slots * bucket;
+  const int64_t smem = ((rows * Dp + 3) & ~3) * (int64_t)sizeof(float) + rows * sizeof(int64_t);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto kernel = !vec ? rtt_bucket_rescore_kernel<0, 1>
+                     : D == 64 ? rtt_bucket_rescore_kernel<64, 4> : rtt_bucket_rescore_kernel<0, 4>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int n_slices = B * kk;
+  kernel<<<(unsigned)cdiv(n_slices, slots), kRescoreThreads, smem, stream>>>(
+      u, grouped, gb, gv, bias, cs, cand, n_slices, kk, K, D, bucket, Gp, N, n_valid, col_offset,
+      slots, Dp);
+  return cudaGetLastError();
 }
 
 extern "C" int rtt_approx_bin_max(const float* x, float* vals, int* idx, int B, int N, int L,

@@ -21,6 +21,11 @@ matrix never reaches device memory:
   u [B, K, D], a row's score the max over the K interests, taken before
   the compare (the count of a max is no function of the K counts).
 
+`bucket_rescore` -- stage 3 of the exact top-k: every item of each user's
+  selected buckets scored again, straight from the grouped copy
+  (`topk.group_table_for_rescore`), with the id masks, in B2's order of
+  summation, so a score equals the one its bucket maximum was taken over.
+
 `approx_bin_max` -- the first stage of the approximate top-k
   (`ops.topk.approx_max_k`): per row, the maximum and its column over
   each of L strided bins (column j in bin j mod L), L from the recall
@@ -29,9 +34,9 @@ matrix never reaches device memory:
 
 Masks live in GLOBAL id space: global id = local row + `col_offset`.
 On CUDA tensors the wrappers launch `rtt_bucket_max_kernel` /
-`rtt_fused_ge_kernel` / `rtt_interest_ge_kernel` / `rtt_approx_bin_max_kernel`
-(csrc/catalog_kernels.cu); on CPU tensors they run the `*_plain`
-versions, which materialize the masked scores.
+`rtt_fused_ge_kernel` / `rtt_interest_ge_kernel` / `rtt_bucket_rescore_kernel` /
+`rtt_approx_bin_max_kernel` (csrc/catalog_kernels.cu); on CPU tensors they
+run the `*_plain` versions, which materialize the masked scores.
 """
 from __future__ import annotations
 
@@ -115,6 +120,101 @@ def expand_bucket_items(gb: torch.Tensor, bucket: int, nb: int = NB) -> torch.Te
     base = (gb // nb) * (bucket * nb) + gb % nb
     items = base[:, :, None] + (torch.arange(bucket, dtype=gb.dtype, device=gb.device) * nb)
     return items.reshape(gb.shape[0], -1)
+
+
+def selected_items(gb: torch.Tensor, gv: torch.Tensor, bucket: int, n_rows: int) -> torch.Tensor:
+    """Candidate LOCAL item ids [B, kk*bucket] of the selected buckets gb
+    [B, kk] whose maxima are gv. A -inf maximum marks a pad slot (fewer
+    than kk finite buckets): the strided expansion can alias it onto REAL
+    items, so its ids are n_rows, out of range, for `mask_candidates`."""
+    pad = torch.isneginf(gv).repeat_interleave(bucket, dim=1)
+    return expand_bucket_items(gb, bucket).masked_fill(pad, n_rows)
+
+
+def row_scores(u, vecs):
+    """[B, M] scores of each row's own vectors vecs [B, M, D]: u [B, D]
+    dotted with them, or for K interests u [B, K, D] the max over k."""
+    if u.dim() == 3:
+        return torch.matmul(vecs, u.transpose(1, 2)).amax(-1)
+    return torch.matmul(vecs, u[:, :, None])[:, :, 0]
+
+
+def mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows):
+    """Bias and id masks for rescored candidates; out-of-range expansions
+    (the last bucket's overhang, pad slots) score -inf rather than
+    clamping into duplicate copies of row n_rows-1."""
+    in_range = raw_cand < n_rows
+    cand = raw_cand.clamp(max=n_rows - 1)
+    if bias is not None:
+        cs = cs + bias[cand]
+    gcand = cand + col_offset
+    ok = in_range & (gcand > 0)
+    if n_valid is not None:
+        ok &= gcand < n_valid
+    return cs.masked_fill(~ok, float("-inf")), cand
+
+
+def bucket_rescore_plain(u, grouped, gb, gv, *, n_rows: int, bias=None, n_valid=None,
+                         col_offset: int = 0):
+    """`bucket_rescore` by a gather of the [B, kk, bucket, D] slices and a
+    batched product."""
+    B = gb.shape[0]
+    bucket, D = grouped.shape[1], grouped.shape[2]
+    raw_cand = selected_items(gb, gv, bucket, n_rows)
+    cvec = grouped[gb.clamp(max=grouped.shape[0] - 1)]                  # [B, kk, bucket, D]
+    cs = row_scores(u, cvec.view(B, -1, D))
+    return mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
+
+
+def bucket_rescore(u, grouped, gb, gv, *, n_rows: int, bias=None, n_valid=None,
+                   col_offset: int = 0):
+    """(scores [B, kk*bucket] float32, LOCAL ids [B, kk*bucket] int64) of
+    every item of the selected buckets gb [B, kk] (int64 ids of
+    `fused_bucket_max`'s partition; gv [B, kk] float32 their maxima, -inf
+    marking a pad slot), read from grouped [Gp, bucket, D], the grouped copy
+    of a table of n_rows rows (`topk.group_table_for_rescore`). A score is
+    u[b] . row (+ bias[row]), or for u [B, K, D] (K <= 8) the max over k,
+    summed as B2 sums it (fmaf over d upwards, then + bias). Slot j of
+    selected bucket i is column i*bucket + j, its id
+    `expand_bucket_items(gb, bucket)` there. A slot scores -inf past n_rows
+    (the last bucket's overhang, whose id is clamped to n_rows - 1), in a
+    pad slot (id n_rows - 1), and at a global id (id + col_offset) <= 0 or
+    >= n_valid."""
+    if u.device.type == "cpu":
+        return bucket_rescore_plain(u, grouped, gb, gv, n_rows=n_rows, bias=bias,
+                                    n_valid=n_valid, col_offset=col_offset)
+    if u.device.type != "cuda":
+        raise ValueError(f"bucket_rescore: no kernel for device {u.device}")
+    if u.dim() not in (2, 3):
+        raise ValueError(f"bucket_rescore: u has shape {tuple(u.shape)}, expected [B, D] or "
+                         "[B, K, D]")
+    (B, kk), (Gp, bucket, D), dev = gb.shape, grouped.shape, u.device
+    K = u.shape[1] if u.dim() == 3 else 1
+    _build.check_input("bucket_rescore", "u", u, torch.float32,
+                       (B, K, D) if u.dim() == 3 else (B, D), dev)
+    _build.check_input("bucket_rescore", "grouped", grouped, torch.float32, (Gp, bucket, D), dev)
+    _build.check_input("bucket_rescore", "gb", gb, torch.int64, (B, kk), dev)
+    _build.check_input("bucket_rescore", "gv", gv, torch.float32, (B, kk), dev)
+    if bias is not None:
+        _build.check_input("bucket_rescore", "bias", bias, torch.float32, (n_rows,), dev)
+    if not 1 <= K <= INTEREST_KS[-1] or D < 1 or not 1 <= n_rows <= Gp * bucket:
+        raise ValueError(f"bucket_rescore: K={K} (at most {INTEREST_KS[-1]}), D={D}, "
+                         f"n_rows={n_rows} over a grouped copy of {Gp} x {bucket} rows")
+    n_valid_c = -1 if n_valid is None else int(n_valid)
+    _build.check_int32("bucket_rescore", Gp=Gp, D=D, n_rows=n_rows, n_valid=n_valid_c,
+                       col_offset=int(col_offset), slots=B * kk * bucket)
+    cs = torch.empty(B, kk * bucket, dtype=torch.float32, device=dev)
+    cand = torch.empty(B, kk * bucket, dtype=torch.int64, device=dev)
+    if B and kk:
+        _build.launchers.rtt_bucket_rescore(
+            u.get_device(), _build.ptr(u), _build.ptr(grouped), _build.ptr(gb), _build.ptr(gv),
+            _build.ptr(bias), _build.ptr(cs), _build.ptr(cand), B, K, kk, Gp, bucket, D, n_rows,
+            n_valid_c, int(col_offset))
+        bucket_rescore.launches += 1
+    return cs, cand
+
+
+bucket_rescore.launches = 0
 
 
 def fused_ge_count_plain(u, table, tscore, *, target_col=None, bias=None, n_valid=None,

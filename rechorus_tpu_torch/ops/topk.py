@@ -10,18 +10,21 @@ functions here stream the catalog through the fused kernels of
   1. `fused_bucket_max`: per strided bucket of `bucket` items, the
      masked max score ([B, G] with G = N / bucket, rounded up to 128).
   2. Exact top `k+M` buckets (`two_level_bucket_select` on wide G).
-  3. Rescore only the winning buckets' items ((k+M)*bucket per user,
-     from the grouped copy `group_table_for_rescore` when given), knock
-     out clicked ids, final top-k.
+  3. Rescore only the winning buckets' items ((k+M)*bucket per user):
+     from the grouped copy `group_table_for_rescore` when given, in one
+     `bucket_rescore` launch that reads each selected slice once; else by
+     a gather of the candidate rows. Knock out clicked ids, final top-k.
 
   Exactness: let v* be the k-th largest unmasked score. Every bucket
   holding a true top-k item has max >= v*. Buckets with max >= v* are
   (a) those whose max is itself a top-k item (<= k) or (b) those whose
   max is an excluded clicked item scoring >= v* (<= M). So the top k+M
   buckets contain every winner, and rescoring them recovers the exact
-  top-k. The bucket maxima and the rescore are both FP32 (no TF32), so
-  they agree up to summation order: results can differ from a dense
-  top-k only on near-ties.
+  top-k. Both stages are FP32 (no TF32). On the card the grouped
+  rescore sums as B2 does, so each rescored score is, bit for bit, the
+  one B2 took its bucket maximum over; the gather route and the CPU's
+  plain versions agree with B2 up to summation order. Results can differ
+  from a dense top-k only on near-ties.
 
 `tiled_catalog_ranks` -- ground-truth rank for `--test_all`: the fused
   >=-count over the catalog minus clicked corrections by gather.
@@ -116,7 +119,7 @@ def group_table_for_rescore(table: torch.Tensor, bucket: int | None = None,
     """One-time [Gp, bucket, D] copy of `table` in which each STRIDED
     bucket's members (`fused_bucket_max` partition: bucket g = rows
     (g//nb)*bucket*nb + g%nb + arange(bucket)*nb) are contiguous, so the
-    rescore gathers one slice per selected bucket instead of `bucket`
+    rescore reads one slice per selected bucket instead of `bucket`
     scattered rows. Overhang slots repeat row N-1 (masked at rescore)."""
     bucket = bucket or DEFAULT_BUCKET
     N = table.shape[0]
@@ -127,44 +130,13 @@ def group_table_for_rescore(table: torch.Tensor, bucket: int | None = None,
     return table[old.clamp(max=N - 1)]
 
 
-def _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows):
-    """Bias and id masks for rescored candidates; out-of-range expansions
-    (the last bucket's overhang, pad slots) score -inf rather than
-    clamping into duplicate copies of row n_rows-1."""
-    in_range = raw_cand < n_rows
-    cand = raw_cand.clamp(max=n_rows - 1)
-    if bias is not None:
-        cs = cs + bias[cand]
-    gcand = cand + col_offset
-    ok = in_range & (gcand > 0)
-    if n_valid is not None:
-        ok &= gcand < n_valid
-    return cs.masked_fill(~ok, float("-inf")), cand
-
-
-def row_scores(u, vecs):
-    """[B, M] scores of each row's own vectors vecs [B, M, D]: u [B, D]
-    dotted with them, or for K interests u [B, K, D] the max over k."""
-    if u.dim() == 3:
-        return torch.matmul(vecs, u.transpose(1, 2)).amax(-1)
-    return torch.matmul(vecs, u[:, :, None])[:, :, 0]
-
-
-def _exact_rescore_grouped(u, grouped, bias, gb, raw_cand, col_offset, n_valid, n_rows):
-    """Rescore candidates whose vectors come from the grouped copy's
-    [B, kk] slice gathers; masks and ids use `raw_cand`."""
-    B, kk = gb.shape
-    cvec = grouped[gb.clamp(max=grouped.shape[0] - 1)]                  # [B, kk, bucket, D]
-    cs = row_scores(u, cvec.view(B, -1, cvec.shape[-1]))
-    del cvec
-    return _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
-
-
-def _exact_rescore(u, table, bias, raw_cand, col_offset, n_valid, n_rows):
-    """Gather the candidate rows, rescore, mask by global id."""
+def _exact_rescore(u, table, bias, gb, gv, bucket, col_offset, n_valid, n_rows):
+    """Expand the selected buckets to their items, gather the candidate
+    rows, rescore, mask by global id."""
+    raw_cand = CT.selected_items(gb, gv, bucket, n_rows)
     cvec = table[raw_cand.clamp(max=n_rows - 1)]                        # [B, C, D]
-    cs = row_scores(u, cvec)
-    return _mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
+    cs = CT.row_scores(u, cvec)
+    return CT.mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
 
 
 def _final_select(cs, cand, k, k_wide, clicked_rows, col_offset):
@@ -216,7 +188,8 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
     with span("topk.bucket_max"):
         if u.dim() == 3:
             B, K, D = u.shape
-            bm = CT.fused_bucket_max(u.reshape(B * K, D).contiguous(), table, bucket=bucket,
+            u = u.contiguous()
+            bm = CT.fused_bucket_max(u.view(B * K, D), table, bucket=bucket,
                                      bias=bias, n_valid=n_valid, col_offset=col_offset)
             bm = bm.view(B, K, -1).amax(1)
         else:
@@ -231,18 +204,12 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
         else:
             gv, gb = torch.topk(bm, kk, dim=1)
         del bm
-        raw_cand = CT.expand_bucket_items(gb, bucket)
-        # a -inf selected bucket is a pad slot (fewer than kk finite
-        # buckets): the strided expansion can alias it onto REAL items, so
-        # force its expansion out of range for the rescore to mask
-        pad_mask = torch.isneginf(gv).repeat_interleave(bucket, dim=1)
-        raw_cand = raw_cand.masked_fill(pad_mask, N)
     with span("topk.rescore"):
         if grouped_table is not None:
-            cs, cand = _exact_rescore_grouped(u, grouped_table, bias, gb, raw_cand,
-                                              col_offset, n_valid, N)
+            cs, cand = CT.bucket_rescore(u, grouped_table, gb, gv, n_rows=N, bias=bias,
+                                         n_valid=n_valid, col_offset=col_offset)
         else:
-            cs, cand = _exact_rescore(u, table, bias, raw_cand, col_offset, n_valid, N)
+            cs, cand = _exact_rescore(u, table, bias, gb, gv, bucket, col_offset, n_valid, N)
     with span("topk.final"):
         return _final_select(cs, cand, k, k_wide, clicked_rows, col_offset)
 
@@ -262,7 +229,7 @@ def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,
     target_col = target_col.to(torch.int32).contiguous()
     tidx = target_col.long()
     if u.dim() == 3:
-        tscore = row_scores(u, table[tidx][:, None, :])[:, 0]
+        tscore = CT.row_scores(u, table[tidx][:, None, :])[:, 0]
     else:
         tscore = (u * table[tidx]).sum(-1)
     if bias is not None:
@@ -277,7 +244,7 @@ def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,
 
 def _ranks_epilogue(u, table, bias, target_col, tscore, clicked_rows, total):
     clicked = clicked_rows.long()
-    cscore = row_scores(u, table[clicked])                              # [B, M]
+    cscore = CT.row_scores(u, table[clicked])                           # [B, M]
     if bias is not None:
         cscore = cscore + bias[clicked]
     # the target's residual copy in clicked_rows is counted symbolically,

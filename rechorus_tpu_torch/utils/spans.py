@@ -16,9 +16,9 @@ parent unless marked "each"):
   serve.query          ServeIndex.query
     serve.feed           the ids to the device, the user and clicked gathers
     topk.bucket_max      ops.topk.tiled_catalog_topk: B2 (fused_bucket_max)
-    topk.select          the bucket select (two-level, approximate or plain),
-                         the bucket expansion and the pad mask
-    topk.rescore         the grouped or plain rescore of the candidates
+    topk.select          the bucket select (two-level, approximate or plain)
+    topk.rescore         the grouped rescore (one bucket_rescore launch), or
+                         the bucket expansion, pad mask, gather and rescore
     topk.final           the top-k, the clicked knockout, the second top-k
     serve.results        the ids and scores to host numpy
   eval.predict_ranks   BaseRunner.predict_ranks

@@ -5,7 +5,8 @@ Integer-valued inputs make every f32 sum exact, so results must be equal.
 The Adam commit takes Gaussian inputs and must equal its plain version
 (the eager PyTorch ops on the same CUDA tensors) bit for bit; the dense
 Adam kernel, over three steps, must come within 2 float32 ulp of its
-plain version element by element.
+plain version element by element. The grouped rescore must also give,
+on Gaussian inputs, each selected bucket's B2 maximum bit for bit.
 
 Marked `cuda`; each test skips without a CUDA device. On the GPU machine
 these tests need none of the JAX set-up of tests/conftest.py:
@@ -671,3 +672,144 @@ def test_interest_kernel_checks_its_inputs(dev):
     with pytest.raises(TypeError, match="dtype"):
         CT.fused_interest_ge_count(torch.zeros(4, 2, 8, device=dev).double(), t.double(),
                                    torch.zeros(4, device=dev))
+
+
+# B, N, bucket, col_offset, n_valid offset: overhang in the last catalog
+# block, bucket 16 (the main path's) and off it, a shard's offset, n_valid
+# below and above the table's end
+RESCORE_SHAPES = [
+    (1, 1, 16, 0, None),
+    (37, 4197, 16, 7, -40),
+    (130, 2049, 2, 0, 5),
+    (300, 20481, 16, 0, -1),
+    (5, 511, 4, 2, -2),
+]
+
+
+def _rescore_case(gen, B, N, D, K, bucket, kk, with_bias, lo=-8, hi=9):
+    """Integer u [B, D] (or [B, K, D]), table, bias; the grouped copy; kk
+    selected buckets a user (the last bucket among them: its overhang) and
+    their maxima, the last four slots of user 0 pads."""
+    u = _ints(gen, *((B, K, D) if K > 1 else (B, D)), lo=lo, hi=hi)
+    t = _ints(gen, N, D, lo=lo, hi=hi)
+    bias = _ints(gen, N) if with_bias else None
+    grouped = TT.group_table_for_rescore(t, bucket=bucket)
+    G = grouped.shape[0]
+    kk = min(kk, G)
+    gb = torch.randint(0, G, (B, kk), generator=gen)
+    gb[:, 0] = G - 1
+    gv = torch.randn(B, kk, generator=gen)
+    gv[0, -4:] = float("-inf")
+    return u, t, bias, grouped, gb, gv
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("D", [24, 33, 64, 100, 128])
+@pytest.mark.parametrize("B,N,bucket,off,nv", RESCORE_SHAPES)
+def test_bucket_rescore_kernel_equals_plain(dev, B, N, bucket, off, nv, D, K, with_bias):
+    """The grouped rescore (`rtt_bucket_rescore_kernel`) on integer-valued
+    inputs, so every sum is exact: scores and ids equal the plain version's
+    under the overhang, pad, n_valid, col_offset and bias masks, in one
+    launch. D = 33 takes the 4-byte copies, the others the 16-byte ones."""
+    gen = torch.Generator().manual_seed(B + N + D + K + bucket)
+    u, t, bias, grouped, gb, gv = _rescore_case(gen, B, N, D, K, bucket, 40, with_bias)
+    kw = dict(n_rows=N, bias=bias, n_valid=None if nv is None else N + off + nv, col_offset=off)
+    want_s, want_c = CT.bucket_rescore_plain(u, grouped, gb, gv, **kw)
+    before = CT.bucket_rescore.launches
+    cs, cand = CT.bucket_rescore(u.to(dev), grouped.to(dev), gb.to(dev), gv.to(dev),
+                                 **dict(kw, bias=None if bias is None else bias.to(dev)))
+    assert CT.bucket_rescore.launches == before + 1
+    torch.testing.assert_close(cs.cpu(), want_s, rtol=0, atol=0)
+    assert torch.equal(cand.cpu(), want_c)
+
+
+def test_bucket_rescore_unaligned_user_rows(dev):
+    """u a contiguous view 4 bytes off a 16-byte boundary: the 4-byte path,
+    equal to the plain version."""
+    gen = torch.Generator().manual_seed(5)
+    B, N, D, K = 21, 4197, 64, 1
+    u, t, bias, grouped, gb, gv = _rescore_case(gen, B, N, D, K, 16, 30, True)
+    buf = torch.empty(B * D + 1, device=dev)
+    u_dev = buf[1:].view(B, D)
+    u_dev.copy_(u)
+    kw = dict(n_rows=N, bias=bias, n_valid=N - 3)
+    want_s, want_c = CT.bucket_rescore_plain(u, grouped, gb, gv, **kw)
+    cs, cand = CT.bucket_rescore(u_dev, grouped.to(dev), gb.to(dev), gv.to(dev),
+                                 **dict(kw, bias=bias.to(dev)))
+    torch.testing.assert_close(cs.cpu(), want_s, rtol=0, atol=0)
+    assert torch.equal(cand.cpu(), want_c)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("D,with_bias", [(64, True), (64, False), (100, True), (24, False)])
+def test_bucket_rescore_max_is_the_bucket_max(dev, D, K, with_bias):
+    """On Gaussian inputs the largest rescored score of every selected
+    bucket equals `fused_bucket_max`'s value for it bit for bit: the kernel
+    sums as B2 does (for K interests, B2 over the B * K rows and the max
+    over k), under the n_valid and col_offset masks."""
+    gen = torch.Generator(device=dev).manual_seed(D + K)
+    B, N, kk, off = 300, 100_003, 132, 5
+    u = torch.randn(B, K, D, generator=gen, device=dev) if K > 1 else \
+        torch.randn(B, D, generator=gen, device=dev)
+    t = torch.randn(N, D, generator=gen, device=dev)
+    bias = torch.randn(N, generator=gen, device=dev) if with_bias else None
+    kw = dict(bias=bias, n_valid=N + off - 9, col_offset=off)
+    bm = CT.fused_bucket_max(u.reshape(B * K, D), t, bucket=TT.DEFAULT_BUCKET, **kw)
+    bm = bm.view(B, K, -1).amax(1)
+    gv, gb = torch.topk(bm, kk, dim=1)
+    cs, _ = CT.bucket_rescore(u, TT.group_table_for_rescore(t), gb, gv, n_rows=N, **kw)
+    assert torch.isfinite(gv).all()
+    assert torch.equal(cs.view(B, kk, -1).amax(-1), gv)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_tiled_topk_on_card_matches_a_float64_top_k(dev, K):
+    """`tiled_catalog_topk` with the grouped copy on the card, Gaussian
+    inputs, against a dense float64 top-k with the same masks: scores
+    within rtol 2e-5, and ids equal but where the scores tie within that
+    (the serve tests' rule); every score the float64 score of its id.
+    One rescore launch a call on the grouped route, none without it."""
+    gen = torch.Generator(device=dev).manual_seed(40 + K)
+    B, N, D, k, M = 64, 50_000, 64, 100, 32
+    u = torch.randn(B, K, D, generator=gen, device=dev) if K > 1 else \
+        torch.randn(B, D, generator=gen, device=dev)
+    t = torch.randn(N, D, generator=gen, device=dev)
+    bias = torch.randn(N, generator=gen, device=dev)
+    n_valid = N - 7
+    s64 = (u.double().reshape(B, K, D) @ t.double().T).amax(1) + bias.double()
+    clicked = torch.randint(1, n_valid, (B, M), generator=gen, device=dev).to(torch.int32)
+    clicked[:, :4] = s64[:, 1:n_valid].topk(4, dim=1).indices.to(torch.int32) + 1  # the best are clicked
+    masked = s64.clone()
+    masked[:, 0] = masked[:, n_valid:] = float("-inf")
+    masked.scatter_(1, clicked.long(), float("-inf"))
+    v64, i64 = masked.topk(k, dim=1)
+    kw = dict(bias=bias, clicked_rows=clicked, n_valid=n_valid)
+    before = CT.bucket_rescore.launches
+    v, i = TT.tiled_catalog_topk(u, t, k, grouped_table=TT.group_table_for_rescore(t), **kw)
+    assert CT.bucket_rescore.launches == before + 1
+    v_plain, i_plain = TT.tiled_catalog_topk(u, t, k, **kw)
+    assert CT.bucket_rescore.launches == before + 1
+    for vv, ii in ((v, i), (v_plain, i_plain)):
+        vv, ii = vv.double(), ii.long()
+        torch.testing.assert_close(vv, v64, rtol=2e-5, atol=1e-5)
+        diff = ii != i64
+        torch.testing.assert_close(vv[diff], v64[diff], rtol=2e-5, atol=0)
+        torch.testing.assert_close(vv, s64.gather(1, ii), rtol=2e-5, atol=1e-5)
+        assert not (ii[:, :, None] == clicked.long()[:, None, :]).any()
+
+
+def test_bucket_rescore_checks_its_inputs(dev):
+    u, g = torch.zeros(4, 8, device=dev), torch.zeros(10, 16, 8, device=dev)
+    gb = torch.zeros(4, 3, dtype=torch.int64, device=dev)
+    gv = torch.zeros(4, 3, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        CT.bucket_rescore(u, g, gb.int(), gv, n_rows=160)
+    with pytest.raises(ValueError, match="shape"):
+        CT.bucket_rescore(u, g, gb, gv[:3], n_rows=160)
+    with pytest.raises(ValueError, match="n_rows"):
+        CT.bucket_rescore(u, g, gb, gv, n_rows=161)
+    with pytest.raises(ValueError, match="at most 8"):
+        CT.bucket_rescore(torch.zeros(4, 9, 8, device=dev), g, gb, gv, n_rows=160)
+    with pytest.raises(ValueError, match="is on"):
+        CT.bucket_rescore(u, g.cpu(), gb, gv, n_rows=160)

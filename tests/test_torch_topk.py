@@ -139,6 +139,64 @@ def test_tiled_catalog_topk_rejects_approx_and_mismatched_grouped_table():
                                   grouped_table=TT.group_table_for_rescore(t, bucket=4))
 
 
+def _frozen_grouped_rescore(u, grouped, bias, gb, gv, bucket, col_offset, n_valid, n_rows):
+    """The grouped rescore as tiled_catalog_topk ran it before
+    `bucket_rescore` (a frozen copy): the select's bucket expansion and pad
+    mask, the [B, kk, bucket, D] gather, a batched product, the masks."""
+    nb = CT.NB
+    base = (gb // nb) * (bucket * nb) + gb % nb
+    raw_cand = (base[:, :, None] + torch.arange(bucket, dtype=gb.dtype) * nb).reshape(gb.shape[0], -1)
+    raw_cand = raw_cand.masked_fill(torch.isneginf(gv).repeat_interleave(bucket, dim=1), n_rows)
+    B = gb.shape[0]
+    cvec = grouped[gb.clamp(max=grouped.shape[0] - 1)].view(B, -1, grouped.shape[-1])
+    if u.dim() == 3:
+        cs = torch.matmul(cvec, u.transpose(1, 2)).amax(-1)
+    else:
+        cs = torch.matmul(cvec, u[:, :, None])[:, :, 0]
+    in_range = raw_cand < n_rows
+    cand = raw_cand.clamp(max=n_rows - 1)
+    if bias is not None:
+        cs = cs + bias[cand]
+    gcand = cand + col_offset
+    ok = in_range & (gcand > 0)
+    if n_valid is not None:
+        ok &= gcand < n_valid
+    return cs.masked_fill(~ok, float("-inf")), cand
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("with_bias,bucket,col_offset,nv", [
+    (True, 16, 0, -5), (False, 16, 300, -5), (True, 4, 7, None), (False, 2, 0, 3)])
+def test_bucket_rescore_plain_equals_the_old_grouped_rescore(K, with_bias, bucket, col_offset, nv):
+    """`bucket_rescore` on CPU tensors (its plain version) gives the scores
+    and ids of the gather route it replaced, bit for bit: pad slots (-inf
+    maxima) among the selected buckets, the last bucket's overhang, bias,
+    a shard's col_offset, n_valid below and above the table's end, K = 4."""
+    rng = np.random.default_rng(26 + K + bucket)
+    B, D, N, kk = 9, 12, 4197, 20
+    u = torch.from_numpy(rng.normal(size=(B, K, D) if K > 1 else (B, D)).astype(np.float32))
+    t = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32)) if with_bias else None
+    grouped = TT.group_table_for_rescore(t, bucket=bucket)
+    G = grouped.shape[0]
+    gb = torch.from_numpy(rng.integers(0, G, size=(B, kk)))
+    gb[:, 0] = G - 1                            # the last bucket: it overhangs N
+    gv = torch.from_numpy(rng.normal(size=(B, kk)).astype(np.float32))
+    gv[0, -6:] = float("-inf")                  # pad slots
+    gv[1, :] = float("-inf")
+    n_valid = None if nv is None else N + col_offset + nv
+    want_s, want_c = _frozen_grouped_rescore(u, grouped, bias, gb, gv, bucket, col_offset,
+                                             n_valid, N)
+    before = CT.bucket_rescore.launches
+    cs, cand = CT.bucket_rescore(u, grouped, gb, gv, n_rows=N, bias=bias, n_valid=n_valid,
+                                 col_offset=col_offset)
+    assert CT.bucket_rescore.launches == before          # the CPU runs the plain version
+    assert cs.shape == cand.shape == (B, kk * bucket)
+    assert torch.equal(cs, want_s) and torch.equal(cand, want_c)
+    assert torch.isneginf(cs[1]).all() and torch.isneginf(cs[0, -6 * bucket:]).all()
+    assert (cand[1] == N - 1).all()
+
+
 # ------------------------------------------------------------ approx lane
 @pytest.mark.parametrize("n,k,recall,L", [
     (62592, 132, 0.98, 7824),     # B2's G at 1M items, bucket 16: width 8
