@@ -24,7 +24,8 @@ the main path gives it, and drives the port's main paths:
     lanes, with its 1M-item ranks (B3) and top-100 (B2) held against dense
     exact references, then the same evaluation for FPMC's computed
     [1M, 128] table, for TiSASRec (after 10 dense steps) and for ComiRec's
-    K = 4 interests (D9 ranks, the route read from launch counts);
+    K = 4 interests (D9 ranks, the route read from launch counts and the
+    count's input shape);
   * KDA through the CLI on Grocery with bench.py's kda lane flags (dense
     Adam, its s/train-epoch, `--test_all 1` by the dense route and by the
     candidate-tiled route, `--lazy_emb_adam 1`), and KDA's tiled
@@ -178,10 +179,9 @@ SCATTER_SRC = "rechorus_tpu_torch/csrc/scatter_kernels.cu"
 KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     "ge_count": (CK.ge_count, "rechorus_tpu/ops/pallas_kernels.py:66", CATALOG_SRC),
     "fused_bucket_max": (CT.fused_bucket_max, "rechorus_tpu/ops/pallas_topk.py:114", CATALOG_SRC),
+    # B3, and for u [B, K, D] D9, its count over a multi-interest model's
+    # max (the JAX package ranks such a model through its forward)
     "fused_ge_count": (CT.fused_ge_count, "rechorus_tpu/ops/pallas_topk.py:185", CATALOG_SRC),
-    # D9, B3's count over a multi-interest model's max: the JAX package
-    # ranks such a model through its forward (no pallas_call)
-    "interest_ge_count": (CT.fused_interest_ge_count, "none (ComiRec's forward, ranked by B1)", CATALOG_SRC),
     # D6, the exact top-k's grouped rescore: the JAX package's is a gather
     # and an einsum, which XLA runs (no pallas_call)
     "bucket_rescore": (CT.bucket_rescore, "none (a gather and einsum, rechorus_tpu/ops/topk.py:227)",
@@ -767,10 +767,10 @@ def phase_kernels(gen):
         tcol = (tgt + off).to(torch.int32).contiguous()
         got = CT.fused_ge_count(u, table, tscore, target_col=tcol, **kw)[sub]
         ref = CT.fused_ge_count_plain(u[sub], table, tscore[sub], target_col=tcol[sub], **kw)
-        # D9 at one interest is B3, count for count
-        one = CT.fused_interest_ge_count(u[:, None], table, tscore, target_col=tcol, **kw)[sub]
+        # u [B, 1, D] is u [B, D], count for count
+        one = CT.fused_ge_count(u[:, None], table, tscore, target_col=tcol, **kw)[sub]
         torch.cuda.synchronize()
-        check(torch.equal(one, got), f"interest_ge_count at K=1 equals fused_ge_count ({kind}, D={D})")
+        check(torch.equal(one, got), f"fused_ge_count over [B, 1, D] equals it over [B, D] ({kind}, D={D})")
         diff = (got.long() - ref.long()).abs()
         err["fused_ge_count"] = max(err["fused_ge_count"], float(diff.max()))
         for b in SMALL_BATCHES:
@@ -890,7 +890,7 @@ COMMIT_CASES = [("packed", N_ITEMS, EMB, torch.float32, 2 * BATCH, 0.0),   # pac
 
 
 def interest_vs_plain(gen, err, sub, inputs) -> list:
-    """D9 (`fused_interest_ge_count`) against its plain version at the
+    """D9 (`fused_ge_count` over u [B, K, D]) against its plain version at the
     main path's shape, u [BATCH, K, EMB] against the [N_ITEMS + 1, EMB]
     catalog with its padding row, in INTEREST_CASES: integer inputs
     exactly, Gaussian ones within the near-tie rule over float64 max-over-k
@@ -907,17 +907,17 @@ def interest_vs_plain(gen, err, sub, inputs) -> list:
             s_t += bias[tgt].double()
         tscore = s_t.float().contiguous()
         tcol = (tgt + off).to(torch.int32).contiguous()
-        before = CT.fused_interest_ge_count.launches
-        got = CT.fused_interest_ge_count(u, table, tscore, target_col=tcol, **kw)[sub]
-        ref = CT.fused_interest_ge_count_plain(u[sub], table, tscore[sub], target_col=tcol[sub], **kw)
+        before = CT.fused_ge_count.launches
+        got = CT.fused_ge_count(u, table, tscore, target_col=tcol, **kw)[sub]
+        ref = CT.fused_ge_count_plain(u[sub], table, tscore[sub], target_col=tcol[sub], **kw)
         torch.cuda.synchronize()
-        what = f"interest_ge_count {kind} [{BATCH}, {K}, {EMB}] x [{N}, {EMB}]"
-        check(CT.fused_interest_ge_count.launches == before + 1, f"{what}: one launch")
+        what = f"fused_ge_count {kind} [{BATCH}, {K}, {EMB}] x [{N}, {EMB}]"
+        check(CT.fused_ge_count.launches == before + 1, f"{what}: one launch")
         diff = (got.long() - ref.long()).abs()
-        err["interest_ge_count"] = max(err["interest_ge_count"], float(diff.max()))
+        err["fused_ge_count"] = max(err["fused_ge_count"], float(diff.max()))
         for b in SMALL_BATCHES:
-            small = CT.fused_interest_ge_count(u[sub[:b]].contiguous(), table, tscore[sub[:b]].contiguous(),
-                                               target_col=tcol[sub[:b]].contiguous(), **kw)
+            small = CT.fused_ge_count(u[sub[:b]].contiguous(), table, tscore[sub[:b]].contiguous(),
+                                      target_col=tcol[sub[:b]].contiguous(), **kw)
             check(torch.equal(small, got[:b]), f"{what} at B={b} equals the B={BATCH} launch")
         if kind == "int":
             check(torch.equal(got, ref), f"{what} equals its plain version")
@@ -1694,16 +1694,40 @@ def _rank_diff_report(s64, tscore, scale, ok, clicked, target, diff, ties) -> st
             f"{(near & ok[bad]).sum(1).tolist()}, clicked within 1e-5 {(near & others[bad]).sum(1).tolist()}")
 
 
-def _ranks_route(launches: dict) -> str:
-    """The ranks route of a run, read from its launch counts: the
-    multi-interest count (D9), B3, or B1 over dense scores."""
-    if launches["interest_ge_count"] and not launches["fused_ge_count"] and not launches["ge_count"]:
+@contextlib.contextmanager
+def count_dims():
+    """The number of dims of u in every `fused_ge_count` call made while
+    open (2: B3's [B, D]; 3: a multi-interest model's [B, K, D], D9). The
+    wrapper itself runs while its own name is bound again, so that it
+    adds its launch to its own `.launches`."""
+    dims, real = [], CT.fused_ge_count
+
+    def spy(u, *args, **kwargs):
+        dims.append(u.dim())
+        CT.fused_ge_count = real
+        try:
+            return real(u, *args, **kwargs)
+        finally:
+            CT.fused_ge_count = spy
+
+    CT.fused_ge_count = spy
+    try:
+        yield dims
+    finally:
+        CT.fused_ge_count = real
+
+
+def _ranks_route(launches: dict, dims: list) -> str:
+    """The ranks route of a run, read from its launch counts and the shapes
+    the rank count was given: the multi-interest count (D9), B3, or B1
+    over dense scores."""
+    if launches["fused_ge_count"] and not launches["ge_count"] and set(dims) == {3}:
         return "catalog protocol, multi-interest count (D9)"
-    if launches["fused_ge_count"] and not launches["interest_ge_count"] and not launches["ge_count"]:
+    if launches["fused_ge_count"] and not launches["ge_count"] and set(dims) == {2}:
         return "catalog protocol, B3"
-    if launches["ge_count"] and not launches["fused_ge_count"] and not launches["interest_ge_count"]:
+    if launches["ge_count"] and not launches["fused_ge_count"]:
         return "dense scores, B1"
-    return f"mixed: {launches}"
+    return f"mixed: {launches}, u of {dims} dims"
 
 
 def _catalog_eval_vs_dense(totals, lane) -> dict:
@@ -1711,24 +1735,24 @@ def _catalog_eval_vs_dense(totals, lane) -> dict:
     model) and top-100 (B2 + exact select) of the BATCH dev rows, against
     dense exact references on N_CHECK of them: ranks within the near-tie
     rule, top-100 values, ids where distinct. The route is read from the
-    ranks call's launch counts."""
+    ranks call's launch counts and the shapes its count was given."""
     runner, state, _, _, dev_b, dev_a = lane
     model = state.model
     multi = getattr(model, "multi_interest", False)
     t = time.perf_counter()
-    with counted(totals) as c:
+    with counted(totals) as c, count_dims() as dims:
         ranks = runner.predict_ranks(state, dev_b, dev_a, "dev")
     rank_s = time.perf_counter() - t
-    route = _ranks_route(c.launches)
+    route = _ranks_route(c.launches, dims)
     want = "catalog protocol, multi-interest count (D9)" if multi else "catalog protocol, B3"
-    check(route == want and c.launches["interest_ge_count" if multi else "fused_ge_count"] == 1,
-          f"one {want} launch for {len(dev_b)} rows: {c.launches}")
+    check(route == want and c.launches["fused_ge_count"] == 1,
+          f"one {want} launch for {len(dev_b)} rows: {c.launches}, u of {dims} dims")
     t = time.perf_counter()
     with counted(totals) as c2:
         items, scores = runner.predict_topk(state, dev_b, dev_a, "dev", k=TOPK)
     topk_s = time.perf_counter() - t
     check(c2.launches["fused_bucket_max"] == 1
-          and not any(c2.launches[k] for k in ("ge_count", "fused_ge_count", "interest_ge_count")),
+          and not any(c2.launches[k] for k in ("ge_count", "fused_ge_count")),
           f"one B2 launch and no count for the top-{TOPK} of {len(dev_b)} rows: {c2.launches}")
     feed = dev_b.eval_feed(dev_a, torch.arange(len(dev_b), device=runner.device))
     with torch.no_grad():
@@ -3431,10 +3455,13 @@ def phase_parallel(totals, plain_test_all: dict, ut, it, users, target):
     n_local = rows // m_axis
     shards = [padded[j * n_local: (j + 1) * n_local].contiguous() for j in range(m_axis)]
     check(all(s.shape[0] >= PT.MIN_ROWS_FOR_TILED for s in shards), "every shard takes the tiled branch")
+    # each shard's grouped rescore copy, and the whole table's, built once
+    grouped = [TT.group_table_for_rescore(s) for s in shards]
+    it_grouped = TT.group_table_for_rescore(it)
 
     def four_shards():
-        parts = [PT.local_catalog_topk(u, s, TOPK, j * n_local, n_valid, clicked)
-                 for j, s in enumerate(shards)]
+        parts = [PT.local_catalog_topk(u, s, TOPK, j * n_local, n_valid, clicked, grouped_table=g)
+                 for j, (s, g) in enumerate(zip(shards, grouped))]
         v, i = PT.merge_topk(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
                              TOPK)
         t = sum(PT.local_target_score(u, s, target, j * n_local) for j, s in enumerate(shards))
@@ -3443,14 +3470,16 @@ def phase_parallel(totals, plain_test_all: dict, ut, it, users, target):
         return v, i, ge + 1
 
     def one_shard():
-        v, i = TT.tiled_catalog_topk(u, it, TOPK, clicked_rows=clicked, n_valid=n_valid)
+        v, i = TT.tiled_catalog_topk(u, it, TOPK, grouped_table=it_grouped, clicked_rows=clicked,
+                                     n_valid=n_valid)
         return v, i, TT.tiled_catalog_ranks(u, it, target, cl_rank, n_valid=n_valid)
 
     with torch.no_grad():
         with counted(totals) as c:
             v4, i4, r4 = four_shards()
-        check(c.launches["fused_bucket_max"] == m_axis and c.launches["fused_ge_count"] == m_axis,
-              f"one B2 and one B3 launch a shard: {c.launches}")
+        check(c.launches["fused_bucket_max"] == m_axis and c.launches["bucket_rescore"] == m_axis
+              and c.launches["fused_ge_count"] == m_axis,
+              f"one B2, one grouped rescore and one B3 launch a shard: {c.launches}")
         v1, i1, r1 = one_shard()
         check(torch.allclose(v4, v1, rtol=1e-5, atol=1e-9), "4-shard top-100 values = the 1-shard route's")
         close = (v1[:, :, None] - v1[:, None, :]).abs() <= 1e-5 * v1[:, :, None].abs()
@@ -3569,11 +3598,11 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
         rows4 = np.stack([(users + 1009 * j) % N_USERS for j in range(K)], 1)
         u4 = ut[torch.from_numpy(rows4).to(dev)]
         ts4 = (u4 * it[tidx][:, None]).sum(-1).amax(1).contiguous()
-        rows["interest_ge_count"] = dict(
-            ms=cuda_ms(lambda: CT.fused_interest_ge_count(u4, it, ts4, **ge_kw), 10),
-            device_ms=device_ms(lambda: CT.fused_interest_ge_count(u4, it, ts4, **ge_kw), 3),
-            plain_ms=cuda_ms(lambda: CT.fused_interest_ge_count_plain(u4, it, ts4, **ge_kw), 3, warmup=1),
-            library_ms=None, shape=[B, K, N, D],
+        rows["fused_ge_count"]["at_four_interests"] = dict(
+            ms=cuda_ms(lambda: CT.fused_ge_count(u4, it, ts4, **ge_kw), 10),
+            device_ms=device_ms(lambda: CT.fused_ge_count(u4, it, ts4, **ge_kw), 3),
+            plain_ms=cuda_ms(lambda: CT.fused_ge_count_plain(u4, it, ts4, **ge_kw), 3, warmup=1),
+            shape=[B, K, N, D],
             bound=bound_ms(4 * (N * D + B * K * D + 3 * B), 2 * B * K * N * D),
             fused_ge_count_over_bk_rows_ms=cuda_ms(
                 lambda: CT.fused_ge_count(u4.view(B * K, D), it, ts4.repeat_interleave(K), n_valid=N), 10))

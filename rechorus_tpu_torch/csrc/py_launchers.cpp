@@ -29,9 +29,7 @@ int rtt_ge_count(const float*, const float*, int*, int, int, cudaStream_t);
 int rtt_fused_bucket_max(const float*, const float*, const float*, float*, int, int, int, int, int,
                          int, cudaStream_t);
 int rtt_fused_ge_count(const float*, const float*, const float*, const int*, const float*, int*,
-                       int, int, int, int, int, cudaStream_t);
-int rtt_interest_ge_count(const float*, const float*, const float*, const int*, const float*, int*,
-                          int, int, int, int, int, int, int, cudaStream_t);
+                       int, int, int, int, int, int, int, cudaStream_t);
 int rtt_bucket_rescore(const float*, const float*, const int64_t*, const float*, const float*, float*,
                        int64_t*, int, int, int, int, int, int, int, int, int, cudaStream_t);
 int rtt_approx_bin_max(const float*, float*, int*, int, int, int, cudaStream_t);
@@ -163,12 +161,8 @@ BIND(rtt_ge_count, "pppiip", P(0, const float*), P(1, const float*), P(2, int*),
 // u, table, bias, out, B, N, D, bucket, n_valid, col_offset
 BIND(rtt_fused_bucket_max, "ppppiiiiiip", P(0, const float*), P(1, const float*),
      P(2, const float*), P(3, float*), I(4), I(5), I(6), I(7), I(8), I(9))
-// u, table, tscore, target_col, bias, counts, B, N, D, n_valid, col_offset
-BIND(rtt_fused_ge_count, "ppppppiiiiip", P(0, const float*), P(1, const float*),
-     P(2, const float*), P(3, const int*), P(4, const float*), P(5, int*), I(6), I(7), I(8), I(9),
-     I(10))
 // u, table, tscore, target_col, bias, counts, B, K, rows, N, D, n_valid, col_offset
-BIND(rtt_interest_ge_count, "ppppppiiiiiiip", P(0, const float*), P(1, const float*),
+BIND(rtt_fused_ge_count, "ppppppiiiiiiip", P(0, const float*), P(1, const float*),
      P(2, const float*), P(3, const int*), P(4, const float*), P(5, int*), I(6), I(7), I(8), I(9),
      I(10), I(11), I(12))
 // u, grouped, gb, gv, bias, cs, cand, B, K, kk, Gp, bucket, D, N, n_valid, col_offset
@@ -197,7 +191,6 @@ PyMethodDef methods[] = {
     METHOD(rtt_ge_count),
     METHOD(rtt_fused_bucket_max),
     METHOD(rtt_fused_ge_count),
-    METHOD(rtt_interest_ge_count),
     METHOD(rtt_bucket_rescore),
     METHOD(rtt_approx_bin_max),
     METHOD(rtt_scatter_rows),

@@ -16,10 +16,9 @@ matrix never reaches device memory:
 `fused_ge_count` -- per row, the count of catalog rows with score >=
   tscore[b] under the id masks (global id > 0, < n_valid, !=
   target_col[b]); clicked exclusion is the caller's gathered correction.
-
-`fused_interest_ge_count` -- `fused_ge_count` for a multi-interest model:
-  u [B, K, D], a row's score the max over the K interests, taken before
-  the compare (the count of a max is no function of the K counts).
+  For a multi-interest model, u [B, K, D], a row's score is the max over
+  the K interests, taken before the compare (the count of a max is no
+  function of the K counts); one kernel body serves every K.
 
 `bucket_rescore` -- stage 3 of the exact top-k: every item of each user's
   selected buckets scored again, straight from the grouped copy
@@ -34,9 +33,10 @@ matrix never reaches device memory:
 
 Masks live in GLOBAL id space: global id = local row + `col_offset`.
 On CUDA tensors the wrappers launch `rtt_bucket_max_kernel` /
-`rtt_fused_ge_kernel` / `rtt_interest_ge_kernel` / `rtt_bucket_rescore_kernel` /
-`rtt_approx_bin_max_kernel` (csrc/catalog_kernels.cu); on CPU tensors they
-run the `*_plain` versions, which materialize the masked scores.
+`rtt_fused_ge_kernel` (`rtt_interest_ge_kernel` at K > 1) /
+`rtt_bucket_rescore_kernel` / `rtt_approx_bin_max_kernel`
+(csrc/catalog_kernels.cu); on CPU tensors they run the `*_plain`
+versions, which materialize the masked scores.
 """
 from __future__ import annotations
 
@@ -217,56 +217,7 @@ def bucket_rescore(u, grouped, gb, gv, *, n_rows: int, bias=None, n_valid=None,
 bucket_rescore.launches = 0
 
 
-def fused_ge_count_plain(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
-                         col_offset: int = 0) -> torch.Tensor:
-    """[B] int32 `#{row r: score(b, r) >= tscore[b]}` over rows passing the
-    id masks, from the materialized score matrix."""
-    N = table.shape[0]
-    ge = _scores(u, table, bias) >= tscore[:, None]
-    ge &= _row_ok(N, n_valid, col_offset, ge.device)[None, :]
-    if target_col is not None:
-        gid = torch.arange(N, device=ge.device) + col_offset
-        ge &= gid[None, :] != target_col[:, None]
-    return ge.sum(1).to(torch.int32)
-
-
-def fused_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
-                   col_offset: int = 0) -> torch.Tensor:
-    """[B] int32 counts of `#{row r: score(b, r) >= tscore[b]}` over rows
-    passing the id masks (global id > 0, < n_valid, != target_col[b]),
-    score = u @ table.T (+ bias). u [B, D], table [N, D], tscore [B],
-    bias [N] float32; target_col [B] int32."""
-    if u.device.type == "cpu":
-        return fused_ge_count_plain(u, table, tscore, target_col=target_col, bias=bias,
-                                    n_valid=n_valid, col_offset=col_offset)
-    if u.device.type != "cuda":
-        raise ValueError(f"fused_ge_count: no kernel for device {u.device}")
-    (B, D), N, dev = u.shape, table.shape[0], u.device
-    _build.check_input("fused_ge_count", "u", u, torch.float32, (B, D), dev)
-    _build.check_input("fused_ge_count", "table", table, torch.float32, (N, D), dev)
-    _build.check_input("fused_ge_count", "tscore", tscore, torch.float32, (B,), dev)
-    if target_col is not None:
-        _build.check_input("fused_ge_count", "target_col", target_col, torch.int32, (B,), dev)
-    if bias is not None:
-        _build.check_input("fused_ge_count", "bias", bias, torch.float32, (N,), dev)
-    if D < 1:
-        raise ValueError(f"fused_ge_count: D={D}")
-    n_valid_c = -1 if n_valid is None else int(n_valid)
-    _build.check_int32("fused_ge_count", B=B, N=N, D=D, n_valid=n_valid_c,
-                       col_offset=int(col_offset))
-    counts = torch.zeros(B, dtype=torch.int32, device=dev)
-    if B and N:
-        _build.launchers.rtt_fused_ge_count(
-            u.get_device(), _build.ptr(u), _build.ptr(table), _build.ptr(tscore),
-            _build.ptr(target_col), _build.ptr(bias), _build.ptr(counts), B, N, D, n_valid_c,
-            int(col_offset))
-        fused_ge_count.launches += 1
-    return counts
-
-
-fused_ge_count.launches = 0
-
-# interest counts the multi-interest kernel holds in one thread's 8 rows
+# interest counts the rank count holds in one thread's 8 rows
 INTEREST_KS = (1, 2, 4, 8)
 # score elements a block of the plain multi-interest count materializes
 _PLAIN_BLOCK_ELEMS = 1 << 26
@@ -278,7 +229,7 @@ def interest_width(K: int) -> int:
     for kk in INTEREST_KS:
         if K <= kk:
             return kk
-    raise ValueError(f"fused_interest_ge_count: K={K} interests; the kernel holds at most "
+    raise ValueError(f"fused_ge_count: K={K} interests; the kernel holds at most "
                      f"{INTEREST_KS[-1]} a user (one thread's 8 rows of the score tile)")
 
 
@@ -311,19 +262,20 @@ def interest_scores(u, table, bias=None) -> torch.Tensor:
     return s
 
 
-def fused_interest_ge_count_plain(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
-                                  col_offset: int = 0) -> torch.Tensor:
-    """[B] int32 `#{row r: max_k score(b, k, r) >= tscore[b]}` over rows
-    passing the id masks, from `interest_scores` in blocks of users."""
-    B, K, _ = u.shape
-    N = table.shape[0]
+def fused_ge_count_plain(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
+                         col_offset: int = 0) -> torch.Tensor:
+    """[B] int32 `#{row r: score(b, r) >= tscore[b]}` over rows passing the
+    id masks, from the materialized scores: one [B, N] product for u
+    [B, D], `interest_scores` in blocks of users for u [B, K, D]."""
+    B, N = u.shape[0], table.shape[0]
     ok = _row_ok(N, n_valid, col_offset, u.device)
     gid = torch.arange(N, device=u.device) + col_offset
-    step = max(1, _PLAIN_BLOCK_ELEMS // max(1, K * N))
+    step = max(1, B if u.dim() == 2 else _PLAIN_BLOCK_ELEMS // max(1, u.shape[1] * N))
     out = []
     for lo in range(0, B, step):
-        ge = interest_scores(u[lo: lo + step], table, bias) >= tscore[lo: lo + step, None]
-        ge &= ok[None, :]
+        ub = u[lo: lo + step]
+        s = _scores(ub, table, bias) if u.dim() == 2 else interest_scores(ub, table, bias)
+        ge = (s >= tscore[lo: lo + step, None]) & ok[None, :]
         if target_col is not None:
             ge &= gid[None, :] != target_col[lo: lo + step, None]
         out.append(ge.sum(1))
@@ -332,48 +284,49 @@ def fused_interest_ge_count_plain(u, table, tscore, *, target_col=None, bias=Non
     return torch.cat(out).to(torch.int32)
 
 
-def fused_interest_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
-                            col_offset: int = 0) -> torch.Tensor:
-    """[B] int32 counts of `#{row r: max_k score(b, k, r) >= tscore[b]}`
-    over rows passing the id masks (global id > 0, < n_valid, !=
-    target_col[b]), score = u[:, k] @ table.T (+ bias): B3's count for a
-    multi-interest model. u [B, K, D] (K <= 8), table [N, D], tscore [B],
-    bias [N] float32; target_col [B] int32. At K = 1 it is
-    `fused_ge_count`'s count."""
-    if u.dim() != 3:
-        raise ValueError(
-            f"fused_interest_ge_count: u has shape {tuple(u.shape)}, expected [B, K, D]")
+def fused_ge_count(u, table, tscore, *, target_col=None, bias=None, n_valid=None,
+                   col_offset: int = 0) -> torch.Tensor:
+    """[B] int32 counts of `#{row r: score(b, r) >= tscore[b]}` over rows
+    passing the id masks (global id > 0, < n_valid, != target_col[b]),
+    score = u @ table.T (+ bias) for u [B, D], or for a multi-interest
+    model's u [B, K, D] (K <= 8) the max over k of u[:, k] @ table.T (+
+    bias). table [N, D], tscore [B], bias [N] float32; target_col [B]
+    int32. [B, 1, D] counts what [B, D] counts, in the same kernel."""
+    if u.dim() not in (2, 3):
+        raise ValueError(f"fused_ge_count: u has shape {tuple(u.shape)}, expected [B, D] or "
+                         "[B, K, D]")
     if u.device.type == "cpu":
-        return fused_interest_ge_count_plain(u, table, tscore, target_col=target_col, bias=bias,
-                                             n_valid=n_valid, col_offset=col_offset)
+        return fused_ge_count_plain(u, table, tscore, target_col=target_col, bias=bias,
+                                    n_valid=n_valid, col_offset=col_offset)
     if u.device.type != "cuda":
-        raise ValueError(f"fused_interest_ge_count: no kernel for device {u.device}")
-    (B, K, D), N, dev = u.shape, table.shape[0], u.device
-    _build.check_input("fused_interest_ge_count", "u", u, torch.float32, (B, K, D), dev)
-    _build.check_input("fused_interest_ge_count", "table", table, torch.float32, (N, D), dev)
-    _build.check_input("fused_interest_ge_count", "tscore", tscore, torch.float32, (B,), dev)
+        raise ValueError(f"fused_ge_count: no kernel for device {u.device}")
+    B, D, N, dev = u.shape[0], u.shape[-1], table.shape[0], u.device
+    K = u.shape[1] if u.dim() == 3 else 1
+    _build.check_input("fused_ge_count", "u", u, torch.float32,
+                       (B, K, D) if u.dim() == 3 else (B, D), dev)
+    _build.check_input("fused_ge_count", "table", table, torch.float32, (N, D), dev)
+    _build.check_input("fused_ge_count", "tscore", tscore, torch.float32, (B,), dev)
     if target_col is not None:
-        _build.check_input("fused_interest_ge_count", "target_col", target_col, torch.int32, (B,),
-                           dev)
+        _build.check_input("fused_ge_count", "target_col", target_col, torch.int32, (B,), dev)
     if bias is not None:
-        _build.check_input("fused_interest_ge_count", "bias", bias, torch.float32, (N,), dev)
+        _build.check_input("fused_ge_count", "bias", bias, torch.float32, (N,), dev)
     if D < 1 or K < 1:
-        raise ValueError(f"fused_interest_ge_count: K={K}, D={D}")
-    rows = interest_rows(u)
+        raise ValueError(f"fused_ge_count: K={K}, D={D}")
+    rows = interest_rows(u) if u.dim() == 3 else u
     n_valid_c = -1 if n_valid is None else int(n_valid)
-    _build.check_int32("fused_interest_ge_count", B=B, rows=rows.shape[0], N=N, D=D,
-                       n_valid=n_valid_c, col_offset=int(col_offset))
+    _build.check_int32("fused_ge_count", B=B, rows=rows.shape[0], N=N, D=D, n_valid=n_valid_c,
+                       col_offset=int(col_offset))
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and N:
-        _build.launchers.rtt_interest_ge_count(
+        _build.launchers.rtt_fused_ge_count(
             u.get_device(), _build.ptr(rows), _build.ptr(table), _build.ptr(tscore),
-            _build.ptr(target_col), _build.ptr(bias), _build.ptr(counts), B,
-            interest_width(K), rows.shape[0], N, D, n_valid_c, int(col_offset))
-        fused_interest_ge_count.launches += 1
+            _build.ptr(target_col), _build.ptr(bias), _build.ptr(counts), B, interest_width(K),
+            rows.shape[0], N, D, n_valid_c, int(col_offset))
+        fused_ge_count.launches += 1
     return counts
 
 
-fused_interest_ge_count.launches = 0
+fused_ge_count.launches = 0
 
 
 def approx_bins(n: int, k: int, recall_target: float) -> int:

@@ -10,19 +10,20 @@ functions here stream the catalog through the fused kernels of
   1. `fused_bucket_max`: per strided bucket of `bucket` items, the
      masked max score ([B, G] with G = N / bucket, rounded up to 128).
   2. Exact top `k+M` buckets (`two_level_bucket_select` on wide G).
-  3. Rescore only the winning buckets' items ((k+M)*bucket per user):
-     from the grouped copy `group_table_for_rescore` when given, in one
-     `bucket_rescore` launch that reads each selected slice once; else by
-     a gather of the candidate rows. Knock out clicked ids, final top-k.
+  3. Rescore only the winning buckets' items ((k+M)*bucket per user)
+     from the grouped copy (`group_table_for_rescore`, built once per
+     table by the caller: `rescore_copy`), in one `bucket_rescore` launch
+     that reads each selected slice once. Knock out clicked ids, final
+     top-k.
 
   Exactness: let v* be the k-th largest unmasked score. Every bucket
   holding a true top-k item has max >= v*. Buckets with max >= v* are
   (a) those whose max is itself a top-k item (<= k) or (b) those whose
   max is an excluded clicked item scoring >= v* (<= M). So the top k+M
   buckets contain every winner, and rescoring them recovers the exact
-  top-k. Both stages are FP32 (no TF32). On the card the grouped
-  rescore sums as B2 does, so each rescored score is, bit for bit, the
-  one B2 took its bucket maximum over; the gather route and the CPU's
+  top-k. Both stages are FP32 (no TF32). On the card the rescore sums as
+  B2 does, so each rescored score is, bit for bit, the one B2 took its
+  bucket maximum over, on one device and on every shard alike; the CPU's
   plain versions agree with B2 up to summation order. Results can differ
   from a dense top-k only on near-ties.
 
@@ -30,8 +31,9 @@ functions here stream the catalog through the fused kernels of
   >=-count over the catalog minus clicked corrections by gather.
 
 Both take a multi-interest model's K user vectors, u [B, K, D], whose
-score is the max over k: the ranks count with `fused_interest_ge_count`,
-the top-k runs B2 over the B * K rows and reduces the bucket maxima by max.
+score is the max over k: the ranks count with `fused_ge_count`, which
+takes the max before its compare, the top-k runs B2 over the B * K rows
+and reduces the bucket maxima by max.
 
 `approx_max_k` -- the approximate select of the approx lane (the TPU's
   `lax.approx_max_k`): `cuda_topk.approx_bin_max` reduces each row to L
@@ -130,13 +132,14 @@ def group_table_for_rescore(table: torch.Tensor, bucket: int | None = None,
     return table[old.clamp(max=N - 1)]
 
 
-def _exact_rescore(u, table, bias, gb, gv, bucket, col_offset, n_valid, n_rows):
-    """Expand the selected buckets to their items, gather the candidate
-    rows, rescore, mask by global id."""
-    raw_cand = CT.selected_items(gb, gv, bucket, n_rows)
-    cvec = table[raw_cand.clamp(max=n_rows - 1)]                        # [B, C, D]
-    cs = CT.row_scores(u, cvec)
-    return CT.mask_candidates(cs, raw_cand, bias, col_offset, n_valid, n_rows)
+def rescore_copy(table: torch.Tensor) -> torch.Tensor | None:
+    """The grouped copy `tiled_catalog_topk` rescores from, for a table of
+    at least MIN_ROWS_FOR_TILED rows (the tiled route); None for a smaller
+    one, which takes the dense route. Build it once per table, outside any
+    batch loop."""
+    if table.shape[0] >= MIN_ROWS_FOR_TILED:
+        return group_table_for_rescore(table)
+    return None
 
 
 def _final_select(cs, cand, k, k_wide, clicked_rows, col_offset):
@@ -154,10 +157,10 @@ def _final_select(cs, cand, k, k_wide, clicked_rows, col_offset):
     return v, ids.to(torch.int32)
 
 
-def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
+def tiled_catalog_topk(u, table, k: int, *, grouped_table, bias=None, clicked_rows=None,
                        n_valid: int | None = None, bucket: int | None = None,
                        approx: bool = False, recall_target: float = 0.98,
-                       col_offset: int = 0, grouped_table=None):
+                       col_offset: int = 0):
     """Exact masked top-k over u @ table.T + bias without the [B, N]
     matrix. Returns (values [B, k] float32, GLOBAL item ids [B, k] int32).
 
@@ -166,7 +169,8 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
     so every value is its id's score and only recall can drop.
     `table` holds global rows [col_offset, col_offset + N); masks,
     clicked comparisons and returned ids are global (n_valid too).
-    `grouped_table` is `group_table_for_rescore(table, bucket)`.
+    `grouped_table` is `group_table_for_rescore(table, bucket)`, built
+    once per table by the caller.
 
     For a multi-interest model u is [B, K, D] and a score is the max over
     its K rows: B2 runs over the B * K rows and each user's K bucket
@@ -177,8 +181,7 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
     N = table.shape[0]
     M = clicked_rows.shape[1] if clicked_rows is not None else 0
     k_wide = min(k + M, N)
-    if grouped_table is not None and (grouped_table.shape[1] != bucket
-                                      or grouped_table.shape[0] * bucket < N):
+    if grouped_table.shape[1] != bucket or grouped_table.shape[0] * bucket < N:
         # a copy grouped for another partition would pair candidate IDS
         # from one partition with VECTORS from another
         raise ValueError(
@@ -205,11 +208,8 @@ def tiled_catalog_topk(u, table, k: int, *, bias=None, clicked_rows=None,
             gv, gb = torch.topk(bm, kk, dim=1)
         del bm
     with span("topk.rescore"):
-        if grouped_table is not None:
-            cs, cand = CT.bucket_rescore(u, grouped_table, gb, gv, n_rows=N, bias=bias,
-                                         n_valid=n_valid, col_offset=col_offset)
-        else:
-            cs, cand = _exact_rescore(u, table, bias, gb, gv, bucket, col_offset, n_valid, N)
+        cs, cand = CT.bucket_rescore(u, grouped_table, gb, gv, n_rows=N, bias=bias,
+                                     n_valid=n_valid, col_offset=col_offset)
     with span("topk.final"):
         return _final_select(cs, cand, k, k_wide, clicked_rows, col_offset)
 
@@ -224,8 +224,8 @@ def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,
 
     u [B, D], or [B, K, D] for a multi-interest model, whose score
     s_j = max_k u[:, k] . table[j] (+ bias[j]) is counted by
-    `fused_interest_ge_count` and taken the same way for the target and
-    the clicked ids."""
+    `fused_ge_count` and taken the same way for the target and the
+    clicked ids."""
     target_col = target_col.to(torch.int32).contiguous()
     tidx = target_col.long()
     if u.dim() == 3:
@@ -236,9 +236,8 @@ def tiled_catalog_ranks(u, table, target_col, clicked_rows, bias=None,
         tscore = tscore + bias[tidx]
     # the target's own column is excluded by id in the kernel (its kernel
     # score and tscore may differ by an ulp); the epilogue re-adds it
-    count = CT.fused_interest_ge_count if u.dim() == 3 else CT.fused_ge_count
-    total = count(u, table, tscore.contiguous(), target_col=target_col, bias=bias,
-                  n_valid=n_valid)
+    total = CT.fused_ge_count(u, table, tscore.contiguous(), target_col=target_col, bias=bias,
+                              n_valid=n_valid)
     return _ranks_epilogue(u, table, bias, target_col, tscore, clicked_rows, total)
 
 

@@ -12,11 +12,13 @@ travel:
     (`local_ge_count`), the counts summed over 'model', + 1. Traffic O(B).
 
 A shard of at least MIN_ROWS_FOR_TILED rows streams through the fused
-kernels (B2 through `tiled_catalog_topk`, B3 through `tiled_ge_count`,
-with `col_offset` the shard's first global row); a smaller one takes the
-dense masked [B, N/m] product. The per-shard parts take no collective, so
-one card can run every shard of a table in turn (chip_smoke.py), merging
-by `merge_topk` and sums where a mesh would call the collectives.
+kernels (B2 and the grouped rescore through `tiled_catalog_topk`, B3
+through `tiled_ge_count`, with `col_offset` the shard's first global
+row); a smaller one takes the dense masked [B, N/m] product. The caller
+builds a tiled shard's grouped copy once (`ops.topk.rescore_copy`) and
+hands it to the top-k. The per-shard parts take no collective, so one
+card can run every shard of a table in turn (chip_smoke.py), merging by
+`merge_topk` and sums where a mesh would call the collectives.
 """
 from __future__ import annotations
 
@@ -44,15 +46,18 @@ def _gids(offset: int, shard_n: int, device):
 
 
 def local_catalog_topk(u, shard, k: int, offset: int, n_valid: int, clicked_rows=None,
-                       bias=None):
+                       bias=None, grouped_table=None):
     """(values [B, kk], GLOBAL ids [B, kk] int32) of the top kk = min(k,
     N/m) of one shard holding global rows [offset, offset + N/m): id 0,
-    ids >= n_valid and the clicked ids excluded."""
+    ids >= n_valid and the clicked ids excluded. A tiled shard needs
+    `grouped_table`, its `group_table_for_rescore` copy; a dense one
+    takes none."""
     shard_n = shard.shape[0]
     kk = min(k, shard_n)
     if _tiled(shard_n):
-        return topk_ops.tiled_catalog_topk(u, shard, kk, bias=bias, clicked_rows=clicked_rows,
-                                           n_valid=n_valid, col_offset=offset)
+        return topk_ops.tiled_catalog_topk(u, shard, kk, grouped_table=grouped_table, bias=bias,
+                                           clicked_rows=clicked_rows, n_valid=n_valid,
+                                           col_offset=offset)
     if clicked_rows is None:
         clicked_rows = torch.zeros((u.shape[0], 1), dtype=torch.long, device=u.device)
     scores = _dense_scores(u, shard, bias)
@@ -114,16 +119,17 @@ def _one_vector(u, route: str) -> None:
 
 
 def sharded_catalog_topk(u, shard, k: int, mesh, clicked_rows=None, item_bias=None,
-                         n_valid=None):
+                         n_valid=None, grouped_table=None):
     """(values [B, k], GLOBAL ids [B, k]) of the catalog top-k, the same on
     every rank of the 'model' group. u [B, d] the same on the group;
     `shard` this rank's [N/m, d] block of the row-sharded table, item_bias
-    its [N/m] block or None; n_valid masks the dead padded rows."""
+    its [N/m] block or None, `grouped_table` its grouped copy where the
+    shard takes the tiled branch; n_valid masks the dead padded rows."""
     _one_vector(u, "sharded_catalog_topk")
     m, n_local = mesh.mp, shard.shape[0]
     offset = mesh.model_index * n_local
     nv = n_local * m if n_valid is None else n_valid
-    v, gi = local_catalog_topk(u, shard, k, offset, nv, clicked_rows, item_bias)
+    v, gi = local_catalog_topk(u, shard, k, offset, nv, clicked_rows, item_bias, grouped_table)
     v_all = all_gather_cat(v, mesh.model_group, m, dim=1)
     i_all = all_gather_cat(gi, mesh.model_group, m, dim=1)
     return merge_topk(v_all, i_all, k)

@@ -979,11 +979,9 @@ class BaseRunner:
         sharded = catalog and self._use_sharded_catalog(model)
         if catalog:
             table = model.catalog_item_table(local=sharded)
-            # grouped-slice rescore copy, built ONCE per call outside the
-            # batch loop, like the table itself
-            if not sharded and table.shape[0] >= max(topk_ops.MIN_ROWS_FOR_TILED,
-                                                     topk_ops.DEFAULT_BUCKET * 128):
-                grouped = topk_ops.group_table_for_rescore(table)
+            # the grouped rescore copy of the table (a shard's of its own
+            # rows), built ONCE per call outside the batch loop
+            grouped = topk_ops.rescore_copy(table)
         all_items, all_scores = [], []
         for idx in self._eval_batches(len(batcher)):
             if tiled:
@@ -1000,7 +998,8 @@ class BaseRunner:
                 u, bias = self._catalog_parts(model, feed)
                 scores, items = PT.sharded_catalog_topk(
                     u, table, k, self.mesh, clicked_rows=feed["_clicked_rows"],
-                    item_bias=self._local_bias(bias, model.catalog_shard()), n_valid=n_items)
+                    item_bias=self._local_bias(bias, model.catalog_shard()), n_valid=n_items,
+                    grouped_table=grouped)
             elif catalog:
                 u, bias = self._catalog_parts(model, feed)
                 # u is [B, d], or [B, K, d] for a multi-interest model
@@ -1010,8 +1009,8 @@ class BaseRunner:
                     # streamed over the catalog, never [B, N]; the approx
                     # lane selects over dense scores while they fit
                     scores, items = topk_ops.tiled_catalog_topk(
-                        u, table, k, bias=bias, clicked_rows=feed["_clicked_rows"],
-                        n_valid=n_items, grouped_table=grouped, **approx)
+                        u, table, k, grouped_table=grouped, bias=bias,
+                        clicked_rows=feed["_clicked_rows"], n_valid=n_items, **approx)
                 else:
                     pred = dense_catalog_scores(u, table, bias, n_items)
                     scores, items = metrics_ops.masked_topk(pred, feed["_clicked_rows"], k,

@@ -79,14 +79,11 @@ class ServeIndex:
         device = resolve_device(device)
         u_table = _as_tensor(u_table, device, torch.float32)
         i_table = _as_tensor(i_table, device, torch.float32)
-        N = i_table.shape[0]
-        grouped = None
-        if N >= topk_ops.MIN_ROWS_FOR_TILED and N >= topk_ops.DEFAULT_BUCKET * 128:
-            grouped = topk_ops.group_table_for_rescore(i_table)
         return cls(u_table=u_table, i_table=i_table,
                    i_bias=_as_tensor(i_bias, device, torch.float32),
-                   grouped=grouped, clicked=_as_tensor(clicked, device, torch.int32),
-                   n_items=int(n_items if n_items is not None else N), k=k,
+                   grouped=topk_ops.rescore_copy(i_table),
+                   clicked=_as_tensor(clicked, device, torch.int32),
+                   n_items=int(n_items if n_items is not None else i_table.shape[0]), k=k,
                    approx=approx, recall_target=recall_target)
 
     @classmethod
@@ -137,9 +134,9 @@ class ServeIndex:
             cl = None if self.clicked is None else self.clicked[users]
         if self.i_table.shape[0] >= topk_ops.MIN_ROWS_FOR_TILED:
             v, i = topk_ops.tiled_catalog_topk(
-                u, self.i_table, self.k, bias=self.i_bias, clicked_rows=cl,
-                n_valid=self.n_items, approx=self.approx, recall_target=self.recall_target,
-                grouped_table=self.grouped)
+                u, self.i_table, self.k, grouped_table=self.grouped, bias=self.i_bias,
+                clicked_rows=cl, n_valid=self.n_items, approx=self.approx,
+                recall_target=self.recall_target)
         else:
             scores = dense_catalog_scores(u, self.i_table, self.i_bias, self.n_items)
             if cl is None:

@@ -5,7 +5,9 @@ against those of other source directories on one GPU, in one process.
         --other path/to/other/csrc --batches 4096 256 1 --sass
 
 Both directories are built with the same nvcc flags; each must hold the
-launchers' extension module (py_launchers.cpp). On Gaussian inputs
+launchers' extension module (py_launchers.cpp), with B3 behind the one
+rank-count launcher `rtt_fused_ge_count` (u, ..., B, K, rows, N, D, ...),
+called here at K = 1. On Gaussian inputs
 from a seed, at [B, D] x [n_items, D] with a bias, dead rows and a column
 offset, it checks that the two builds give bit-equal bucket maxima and
 equal counts (`torch.equal`), and times them in turns -- others, this,
@@ -150,7 +152,7 @@ def main() -> int:
                 counts.zero_()
                 lib.rtt_fused_ge_count(u.get_device(), u.data_ptr(), table.data_ptr(),
                                        tscore.data_ptr(), tcol.data_ptr(), bias.data_ptr(),
-                                       counts.data_ptr(), B, N, D, n_valid, off)
+                                       counts.data_ptr(), B, 1, B, N, D, n_valid, off)
 
             row = {"B": B, "N": N, "D": D, "bucket": DEFAULT_BUCKET}
             if opts.matmul_rows:

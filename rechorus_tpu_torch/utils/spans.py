@@ -17,8 +17,7 @@ parent unless marked "each"):
     serve.feed           the ids to the device, the user and clicked gathers
     topk.bucket_max      ops.topk.tiled_catalog_topk: B2 (fused_bucket_max)
     topk.select          the bucket select (two-level, approximate or plain)
-    topk.rescore         the grouped rescore (one bucket_rescore launch), or
-                         the bucket expansion, pad mask, gather and rescore
+    topk.rescore         the grouped rescore (one bucket_rescore launch)
     topk.final           the top-k, the clicked knockout, the second top-k
     serve.results        the ids and scores to host numpy
   eval.predict_ranks   BaseRunner.predict_ranks

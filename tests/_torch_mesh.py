@@ -232,7 +232,8 @@ def sharded_catalog(rank: int, inputs: dict, k: int) -> dict:
     """{(mesh, branch): (top-k values, ids, ranks)} of the sharded catalog
     functions on this rank's row block of inputs["table"], on a 1 x 4 and a
     2 x 2 mesh, through the dense shard and (MIN_ROWS_FOR_TILED lowered to
-    64) the tiled one."""
+    64) the tiled one, which rescores from the shard's grouped copy."""
+    from rechorus_tpu_torch.ops import topk as TT
     from rechorus_tpu_torch.parallel import topk as PT
 
     t = {key: torch.from_numpy(v) for key, v in inputs.items()}
@@ -245,9 +246,10 @@ def sharded_catalog(rank: int, inputs: dict, k: int) -> dict:
         shard, bias = t["table"][lo: lo + n].contiguous(), t["bias"][lo: lo + n].contiguous()
         for branch, rows in (("dense", default), ("tiled", 64)):
             PT.MIN_ROWS_FOR_TILED = rows
+            grouped = TT.group_table_for_rescore(shard) if branch == "tiled" else None
             try:
                 v, i = PT.sharded_catalog_topk(t["u"], shard, k, mesh, clicked_rows=t["clicked"],
-                                               item_bias=bias)
+                                               item_bias=bias, grouped_table=grouped)
                 r = PT.sharded_catalog_ranks(t["u"], shard, t["target"], mesh, t["clicked"],
                                              item_bias=bias)
             finally:

@@ -596,11 +596,13 @@ INTEREST_SHAPES = [
 @pytest.mark.parametrize("K", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("B,N,D,with_bias,off,nv", INTEREST_SHAPES)
 def test_interest_ge_kernel_equals_plain(dev, K, B, N, D, with_bias, off, nv):
-    """The multi-interest rank count (`rtt_interest_ge_kernel`) on
-    integer-valued inputs, so every score and every max is exact: counts
-    equal the plain version's with and without the target's id, under the
-    n_valid, col_offset and bias masks. K = 3 is widened to 4 by repeating
-    interest 0, and K = 8 takes the permuted layout."""
+    """The rank count over u [B, K, D] (`rtt_interest_ge_kernel`; at K = 1
+    `rtt_fused_ge_kernel`) on integer-valued inputs, so every score and
+    every max is exact: counts equal the plain version's with and without
+    the target's id, under the n_valid, col_offset and bias masks, in one
+    launch; at K = 1 they equal the count over u [B, D] too. K = 3 is
+    widened to 4 by repeating interest 0, and K = 8 takes the permuted
+    layout."""
     gen = torch.Generator().manual_seed(B + N + D + K)
     u, t = _ints(gen, B, K, D, lo=-3, hi=4), _ints(gen, N, D, lo=-3, hi=4)
     bias = _ints(gen, N) if with_bias else None
@@ -612,30 +614,16 @@ def test_interest_ge_kernel_equals_plain(dev, K, B, N, D, with_bias, off, nv):
     tscore[::3] += 0.5                         # off the integer grid: no tie at the target
     tcol = (tgt + off).to(torch.int32)
     for target_col in (tcol, None):
-        before = CT.fused_interest_ge_count.launches
-        got = CT.fused_interest_ge_count(u.to(dev), t.to(dev), tscore.to(dev),
-                                         target_col=None if target_col is None else target_col.to(dev),
-                                         **kw_dev)
-        assert CT.fused_interest_ge_count.launches == before + 1
-        want = CT.fused_interest_ge_count_plain(u, t, tscore, target_col=target_col, **kw)
+        kw_t = dict(kw_dev, target_col=None if target_col is None else target_col.to(dev))
+        before = CT.fused_ge_count.launches
+        got = CT.fused_ge_count(u.to(dev), t.to(dev), tscore.to(dev), **kw_t)
+        assert CT.fused_ge_count.launches == before + 1
+        want = CT.fused_ge_count_plain(u, t, tscore, target_col=target_col, **kw)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("D", [64, 40])
-def test_interest_ge_kernel_at_one_interest_equals_b3(dev, D):
-    """At K = 1 the multi-interest count is B3's (`rtt_fused_ge_kernel`),
-    count for count, on Gaussian scores: both sum the same FMAs in the same
-    order, so even near-ties fall the same way."""
-    gen = torch.Generator(device=dev).manual_seed(D)
-    B, N = 4096 + 77, 100_003
-    u = torch.randn(B, D, generator=gen, device=dev)
-    t = torch.randn(N, D, generator=gen, device=dev)
-    bias = torch.randn(N, generator=gen, device=dev)
-    tcol = torch.randint(1, N, (B,), generator=gen, device=dev).to(torch.int32)
-    tscore = ((u * t[tcol.long()]).sum(-1) + bias[tcol.long()]).contiguous()
-    kw = dict(target_col=tcol, bias=bias, n_valid=N - 9)
-    got = CT.fused_interest_ge_count(u[:, None, :].contiguous(), t, tscore, **kw)
-    assert torch.equal(got, CT.fused_ge_count(u, t, tscore, **kw))
+        if K == 1:
+            one = CT.fused_ge_count(u[:, 0].contiguous().to(dev), t.to(dev), tscore.to(dev),
+                                    **kw_t)
+            assert torch.equal(got, one)
 
 
 def test_interest_routes_on_card_match_cpu(dev):
@@ -656,22 +644,22 @@ def test_interest_routes_on_card_match_cpu(dev):
                                    n_valid=N - 3, grouped_table=grouped.to(dev))
     torch.testing.assert_close(v_g.cpu(), v_c, rtol=0, atol=0)   # integer scores: exact
     r_c = TT.tiled_catalog_ranks(u, t, tgt, clicked, n_valid=N - 3)
-    before = CT.fused_interest_ge_count.launches
+    before = CT.fused_ge_count.launches
     r_g = TT.tiled_catalog_ranks(u.to(dev), t.to(dev), tgt.to(dev), clicked.to(dev),
                                  n_valid=N - 3)
-    assert CT.fused_interest_ge_count.launches == before + 1
+    assert CT.fused_ge_count.launches == before + 1
     torch.testing.assert_close(r_g.cpu(), r_c, rtol=0, atol=0)
 
 
 def test_interest_kernel_checks_its_inputs(dev):
     t = torch.zeros(300, 8, device=dev)
     with pytest.raises(ValueError, match="at most 8"):
-        CT.fused_interest_ge_count(torch.zeros(4, 9, 8, device=dev), t, torch.zeros(4, device=dev))
-    with pytest.raises(ValueError, match=r"expected \[B, K, D\]"):
-        CT.fused_interest_ge_count(torch.zeros(4, 8, device=dev), t, torch.zeros(4, device=dev))
+        CT.fused_ge_count(torch.zeros(4, 9, 8, device=dev), t, torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match=r"expected \[B, D\] or \[B, K, D\]"):
+        CT.fused_ge_count(torch.zeros(4, 2, 2, 8, device=dev), t, torch.zeros(4, device=dev))
     with pytest.raises(TypeError, match="dtype"):
-        CT.fused_interest_ge_count(torch.zeros(4, 2, 8, device=dev).double(), t.double(),
-                                   torch.zeros(4, device=dev))
+        CT.fused_ge_count(torch.zeros(4, 2, 8, device=dev).double(), t.double(),
+                          torch.zeros(4, device=dev))
 
 
 # B, N, bucket, col_offset, n_valid offset: overhang in the last catalog
@@ -769,7 +757,8 @@ def test_tiled_topk_on_card_matches_a_float64_top_k(dev, K):
     inputs, against a dense float64 top-k with the same masks: scores
     within rtol 2e-5, and ids equal but where the scores tie within that
     (the serve tests' rule); every score the float64 score of its id.
-    One rescore launch a call on the grouped route, none without it."""
+    One rescore launch a call on the card; the same call on CPU tensors
+    (the plain route) launches none and meets the same rule."""
     gen = torch.Generator(device=dev).manual_seed(40 + K)
     B, N, D, k, M = 64, 50_000, 64, 100, 32
     u = torch.randn(B, K, D, generator=gen, device=dev) if K > 1 else \
@@ -788,7 +777,11 @@ def test_tiled_topk_on_card_matches_a_float64_top_k(dev, K):
     before = CT.bucket_rescore.launches
     v, i = TT.tiled_catalog_topk(u, t, k, grouped_table=TT.group_table_for_rescore(t), **kw)
     assert CT.bucket_rescore.launches == before + 1
-    v_plain, i_plain = TT.tiled_catalog_topk(u, t, k, **kw)
+    v_plain, i_plain = TT.tiled_catalog_topk(u.cpu(), t.cpu(), k,
+                                             grouped_table=TT.group_table_for_rescore(t.cpu()),
+                                             bias=bias.cpu(), clicked_rows=clicked.cpu(),
+                                             n_valid=n_valid)
+    v_plain, i_plain = v_plain.to(dev), i_plain.to(dev)
     assert CT.bucket_rescore.launches == before + 1
     for vv, ii in ((v, i), (v_plain, i_plain)):
         vv, ii = vv.double(), ii.long()

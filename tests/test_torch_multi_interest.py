@@ -1,8 +1,8 @@
 """ComiRec's multi-interest catalog protocol in the port, on the CPU: the
 catalog routes (dense scores below MIN_ROWS_FOR_TILED, the tiled ranks and
 top-k above it) against ComiRec's ordinary [B, N] forward and the JAX
-package's forward with the same weights; the plain multi-interest count
-against B3's plain count; the kernel's row layout; the CLI's `--test_all 1`
+package's forward with the same weights; the rank count over [B, 1, D]
+against its count over [B, D]; the kernel's row layout; the CLI's `--test_all 1`
 on Grocery and on a catalog above MIN_ROWS_FOR_TILED against the forward
 route; and the refusals of ServeIndex and the sharded routes.
 
@@ -141,9 +141,10 @@ def test_catalog_routes_equal_the_dense_forward(K, N):
 
 
 def test_the_plain_count_at_one_interest_is_b3s():
-    """`fused_interest_ge_count_plain` over [B, 1, D] counts what
-    `fused_ge_count_plain` counts over [B, D], on Gaussian scores, with the
-    bias, n_valid, col_offset and target masks."""
+    """`fused_ge_count` over [B, 1, D] (the plain version's blocks of
+    users and max over k) counts what it counts over [B, D] (one product),
+    on Gaussian scores, with the bias, n_valid, col_offset and target
+    masks."""
     gen = torch.Generator().manual_seed(5)
     u, t = torch.randn(33, 24, generator=gen), torch.randn(2049, 24, generator=gen)
     bias = torch.randn(2049, generator=gen)
@@ -153,8 +154,8 @@ def test_the_plain_count_at_one_interest_is_b3s():
         tscore = (u @ t.T + (0 if b is None else b))[torch.arange(33), tcol]
         for target_col in ((tcol + off).to(torch.int32), None):
             kw = dict(target_col=target_col, bias=b, n_valid=n_valid, col_offset=off)
-            got = CT.fused_interest_ge_count(u[:, None, :], t, tscore, **kw)
-            assert torch.equal(got, CT.fused_ge_count_plain(u, t, tscore, **kw))
+            got = CT.fused_ge_count(u[:, None, :], t, tscore, **kw)
+            assert torch.equal(got, CT.fused_ge_count(u, t, tscore, **kw))
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 8])
@@ -230,8 +231,9 @@ def _forward_route_metrics(argv, model_path, monkeypatch):
 
 
 def _spy_routes(monkeypatch):
-    """Counts of the catalog routes' calls; the candidate-tiled forward
-    routes raise."""
+    """Counts of the catalog routes' calls (the rank count's with u [B, K,
+    D], a multi-interest model's; any other shape raises); the
+    candidate-tiled forward routes raise."""
     calls = {"interest_count": 0, "bucket_max": 0}
 
     def count(name, fn):
@@ -240,11 +242,16 @@ def _spy_routes(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
+    def interest_count(u, *a, **k):
+        assert u.dim() == 3, f"the rank count took u of shape {tuple(u.shape)}"
+        calls["interest_count"] += 1
+        return real_count(u, *a, **k)
+
     def refuse(*a, **k):
         raise AssertionError("a catalog-protocol model reached the candidate-tiled forward")
 
-    monkeypatch.setattr(CT, "fused_interest_ge_count",
-                        count("interest_count", CT.fused_interest_ge_count))
+    real_count = CT.fused_ge_count
+    monkeypatch.setattr(CT, "fused_ge_count", interest_count)
     monkeypatch.setattr(CT, "fused_bucket_max", count("bucket_max", CT.fused_bucket_max))
     monkeypatch.setattr(tbase.BaseRunner, "_tiled_forward_ranks", refuse)
     monkeypatch.setattr(tbase.BaseRunner, "_tiled_forward_topk", refuse)

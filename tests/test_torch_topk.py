@@ -118,11 +118,13 @@ def test_tiled_catalog_topk_matches_jax(with_bias, with_clicked, grouped, bucket
         v_ref, i_ref = jax.jit(lambda: JT.tiled_catalog_topk(
             jnp.asarray(u), jnp.asarray(t), k, bias=_j(bias), clicked_rows=_j(clicked),
             n_valid=n_valid, bucket=bucket, col_offset=col_offset, grouped_table=gt))()
+    # the port rescores from the grouped copy in every case; `grouped`
+    # picks the JAX package's route, the reference
     tt = torch.from_numpy(t)
     v, i = TT.tiled_catalog_topk(
-        torch.from_numpy(u), tt, k, bias=_t(bias), clicked_rows=_t(clicked),
-        n_valid=n_valid, bucket=bucket, col_offset=col_offset,
-        grouped_table=TT.group_table_for_rescore(tt, bucket=bucket) if grouped else None)
+        torch.from_numpy(u), tt, k, grouped_table=TT.group_table_for_rescore(tt, bucket=bucket),
+        bias=_t(bias), clicked_rows=_t(clicked), n_valid=n_valid, bucket=bucket,
+        col_offset=col_offset)
     assert i.dtype == torch.int32
     assert_topk_match(v, i, v_ref, i_ref)
     if with_clicked:
@@ -307,7 +309,9 @@ def test_tiled_catalog_topk_approx_without_reduction_equals_jax():
         v_ref, i_ref = jax.jit(lambda: JT.tiled_catalog_topk(
             jnp.asarray(u), jnp.asarray(t), k, clicked_rows=jnp.asarray(clicked), n_valid=N,
             approx=True, recall_target=0.98))()
-    v, i = TT.tiled_catalog_topk(torch.from_numpy(u), torch.from_numpy(t), k,
+    tt = torch.from_numpy(t)
+    v, i = TT.tiled_catalog_topk(torch.from_numpy(u), tt, k,
+                                 grouped_table=TT.group_table_for_rescore(tt),
                                  clicked_rows=torch.from_numpy(clicked), n_valid=N, approx=True,
                                  recall_target=0.98)
     assert_topk_match(v, i, v_ref, i_ref)
