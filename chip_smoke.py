@@ -182,6 +182,10 @@ KERNELS = {  # name: (wrapper, TPU kernel it replaces, CUDA source)
     # B3, and for u [B, K, D] D9, its count over a multi-interest model's
     # max (the JAX package ranks such a model through its forward)
     "fused_ge_count": (CT.fused_ge_count, "rechorus_tpu/ops/pallas_topk.py:185", CATALOG_SRC),
+    # D11, the exact top-k's two-level bucket select: the JAX package's is
+    # a max, two top-k and a gather, which XLA runs (no pallas_call)
+    "bucket_select": (CT.bucket_select, "none (two top-k and a gather, rechorus_tpu/ops/topk.py:165)",
+                      CATALOG_SRC),
     # D6, the exact top-k's grouped rescore: the JAX package's is a gather
     # and an einsum, which XLA runs (no pallas_call)
     "bucket_rescore": (CT.bucket_rescore, "none (a gather and einsum, rechorus_tpu/ops/topk.py:227)",
@@ -836,6 +840,7 @@ def phase_kernels(gen):
         del x, vals, cols, want_v, want_c
         torch.cuda.empty_cache()
     interest = interest_vs_plain(gen, err, sub, inputs)
+    select = select_vs_plain(err, inputs)
     rescore = rescore_vs_plain(err, inputs)
     reciprocal = commit_vs_plain(gen, err)
     dense = dense_vs_plain(gen, err)
@@ -845,7 +850,7 @@ def phase_kernels(gen):
          scatter_rows_cases=[[n, w, str(dt), r, d] for n, w, dt, r, d in b4_cases],
          adam_commit_cases=[[lay, n, d, str(dt), r, l2] for lay, n, d, dt, r, l2 in COMMIT_CASES],
          approx_bin_max_cases=[[b, n, L, kind] for (b, n), L, kind in APPROX_CASES],
-         interest_ge_cases=interest, bucket_rescore_cases=rescore,
+         interest_ge_cases=interest, bucket_select_cases=select, bucket_rescore_cases=rescore,
          adam_dense_cases=dense, **reciprocal)
     return err
 
@@ -933,6 +938,47 @@ def interest_vs_plain(gen, err, sub, inputs) -> list:
         del u, table, bias, got, ref
         torch.cuda.empty_cache()
     return [list(c) for c in INTEREST_CASES]
+
+
+def select_vs_plain(err, inputs) -> list:
+    """D11 (`bucket_select`) against its plain version (the two top-k passes
+    it replaced) at the serve shape: the TOPK + N_CLICKED largest of B2's
+    [BATCH, G] maxima over the [N_ITEMS + 1, EMB] catalog, in RESCORE_CASES
+    (integer scores tie at the kk boundary in most rows). Each value is B2's
+    maximum at its id bit for bit; the values sorted equal the plain
+    version's; the ids above each row's kk-th value equal as sets, and all
+    kk of them where that value has no tie outside the kk."""
+    N, kk = N_ITEMS + 1, TOPK + N_CLICKED
+    for kind, with_bias, n_valid, off in RESCORE_CASES:
+        u, table = inputs(kind, BATCH, EMB), inputs(kind, N, EMB)
+        bias = inputs(kind, N) if with_bias else None
+        bm = CT.fused_bucket_max(u, table, bucket=TT.DEFAULT_BUCKET, bias=bias, n_valid=n_valid,
+                                 col_offset=off)
+        del u, table, bias
+        G = bm.shape[1]
+        fan = TT._two_level_fan(G)
+        before = CT.bucket_select.launches
+        gv, gb = CT.bucket_select(bm, kk, fan)
+        want_v, want_i = CT.bucket_select_plain(bm, kk, fan)
+        torch.cuda.synchronize()
+        what = f"bucket_select {kind} [{BATCH}, {G}] kk={kk} fan={fan}"
+        check(CT.bucket_select.launches == before + 1, f"{what}: one launch")
+        check(bool(((gb >= 0) & (gb < G)).all()), f"{what}: ids in [0, G)")
+        check(torch.equal(bm.gather(1, gb).view(torch.int32), gv.view(torch.int32)),
+              f"{what}: each value is B2's maximum at its id, bit for bit")
+        got_sorted = gv.sort(1, descending=True).values
+        check(torch.equal(got_sorted, want_v), f"{what}: the values equal the plain version's")
+        kth = want_v[:, -1:]
+        above = [i.masked_fill(~(v > kth), -1).sort(1).values for v, i in ((gv, gb), (want_v, want_i))]
+        check(torch.equal(*above), f"{what}: the ids above the kk-th value equal the plain version's")
+        distinct = (bm >= kth).sum(1) == kk
+        check(torch.equal(gb[distinct].sort(1).values, want_i[distinct].sort(1).values),
+              f"{what}: the ids equal the plain version's where the kk-th value has no tie")
+        e = float((got_sorted - want_v).abs().nan_to_num().max())
+        err["bucket_select"] = max(err["bucket_select"], e)
+        del bm, gv, gb, want_v, want_i
+        torch.cuda.empty_cache()
+    return [list(c) for c in RESCORE_CASES]
 
 
 # D6 at the serve shape: (kind, bias, n_valid, col_offset) over [BATCH, EMB]
@@ -3477,9 +3523,10 @@ def phase_parallel(totals, plain_test_all: dict, ut, it, users, target):
     with torch.no_grad():
         with counted(totals) as c:
             v4, i4, r4 = four_shards()
-        check(c.launches["fused_bucket_max"] == m_axis and c.launches["bucket_rescore"] == m_axis
-              and c.launches["fused_ge_count"] == m_axis,
-              f"one B2, one grouped rescore and one B3 launch a shard: {c.launches}")
+        check(all(c.launches[k] == m_axis for k in
+                  ("fused_bucket_max", "bucket_select", "bucket_rescore", "fused_ge_count")),
+              f"one B2, one bucket select, one grouped rescore and one B3 launch a shard: "
+              f"{c.launches}")
         v1, i1, r1 = one_shard()
         check(torch.allclose(v4, v1, rtol=1e-5, atol=1e-9), "4-shard top-100 values = the 1-shard route's")
         close = (v1[:, :, None] - v1[:, None, :]).abs() <= 1e-5 * v1[:, :, None].abs()
@@ -3608,11 +3655,46 @@ def phase_times(grocery_model, grocery_corpus, idx, ut, it, users, target):
                 lambda: CT.fused_ge_count(u4.view(B * K, D), it, ts4.repeat_interleave(K), n_valid=N), 10))
         del u4, ts4
         torch.cuda.empty_cache()
+        # D11 at the serve shape: each user's TOPK + N_CLICKED largest of
+        # B2's maxima; bound: the maxima read, the values and ids written.
+        # Plain: the route it replaced; library: one torch.topk over them
+        kk, bucket = TOPK + N_CLICKED, TT.DEFAULT_BUCKET
+        bm = CT.fused_bucket_max(u, it, **bm_kw)
+        G = bm.shape[1]
+        fan = TT._two_level_fan(G)
+        rows["bucket_select"] = dict(
+            ms=cuda_ms(lambda: CT.bucket_select(bm, kk, fan), 20),
+            device_ms=device_ms(lambda: CT.bucket_select(bm, kk, fan), 5),
+            plain_ms=cuda_ms(lambda: CT.bucket_select_plain(bm, kk, fan), 10),
+            library_ms=cuda_ms(lambda: torch.topk(bm, kk, dim=1), 5),
+            shape=[B, G, kk, fan], bound=bound_ms(4 * B * G + 12 * B * kk, B * G))
+        # D11 where its keys need more than 48 KB of shared memory: the
+        # runner's top-100 with 1,000 clicked ids over the same maxima (70 KB),
+        # and Gaussian maxima of 1,024 users over a 10M catalog (157 KB)
+        kk_wide = TOPK + 1000
+        rows["bucket_select"]["at_wide_clicked"] = dict(
+            ms=cuda_ms(lambda: CT.bucket_select(bm, kk_wide, fan), 10),
+            plain_ms=cuda_ms(lambda: CT.bucket_select_plain(bm, kk_wide, fan), 5),
+            shape=[B, G, kk_wide, fan],
+            bound=bound_ms(4 * B * G + 12 * B * kk_wide, B * G))
+        B10, G10 = 1024, 625_024
+        bm10 = torch.randn(B10, G10, generator=torch.Generator(device="cuda").manual_seed(SEED + 11),
+                           device=dev)
+        fan10 = TT._two_level_fan(G10)
+        gv10 = CT.bucket_select(bm10, kk, fan10)[0].sort(1, descending=True).values
+        check(torch.equal(gv10, CT.bucket_select_plain(bm10, kk, fan10)[0]),
+              f"bucket_select [{B10}, {G10}] kk={kk}: the values equal the plain version's")
+        rows["bucket_select"]["at_10m"] = dict(
+            ms=cuda_ms(lambda: CT.bucket_select(bm10, kk, fan10), 10),
+            plain_ms=cuda_ms(lambda: CT.bucket_select_plain(bm10, kk, fan10), 5),
+            shape=[B10, G10, kk, fan10],
+            bound=bound_ms(4 * B10 * G10 + 12 * B10 * kk, B10 * G10))
+        del bm10, gv10
         # D6 at the serve shape: each user's TOPK + N_CLICKED buckets of B2's
         # maxima, scored from the index's grouped copy; bound: the slices
         # and the users read, the selection read, the scores and ids written
-        kk, bucket = TOPK + N_CLICKED, TT.DEFAULT_BUCKET
-        gv, gb = TT.two_level_bucket_select(CT.fused_bucket_max(u, it, **bm_kw), kk)
+        gv, gb = TT.two_level_bucket_select(bm, kk)
+        del bm
         rs_kw = dict(n_rows=N, n_valid=idx.n_items)
         rows["bucket_rescore"] = dict(
             ms=cuda_ms(lambda: CT.bucket_rescore(u, idx.grouped, gb, gv, **rs_kw), 20),

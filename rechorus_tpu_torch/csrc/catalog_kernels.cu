@@ -22,10 +22,13 @@
 //
 //   rtt_interest_ge_kernel B3's count over a max of K interest scores
 //
-// and one replaces a gather and an einsum that XLA ran on the TPU:
+// and two replace steps of the exact top-k that XLA ran on the TPU:
 //
-//   rtt_bucket_rescore_kernel  the exact top-k's rescore of the selected
-//                          buckets (rechorus_tpu/ops/topk.py:227)
+//   rtt_bucket_select_kernel   its two-level select of the top buckets, a
+//                          max, two top-k and a gather
+//                          (rechorus_tpu/ops/topk.py:165)
+//   rtt_bucket_rescore_kernel  its rescore of the selected buckets, a
+//                          gather and an einsum (rechorus_tpu/ops/topk.py:227)
 //
 // The TPU kernels run their grid in order and carry a count in the output
 // block from one catalog step to the next. Here blocks run in parallel and
@@ -724,6 +727,252 @@ rtt_bucket_rescore_kernel(const float* __restrict__ u, const float* __restrict__
   }
 }
 
+// ------------------------------------------------- exact bucket select (D11) --
+// Step 2 of the exact hierarchical top-k: each row's kk largest bucket
+// maxima of B2's [B, G] output, by the contiguous two-level select of
+// rechorus_tpu/ops/topk.py::two_level_bucket_select (a max over super-
+// buckets of F columns, a top-kk of those, a gather of the winners' F
+// members and a top-kk of them; XLA ran it, no Pallas kernel). Exact: every
+// column at or above the kk-th largest value v* lies in a super whose
+// maximum is >= v*, and at most kk supers hold one.
+//
+// Bounded by bytes: at the serve shape (4096 x 62,592, F 16, kk 132) it
+// reads the 1.03 GB of bucket maxima once (0.31 ms at 3.35 TB/s) and
+// writes 6.5 MB. What the design does about it:
+//
+//   * One block a row. It reads the row once with 16-byte loads, F / 4
+//     neighbouring threads a super, kSelectLoads loads a thread in flight
+//     before any is used, and keeps only the ceil(G / F) super maxima, in
+//     shared memory (15.6 KB at the serve shape), so several blocks an SM
+//     stream while others select.
+//   * Values become 32-bit keys whose unsigned order is the float order
+//     (-inf above nothing but an absent slot, key 0), so a maximum is an
+//     integer max and the kk-th largest is a radix select: four passes of
+//     an 8-bit histogram in shared memory, 4 keys a thread a step, a
+//     thread's run of equal digits added at once.
+//   * The kk supers above that key, then the first of its ties in index
+//     order, are taken by a block-wide scan of 4 keys a thread, so the
+//     result is the same on every run; their kk * F members (2,112 at the
+//     serve shape) are read again, through L2 mostly, and selected the same
+//     way.
+//   * A row writes kk values, each bm at its id bit for bit, and int64 ids
+//     in [0, G): first those above the kk-th value, then its ties, each in
+//     the order of the supers taken. A row with fewer than kk finite
+//     maxima fills with -inf buckets.
+// The keys take up to 224 KB of shared memory: a 10M-item catalog's
+// 39,064 super maxima take 157 KB, and such rows run one block an SM. The
+// launcher refuses a shape past that or not read in 16-byte loads
+// (ops/cuda_topk.py::bucket_select_fits).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W at the serve shape: 0.442-
+// 0.447 ms against the 0.31 ms bound, 32 registers, no spill (the two
+// top-k passes it replaced: 2.70; torch.topk over the rows: 3.22). The
+// read alone takes 0.329, as long as torch's max over the same rows; a
+// first version that took one key a thread a step in the select, with a
+// ballot scan, took 0.48-0.50: its select did not hide behind the reads.
+namespace {
+constexpr int kSelectThreads = 256;        // = the histogram's bins: one a thread in the scan
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr int kSelectLoads = 4;            // 16-byte loads a thread in flight
+constexpr int kSelectBlocks = 8;           // blocks an SM: 32 registers a thread, 2,048 threads
+// keys and supers: up to the 227 KB a block may use on sm_90, less the
+// static scratch (the serve shape takes 15.6 KB, and 8 blocks an SM)
+constexpr int kSelectSmemBytes = 224 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+__device__ __forceinline__ unsigned key_max(float4 v) {
+  return max(max(order_key(v.x), order_key(v.y)), max(order_key(v.z), order_key(v.w)));
+}
+
+// Scratch of the block-wide steps, in static shared memory.
+struct SelectScratch {
+  int hist[kSelectThreads];
+  int warp_sums[kSelectWarps];
+  int digit, remaining;
+};
+
+__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// The k-th largest of keys[0, n) (1 <= k <= n; n a multiple of 4, read 4
+// keys a thread at a time), and in *need how many of the keys equal to it
+// are among the k largest. Every thread returns both.
+__device__ unsigned block_kth_key(const unsigned* keys, int n, int k, SelectScratch& sc,
+                                  int* need) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint4* keys4 = reinterpret_cast<const uint4*>(keys);
+  unsigned prefix = 0, mask = 0;
+  int remaining = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    sc.hist[tid] = 0;
+    __syncthreads();
+    for (int i = tid; i < n / 4; i += kSelectThreads) {
+      const uint4 q = keys4[i];
+      const unsigned kv[4] = {q.x, q.y, q.z, q.w};
+      unsigned run = 256u;  // a run of equal digits is added at once
+      int count = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((kv[j] & mask) != prefix) continue;
+        const unsigned digit = (kv[j] >> shift) & 255u;
+        if (digit != run) {
+          if (count) atomicAdd(sc.hist + run, count);
+          run = digit;
+          count = 0;
+        }
+        ++count;
+      }
+      if (count) atomicAdd(sc.hist + run, count);
+    }
+    __syncthreads();
+    // thread t holds digit 255 - t: an inclusive scan over threads is the
+    // count of keys (under the prefix) whose digit is at or above its own
+    const int d = kSelectThreads - 1 - tid;
+    const int h = sc.hist[d];
+    int incl = h;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) sc.warp_sums[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += sc.warp_sums[w];
+    if (incl - h < remaining && remaining <= incl) {
+      sc.digit = d;
+      sc.remaining = remaining - (incl - h);
+    }
+    __syncthreads();
+    prefix |= (unsigned)sc.digit << shift;
+    mask |= 255u << shift;
+    remaining = sc.remaining;
+  }
+  *need = remaining;
+  return prefix;
+}
+
+// take(slot, i, key) for each i of keys[0, n) (n a multiple of 4) whose
+// key is above kth, at slots [0, k - need) in index order, and for the
+// first `need` keys equal to kth, at slots [k - need, k). One scan over
+// the block a step of 4 keys a thread, the count above kth in the low 16
+// bits and the count equal to it in the high 16.
+template <class Take>
+__device__ void block_take_top(const unsigned* keys, int n, unsigned kth, int need, int k,
+                               SelectScratch& sc, const Take& take) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint4* keys4 = reinterpret_cast<const uint4*>(keys);
+  int base_gt = 0, base_eq = 0;
+  for (int i0 = 0; i0 < n; i0 += 4 * kSelectThreads) {
+    const int i = i0 + 4 * tid;
+    const uint4 q = i < n ? keys4[i / 4] : make_uint4(0u, 0u, 0u, 0u);
+    const unsigned kv[4] = {q.x, q.y, q.z, q.w};
+    int v = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v += (kv[j] > kth) + ((kv[j] == kth) << 16);
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += x;
+    }
+    if (lane == 31) sc.warp_sums[warp] = incl;
+    __syncthreads();
+    int before = incl - v, total = 0;
+#pragma unroll
+    for (int w = 0; w < kSelectWarps; ++w) {
+      const int s = sc.warp_sums[w];
+      if (w < warp) before += s;
+      total += s;
+    }
+    int og = base_gt + (before & 0xffff), oe = base_eq + (before >> 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (kv[j] > kth) {
+        take(og++, i + j, kv[j]);
+      } else if (kv[j] == kth) {
+        if (oe < need) take(k - need + oe, i + j, kv[j]);
+        ++oe;
+      }
+    }
+    base_gt += total & 0xffff;
+    base_eq += total >> 16;
+    __syncthreads();
+    if (base_gt == k - need && base_eq >= need) break;
+  }
+}
+}  // namespace
+
+// bm [B, G] (one block a row, 16-byte aligned, G % 4 == 0); gv [B, kk],
+// gb [B, kk]; F % 4 == 0 and F / 4 divides 32.
+__global__ void __launch_bounds__(kSelectThreads, kSelectBlocks)
+rtt_bucket_select_kernel(const float* __restrict__ bm, float* __restrict__ gv,
+                         int64_t* __restrict__ gb, int G, int F, int kk) {
+  extern __shared__ uint4 select_smem[];
+  __shared__ SelectScratch sc;
+  const int tid = threadIdx.x;
+  const int S = (G + F - 1) / F, C = kk * F;
+  unsigned* keys = reinterpret_cast<unsigned*>(select_smem);  // max(S, C) keys, padded to 4
+  int* supers = reinterpret_cast<int*>(keys + round4(max(S, C)));  // kk super ids
+  const float* row = bm + (int64_t)blockIdx.x * G;
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+  const int n4 = G / 4;
+  const int L = F / 4, lg = __ffs(L) - 1;  // threads a super, a power of two
+
+  // 1. the super maxima, as keys (key 0 in the pad)
+  for (int q0 = 0; q0 < n4; q0 += kSelectThreads * kSelectLoads) {
+    unsigned m[kSelectLoads];
+#pragma unroll
+    for (int j = 0; j < kSelectLoads; ++j) {
+      const int q = q0 + j * kSelectThreads + tid;
+      m[j] = q < n4 ? key_max(__ldg(row4 + q)) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kSelectLoads; ++j) {
+      for (int off = 1; off < L; off <<= 1) m[j] = max(m[j], __shfl_xor_sync(kFull, m[j], off));
+      const int q = q0 + j * kSelectThreads + tid;
+      if (q < n4 && (q & (L - 1)) == 0) keys[q >> lg] = m[j];
+    }
+  }
+  if (tid < round4(S) - S) keys[S + tid] = 0u;
+  __syncthreads();
+
+  // 2. the kk supers of the largest maxima
+  int need;
+  const unsigned kth_super = block_kth_key(keys, round4(S), kk, sc, &need);
+  block_take_top(keys, round4(S), kth_super, need, kk, sc,
+                 [&](int slot, int s, unsigned) { supers[slot] = s; });
+  __syncthreads();
+
+  // 3. their members, candidate c = member c % F of supers[c / F] (key 0
+  // past G and in the pad), and the kk largest of those
+  for (int i = tid; i < kk * L; i += kSelectThreads) {
+    const int q = (supers[i >> lg] << lg) + (i & (L - 1));
+    uint4 k4 = make_uint4(0u, 0u, 0u, 0u);
+    if (q < n4) {
+      const float4 v = __ldg(row4 + q);
+      k4 = make_uint4(order_key(v.x), order_key(v.y), order_key(v.z), order_key(v.w));
+    }
+    select_smem[i] = k4;
+  }
+  if (tid < round4(C) - C) keys[C + tid] = 0u;
+  __syncthreads();
+  const unsigned kth = block_kth_key(keys, round4(C), kk, sc, &need);
+  float* v_out = gv + (int64_t)blockIdx.x * kk;
+  int64_t* id_out = gb + (int64_t)blockIdx.x * kk;
+  block_take_top(keys, round4(C), kth, need, kk, sc, [&](int slot, int c, unsigned key) {
+    v_out[slot] = key_value(key);
+    id_out[slot] = (int64_t)supers[c / F] * F + c % F;
+  });
+}
+
 // ------------------------------------------------------------ launchers --
 namespace {
 constexpr int kGeChunks = 16;  // fused_ge_count: 16 x 128 = 2048 rows a catalog block
@@ -834,6 +1083,27 @@ extern "C" int rtt_bucket_rescore(const float* u, const float* grouped, const in
   kernel<<<(unsigned)cdiv(n_slices, slots), kRescoreThreads, smem, stream>>>(
       u, grouped, gb, gv, bias, cs, cand, n_slices, kk, K, D, bucket, Gp, N, n_valid, col_offset,
       slots, Dp);
+  return cudaGetLastError();
+}
+
+// bm [B, G] float32 bucket maxima; gv [B, kk] float32, gb [B, kk] int64
+// out. Takes 16-byte aligned bm with G % 4 == 0, F % 4 == 0 with F / 4
+// dividing 32, kk <= ceil(G / F), and keys that fit kSelectSmemBytes:
+// 4 * (max(ceil(G / F), kk * F), rounded up to 4, + kk) bytes.
+extern "C" int rtt_bucket_select(const float* bm, float* gv, int64_t* gb, int B, int G, int F,
+                                 int kk, cudaStream_t stream) {
+  if (B <= 0 || G <= 0 || F <= 0 || kk <= 0 || G % 4 != 0 || F % 4 != 0 || 32 % (F / 4) != 0 ||
+      (reinterpret_cast<uintptr_t>(bm) & 15) != 0)
+    return cudaErrorInvalidValue;
+  const int64_t S = cdiv(G, F);
+  const int64_t smem = 4 * ((std::max<int64_t>(S, (int64_t)kk * F) + 3) / 4 * 4 + kk);
+  if (kk > S || smem > kSelectSmemBytes) return cudaErrorInvalidValue;
+  // per device, so on every launch (as launch_fused)
+  const cudaError_t err = cudaFuncSetAttribute(
+      rtt_bucket_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  rtt_bucket_select_kernel<<<(unsigned)B, kSelectThreads, (int)smem, stream>>>(bm, gv, gb, G, F,
+                                                                              kk);
   return cudaGetLastError();
 }
 

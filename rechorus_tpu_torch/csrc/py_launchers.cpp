@@ -32,6 +32,7 @@ int rtt_fused_ge_count(const float*, const float*, const float*, const int*, con
                        int, int, int, int, int, int, int, cudaStream_t);
 int rtt_bucket_rescore(const float*, const float*, const int64_t*, const float*, const float*, float*,
                        int64_t*, int, int, int, int, int, int, int, int, int, cudaStream_t);
+int rtt_bucket_select(const float*, float*, int64_t*, int, int, int, int, cudaStream_t);
 int rtt_approx_bin_max(const float*, float*, int*, int, int, int, cudaStream_t);
 int rtt_scatter_rows(void*, const int*, const void*, int64_t, int64_t, int64_t, cudaStream_t);
 int rtt_adam_commit_packed(float*, const float*, const float*, const int64_t*, int64_t, int64_t,
@@ -169,6 +170,9 @@ BIND(rtt_fused_ge_count, "ppppppiiiiiiip", P(0, const float*), P(1, const float*
 BIND(rtt_bucket_rescore, "ppppppp" "iiiiiiiii" "p", P(0, const float*), P(1, const float*),
      P(2, const int64_t*), P(3, const float*), P(4, const float*), P(5, float*), P(6, int64_t*), I(7),
      I(8), I(9), I(10), I(11), I(12), I(13), I(14), I(15))
+// bm, gv, gb, B, G, F, kk
+BIND(rtt_bucket_select, "pppiiiip", P(0, const float*), P(1, float*), P(2, int64_t*), I(3), I(4),
+     I(5), I(6))
 // x, vals, idx, B, N, L
 BIND(rtt_approx_bin_max, "pppiiip", P(0, const float*), P(1, float*), P(2, int*), I(3), I(4), I(5))
 // table, rows, block, N, R, row_bytes
@@ -192,6 +196,7 @@ PyMethodDef methods[] = {
     METHOD(rtt_fused_bucket_max),
     METHOD(rtt_fused_ge_count),
     METHOD(rtt_bucket_rescore),
+    METHOD(rtt_bucket_select),
     METHOD(rtt_approx_bin_max),
     METHOD(rtt_scatter_rows),
     METHOD(rtt_adam_commit_packed),

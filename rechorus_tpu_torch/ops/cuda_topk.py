@@ -20,6 +20,10 @@ matrix never reaches device memory:
   the K interests, taken before the compare (the count of a max is no
   function of the K counts); one kernel body serves every K.
 
+`bucket_select` -- stage 2 of the exact top-k: each row's kk largest
+  bucket maxima of `fused_bucket_max`'s output, by the contiguous two-level
+  select (super maxima, then their winners' members), in one launch.
+
 `bucket_rescore` -- stage 3 of the exact top-k: every item of each user's
   selected buckets scored again, straight from the grouped copy
   (`topk.group_table_for_rescore`), with the id masks, in B2's order of
@@ -34,7 +38,8 @@ matrix never reaches device memory:
 Masks live in GLOBAL id space: global id = local row + `col_offset`.
 On CUDA tensors the wrappers launch `rtt_bucket_max_kernel` /
 `rtt_fused_ge_kernel` (`rtt_interest_ge_kernel` at K > 1) /
-`rtt_bucket_rescore_kernel` / `rtt_approx_bin_max_kernel`
+`rtt_bucket_select_kernel` / `rtt_bucket_rescore_kernel` /
+`rtt_approx_bin_max_kernel`
 (csrc/catalog_kernels.cu); on CPU tensors they run the `*_plain`
 versions, which materialize the masked scores.
 """
@@ -112,6 +117,78 @@ def fused_bucket_max(u, table, *, bucket: int, bias=None, n_valid=None,
 
 
 fused_bucket_max.launches = 0
+
+
+# shared memory `rtt_bucket_select_kernel` keeps a row's keys in: its
+# ceil(G / F) super maxima, later its kk * F candidates, and kk super ids
+# (up to the 227 KB a block may use on sm_90, less its static scratch)
+SELECT_SMEM_BYTES = 224 * 1024
+
+
+def bucket_select_fits(G: int, kk: int, fan: int) -> bool:
+    """Whether `bucket_select`'s kernel takes [B, G] maxima at kk and fan F:
+    rows read in 16-byte loads (G % 4 == 0; F % 4 == 0 with F / 4 dividing
+    32), kk at most ceil(G / F) supers, and 4 * (max(ceil(G / F), kk * F),
+    rounded up to 4, + kk) bytes of keys within SELECT_SMEM_BYTES (G up to
+    915,392 at F 16 and kk 132; kk up to 3,373 at G 62,592 and F 16)."""
+    if G % 4 or fan <= 0 or fan % 4 or 32 % (fan // 4):
+        return False
+    S = _cdiv(G, fan)
+    return 1 <= kk <= S and 4 * (_cdiv(max(S, kk * fan), 4) * 4 + kk) <= SELECT_SMEM_BYTES
+
+
+def bucket_select_plain(bm: torch.Tensor, kk: int, fan: int):
+    """`bucket_select` as PyTorch ops: pad G to a multiple of F with -inf,
+    top-kk of the [B, S] super maxima, gather the winners' F contiguous
+    members, top-kk of those. Values descending."""
+    B, G = bm.shape
+    pad = (-G) % fan
+    if pad:
+        bm = F.pad(bm, (0, pad), value=float("-inf"))
+    mem = bm.view(B, -1, fan)                                          # [B, S, F]
+    _, sb = torch.topk(mem.amax(-1), kk, dim=1)                        # [B, kk]
+    rows = mem.gather(1, sb[:, :, None].expand(B, kk, fan))            # [B, kk, F]
+    gb_all = sb[:, :, None] * fan + torch.arange(fan, device=bm.device)
+    v, sel = torch.topk(rows.reshape(B, -1), kk, dim=1)
+    return v, gb_all.reshape(B, -1).gather(1, sel)
+
+
+def bucket_select(bm: torch.Tensor, kk: int, fan: int):
+    """(values [B, kk] float32, column ids [B, kk] int64): the kk largest of
+    each row of bm [B, G] float32 (B2's bucket maxima), exact, by the
+    contiguous two-level select with super-buckets of `fan` columns. Each
+    value is bm at its id bit for bit. The kk come back in no particular
+    order: first those above the kk-th value, then its ties; which of
+    several exactly tied columns at the kk boundary is taken may differ
+    from `torch.topk`'s choice. A row with fewer than kk finite columns
+    fills with -inf ones. Ids lie in [0, G).
+
+    Kernel on CUDA tensors: a 16-byte aligned bm within
+    `bucket_select_fits`, else ValueError. Plain on CPU ones, at any shape,
+    values descending."""
+    if bm.device.type == "cpu":
+        return bucket_select_plain(bm, kk, fan)
+    if bm.device.type != "cuda":
+        raise ValueError(f"bucket_select: no kernel for device {bm.device}")
+    B, G = bm.shape
+    _build.check_input("bucket_select", "bm", bm, torch.float32, (B, G), bm.device)
+    if not bucket_select_fits(G, kk, fan):
+        raise ValueError(f"bucket_select: G={G}, kk={kk}, fan={fan} outside the kernel's "
+                         f"limits (G and fan multiples of 4, fan / 4 dividing 32, "
+                         f"kk <= ceil(G / fan), keys within {SELECT_SMEM_BYTES} bytes)")
+    if bm.data_ptr() % 16:
+        raise ValueError("bucket_select: bm must be 16-byte aligned")
+    _build.check_int32("bucket_select", B=B, G=G)
+    gv = torch.empty(B, kk, dtype=torch.float32, device=bm.device)
+    gb = torch.empty(B, kk, dtype=torch.int64, device=bm.device)
+    if B:
+        _build.launchers.rtt_bucket_select(bm.get_device(), bm.data_ptr(), gv.data_ptr(),
+                                           gb.data_ptr(), B, G, int(fan), int(kk))
+        bucket_select.launches += 1
+    return gv, gb
+
+
+bucket_select.launches = 0
 
 
 def expand_bucket_items(gb: torch.Tensor, bucket: int, nb: int = NB) -> torch.Tensor:

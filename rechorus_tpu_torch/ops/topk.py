@@ -9,7 +9,8 @@ functions here stream the catalog through the fused kernels of
 `tiled_catalog_topk` -- hierarchical exact top-k:
   1. `fused_bucket_max`: per strided bucket of `bucket` items, the
      masked max score ([B, G] with G = N / bucket, rounded up to 128).
-  2. Exact top `k+M` buckets (`two_level_bucket_select` on wide G).
+  2. Exact top `k+M` buckets (`two_level_bucket_select` on wide G: one
+     `bucket_select` launch; the k+M in no particular order).
   3. Rescore only the winning buckets' items ((k+M)*bucket per user)
      from the grouped copy (`group_table_for_rescore`, built once per
      table by the caller: `rescore_copy`), in one `bucket_rescore` launch
@@ -75,29 +76,25 @@ def _two_level_fan(G: int) -> int:
 
 def two_level_bucket_select(bm: torch.Tensor, kk: int, fan: int | None = None):
     """Exact top-kk (values, column ids) over a wide [B, G] bucket-max
-    matrix via a CONTIGUOUS two-level select: reshape to [B, G/F, F]
-    super-buckets, top-kk of the super maxima, gather the winners' F
-    contiguous members, top-kk of those.
+    matrix via a CONTIGUOUS two-level select (`cuda_topk.bucket_select`:
+    super-buckets of F columns, top-kk of their maxima, top-kk of the
+    winners' members), in one launch on the card.
 
     Exact because every column >= v* (the kk-th largest) lives in a super
-    with max >= v*, and at most kk supers have one. On exact f32 ties at
-    the kk boundary the id reported among tied columns may differ from a
-    direct top-k. When kk >= G the output narrows to G columns.
+    with max >= v*, and at most kk supers have one. The kk come back in no
+    particular order, and on exact f32 ties at the kk boundary the id
+    reported among tied columns may differ from a direct top-k. Where the
+    gather would cover (nearly) the whole matrix (G <= F * kk) the direct
+    `torch.topk` runs, values descending; when kk >= G the output narrows
+    to G columns. On the card a shape past the kernel's limits
+    (`cuda_topk.bucket_select_fits`) raises.
     """
-    B, G = bm.shape
+    G = bm.shape[1]
     if fan is None:
         fan = _two_level_fan(G)
-    if kk >= G or G <= fan * kk:
+    if G <= fan * kk:
         return torch.topk(bm, min(kk, G), dim=1)
-    pad = (-G) % fan
-    if pad:
-        bm = torch.nn.functional.pad(bm, (0, pad), value=float("-inf"))
-    mem = bm.view(B, -1, fan)                                          # [B, S, F]
-    _, sb = torch.topk(mem.amax(-1), kk, dim=1)                        # [B, kk]
-    rows = mem.gather(1, sb[:, :, None].expand(B, kk, fan))            # [B, kk, F]
-    gb_all = sb[:, :, None] * fan + torch.arange(fan, device=bm.device)
-    v, sel = torch.topk(rows.reshape(B, -1), kk, dim=1)
-    return v, gb_all.reshape(B, -1).gather(1, sel)
+    return CT.bucket_select(bm, kk, fan)
 
 
 def approx_max_k(x: torch.Tensor, k: int, recall_target: float = 0.98):

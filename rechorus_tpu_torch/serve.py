@@ -144,4 +144,20 @@ class ServeIndex:
             v, i = metrics_ops.masked_topk(scores, cl, self.k, n_valid=self.n_items,
                                            approx=self.approx, recall_target=self.recall_target)
         with span("serve.results"):
-            return i.cpu().numpy(), v.cpu().numpy()
+            return _to_host(i, v)
+
+
+def _to_host(*ts):
+    """The tensors `ts` (all on one device) as host numpy arrays. From the
+    card they go through pinned blocks of torch's caching host allocator,
+    one non-blocking copy each and one stream synchronise. On an H100 a
+    pageable `.cpu()` of a 4,096-user batch's results took 2.3 ms in place
+    of 0.46 in most batches of some serving processes; through pinned
+    blocks every batch ran at the card's pace."""
+    if ts[0].device.type != "cuda":
+        return tuple(t.cpu().numpy() for t in ts)
+    hs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in ts]
+    for h, t in zip(hs, ts):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(ts[0].device).synchronize()
+    return tuple(h.numpy() for h in hs)

@@ -167,6 +167,26 @@ def test_serve_index_defaults_to_the_card(dev):
     np.testing.assert_allclose(scores, ref[1], rtol=2e-5, atol=1e-5)
 
 
+def test_serve_results_outlive_the_next_query(dev):
+    """`ServeIndex.query` copies its results through pinned host blocks:
+    a result keeps its values after the next query reuses those blocks,
+    and both equal the CPU index's, in its dtypes."""
+    rng = np.random.default_rng(14)
+    u_table = rng.normal(size=(40, 8)).astype(np.float32)
+    i_table = rng.integers(-8, 9, size=(16384 + 5, 8)).astype(np.float32)
+    idx = ServeIndex.from_tables(u_table, i_table, k=10)
+    cpu = ServeIndex.from_tables(u_table, i_table, k=10, device="cpu")
+    first = idx.query(np.arange(1, 17))
+    kept = [a.copy() for a in first]
+    second = idx.query(np.arange(17, 33))
+    for a, b in zip(first, kept):
+        np.testing.assert_array_equal(a, b)
+    for got, users in ((first, np.arange(1, 17)), (second, np.arange(17, 33))):
+        want = cpu.query(users)
+        assert [a.dtype for a in got] == [a.dtype for a in want]
+        np.testing.assert_allclose(got[1], want[1], rtol=2e-5, atol=1e-5)
+
+
 # N, W, dtype, R: row bytes that take the 16-, 4-, 2- and 1-byte unit paths
 SCATTER_SHAPES = [(1, 1, torch.float32, 1), (97, 192, torch.float32, 50),
                   (300, 64, torch.bfloat16, 300), (1001, 50, torch.float32, 333),
@@ -806,3 +826,129 @@ def test_bucket_rescore_checks_its_inputs(dev):
         CT.bucket_rescore(torch.zeros(4, 9, 8, device=dev), g, gb, gv, n_rows=160)
     with pytest.raises(ValueError, match="is on"):
         CT.bucket_rescore(u, g.cpu(), gb, gv, n_rows=160)
+
+
+def _select_limit(G, fan):
+    """The largest kk that `bucket_select` takes at G and fan."""
+    return max(kk for kk in range(1, 4 * TT.TWO_LEVEL_FAN_WIDE * 128)
+               if CT.bucket_select_fits(G, kk, fan))
+
+
+# B, G, kk, fan: the main paths' shapes (serving at 1M items, k 100 + 32
+# clicked; the 100k exact lane; a [250001, 64] shard of the 1M table; a
+# 10M catalog's 39,064 super maxima; the runner's top-100 with 1,000
+# clicked ids), a partial last super, kk 1, kk of one super, and kk at the
+# kernel's limit
+SELECT_SHAPES = [
+    (4096, 62592, 132, 16),
+    (64, 6272, 132, 8),
+    (64, 15744, 132, 8),
+    (4, 625024, 132, 16),
+    (16, 62592, 1100, 16),
+    (9, 7004, 40, 16),
+    (8, 62592, 1, 16),
+    (8, 62592, 12, 16),
+    (8, 62592, "limit", 16),
+]
+
+
+def _select_rows(gen, B, G, kk, fan):
+    """Gaussian [B, G] bucket maxima with planted rows: -inf pad columns
+    (B2's overhang), fewer than kk finite columns, exact ties across the kk
+    boundary, and every winner in as few supers as hold kk columns."""
+    bm = torch.randn(B, G, generator=gen)
+    bm[0, G - 300:] = float("-inf")
+    bm[1] = float("-inf")
+    bm[1, torch.randperm(G, generator=gen)[:kk // 2]] = 1.0 + torch.rand(kk // 2, generator=gen)
+    top = bm[2].topk(kk + 5).indices
+    bm[2, top[max(kk - 3, 0):]] = float(bm[2, top[kk - 1]])
+    s = int(torch.randint(0, G // fan - kk // fan - 1, (1,), generator=gen))
+    bm[3] -= 10.0
+    bm[3, s * fan: s * fan + kk] = 10.0 + torch.rand(kk, generator=gen)
+    return bm
+
+
+@pytest.mark.parametrize("B,G,kk,fan", SELECT_SHAPES)
+def test_bucket_select_kernel_equals_plain(dev, B, G, kk, fan):
+    """D11 (`rtt_bucket_select_kernel`) against its plain version (the
+    two top-k passes it replaced): every value is bm at its id bit for
+    bit, ids in [0, G); the kk values equal the plain version's as sorted
+    lists, and the ids equal it as sets wherever the kk-th value has no
+    tie outside the kk (else the ids above the kk-th value equal as sets);
+    one launch a call, and a second call returns the same tensors."""
+    if kk == "limit":
+        kk = _select_limit(G, fan)
+        assert not CT.bucket_select_fits(G, kk + 1, fan)
+    gen = torch.Generator().manual_seed(G + kk + fan)
+    bm = _select_rows(gen, B, G, kk, fan)
+    bm_dev = bm.to(dev)
+    before = CT.bucket_select.launches
+    gv, gb = CT.bucket_select(bm_dev, kk, fan)
+    assert CT.bucket_select.launches == before + 1
+    again = CT.bucket_select(bm_dev, kk, fan)
+    assert torch.equal(again[0], gv) and torch.equal(again[1], gb)
+    gv, gb = gv.cpu(), gb.cpu()
+    assert gb.dtype == torch.int64 and gb.shape == (B, kk) and gv.shape == (B, kk)
+    assert ((gb >= 0) & (gb < G)).all()
+    assert torch.equal(bm.gather(1, gb).view(torch.int32), gv.view(torch.int32))
+    v_ref, i_ref = CT.bucket_select_plain(bm, kk, fan)
+    assert torch.equal(gv.sort(1, descending=True).values, v_ref)
+    kth = v_ref[:, -1:]
+
+    def above(v, i):
+        return i.masked_fill(~(v > kth), -1).sort(1).values
+
+    assert torch.equal(above(gv, gb), above(v_ref, i_ref))
+    distinct = (bm >= kth).sum(1) == kk
+    assert distinct[0] and distinct[3] and not distinct[1] and not distinct[2]
+    assert torch.equal(gb[distinct].sort(1).values, i_ref[distinct].sort(1).values)
+    assert torch.isneginf(gv[1]).sum() == kk - kk // 2
+
+
+def test_bucket_select_checks_its_inputs(dev):
+    bm = torch.zeros(4, 7000, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        CT.bucket_select(bm.double(), 40, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        CT.bucket_select(torch.zeros(7000, 4, device=dev).T, 40, 8)
+    with pytest.raises(ValueError, match="limits"):       # keys past shared memory
+        CT.bucket_select(torch.zeros(2, 62592, device=dev), 3374, 16)
+    with pytest.raises(ValueError, match="limits"):       # more than the 875 supers
+        CT.bucket_select(bm, 876, 8)
+    with pytest.raises(ValueError, match="limits"):       # a ragged G: no 16-byte loads
+        CT.bucket_select(torch.zeros(4, 7001, device=dev), 40, 8)
+    with pytest.raises(ValueError, match="limits"):       # 3 threads a super
+        CT.bucket_select(bm, 40, 12)
+    with pytest.raises(ValueError, match="aligned"):
+        CT.bucket_select(torch.zeros(4 * 7000 + 1, device=dev)[1:].view(4, 7000), 40, 8)
+    assert CT.bucket_select(bm[:0], 40, 8)[1].shape == (0, 40)
+
+
+def test_tiled_topk_on_card_selects_buckets_in_one_launch(dev):
+    """`tiled_catalog_topk` at the 100k exact lane's G (6,272 >= the
+    two-level select's 6,144, fan 8): one D11 and one D6 launch a call,
+    and the top-100 of Gaussian scores equals the same call on CPU tensors
+    (the plain select and rescore) up to ties, and a float64 top-k."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    B, N, D, k, M = 64, 100_001, 64, 100, 32
+    u = torch.randn(B, D, generator=gen, device=dev)
+    t = torch.randn(N, D, generator=gen, device=dev)
+    clicked = torch.randint(1, N, (B, M), generator=gen, device=dev).to(torch.int32)
+    s64 = u.double() @ t.double().T
+    masked = s64.clone()
+    masked[:, 0] = float("-inf")
+    masked.scatter_(1, clicked.long(), float("-inf"))
+    v64, i64 = masked.topk(k, dim=1)
+    sel, res = CT.bucket_select.launches, CT.bucket_rescore.launches
+    v, i = TT.tiled_catalog_topk(u, t, k, grouped_table=TT.group_table_for_rescore(t),
+                                 clicked_rows=clicked)
+    assert (CT.bucket_select.launches, CT.bucket_rescore.launches) == (sel + 1, res + 1)
+    v_cpu, i_cpu = TT.tiled_catalog_topk(u.cpu(), t.cpu(), k, clicked_rows=clicked.cpu(),
+                                         grouped_table=TT.group_table_for_rescore(t.cpu()))
+    assert CT.bucket_select.launches == sel + 1
+    torch.testing.assert_close(v.cpu(), v_cpu, rtol=2e-5, atol=1e-5)
+    for vv, ii in ((v, i), (v_cpu.to(dev), i_cpu.to(dev))):
+        vv, ii = vv.double(), ii.long()
+        torch.testing.assert_close(vv, v64, rtol=2e-5, atol=1e-5)
+        diff = ii != i64
+        torch.testing.assert_close(vv[diff], v64[diff], rtol=2e-5, atol=0)

@@ -84,6 +84,50 @@ def test_two_level_bucket_select_matches_jax(G, kk, fan):
     assert_topk_match(v, i, v_ref, i_ref)
 
 
+@pytest.mark.parametrize("G,kk,route,fits", [
+    (62_592, 132, "kernel", True),      # serving at 1M items: k 100 + 32 clicked, fan 16
+    (6_272, 132, "kernel", True),       # the 100k exact lane, fan 8
+    (15_744, 132, "kernel", True),      # a [250001, 64] shard of the 1M table, fan 8
+    (62_592, 1_100, "kernel", True),    # the runner's top-100 with 1,000 clicked ids
+    (625_024, 132, "kernel", True),     # a 10M catalog: 39,064 super maxima, 157 KB
+    (62_592, 3_373, "kernel", True),    # the kernel's largest kk at fan 16: 224 KB
+    (62_592, 3_374, "kernel", False),   # one more: past its shared memory (CPU: plain)
+    (915_456, 132, "kernel", False),    # 57,216 super maxima: past it (CPU: plain)
+    (6_272, 800, "direct", False),      # G <= fan * kk (and kk past the 784 supers)
+])
+def test_two_level_bucket_select_routes_by_shape(monkeypatch, G, kk, route, fits):
+    """`two_level_bucket_select` sends every shape with G > fan * kk to
+    `bucket_select` (the D11 kernel on the card, which refuses a shape past
+    `bucket_select_fits`; its plain version at any shape here), else to the
+    direct `torch.topk`; both give the exact top-kk."""
+    calls = []
+    real = CT.bucket_select
+    monkeypatch.setattr(CT, "bucket_select",
+                        lambda bm, k, fan: calls.append((k, fan)) or real(bm, k, fan))
+    bm = torch.randn(2, G, generator=torch.Generator().manual_seed(G + kk))
+    v, i = TT.two_level_bucket_select(bm, kk)
+    assert len(calls) == (route == "kernel")
+    fan = TT._two_level_fan(G)
+    assert (route == "kernel") == (G > fan * kk)
+    assert CT.bucket_select_fits(G, kk, fan) == fits
+    v_ref, i_ref = torch.topk(bm, kk, dim=1)
+    assert torch.equal(v.sort(1, descending=True).values, v_ref)
+    assert torch.equal(i.sort(1).values, i_ref.sort(1).values)
+
+
+@pytest.mark.parametrize("G,fan", [(7_001, 8), (7_000, 12), (7_000, 24), (7_000, 0)])
+def test_bucket_select_fits_only_16_byte_rows(G, fan):
+    """The kernel reads rows in 16-byte loads, F / 4 threads a super: a G
+    or fan that is no multiple of 4, or a fan whose F / 4 does not divide
+    a warp, is outside its limits; its plain version still runs it."""
+    assert not CT.bucket_select_fits(G, 40, fan)
+    if fan:
+        bm = torch.randn(3, G, generator=torch.Generator().manual_seed(G + fan))
+        v, i = CT.bucket_select(bm, 40, fan)
+        v_ref, i_ref = torch.topk(bm, 40, dim=1)
+        assert torch.equal(v, v_ref) and torch.equal(i.sort(1).values, i_ref.sort(1).values)
+
+
 @pytest.mark.parametrize("bucket", [16, 4])
 def test_group_table_for_rescore_matches_jax(bucket):
     rng = np.random.default_rng(4)
